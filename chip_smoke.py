@@ -1,0 +1,488 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (``triton_dist_tpu_torch``).
+
+Run from the root of the repository on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, each printing its lines:
+
+1. device: the card's name and power limit (``nvidia-smi``), the torch and
+   CUDA versions, the TF32 switches (both off);
+2. build: every CUDA source of the port compiled with ``nvcc`` for sm_90a,
+   all at once, from the files in the repository;
+3. kernels: each kernel against its plain PyTorch version at the shapes of
+   the serving path, in bf16 and f32, with stated tolerances, and timed
+   beside its plain version and the closest single PyTorch call;
+4. model: the paged decode step's logits against a dense full-sequence
+   forward, in f32 at the full width of Llama-3-8B with the depth cut to 4
+   layers, and in bf16 at full width and depth (random weights from a seed);
+5. engine: a seeded trace served by ``ServingEngine`` at full width, with
+   admission, chunked prefill, growth and preemption; every request must
+   finish, the kernel's launch count must match the dispatches, and a rerun
+   must give bit-identical token streams;
+6. profile: one decode dispatch under ``torch.profiler``, its device time by
+   kernel family and the device's idle share.
+
+It then prints one JSON line of kernel results and, last, the JSON result
+line. Without CUDA, or away from the rest of the repository, it exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and op/s by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# kernel vs plain version: out tolerance by type, lse tolerance (f32 both)
+OUT_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LSE_ATOL = 1e-3
+
+HQ, HKV, D, PS, PPS = 32, 8, 128, 16, 64           # Llama-3-8B serving path
+# a pool of 128 pages (2048 tokens) is small enough that the trace below
+# preempts (three times) while every request still fits alone
+ENGINE = dict(num_slots=8, page_size=PS, pages_per_seq=PPS, num_pages=128,
+              decode_horizon=4, prefill_chunk=256)
+N_REQUESTS = 16
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def attention_cases(dtype, device, seed: int = 0) -> dict:
+    """The two shapes the serving path gives ``gqa_decode_paged``.
+
+    ``decode``: 8 slots of one decode step, ragged lengths with an empty row
+    and a full row, garbage block-table entries past each row's live pages.
+    ``chunk``: 256 rows of one prefill chunk, all walking one sequence's
+    pages at staggered lengths (chunk start 512, 240 real rows, 16 padded
+    rows with length 0)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_pages = 1 + 8 * PPS                      # page 0 is the scratch page
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(dtype)
+
+    def garbage(n):
+        return torch.randint(-10 ** 6, 10 ** 6, (n,), generator=gen,
+                             device=device, dtype=torch.int32)
+
+    k = randn(n_pages, HKV, PS, D)
+    v = randn(n_pages, HKV, PS, D)
+    pages = torch.arange(1, n_pages, device=device,
+                         dtype=torch.int32).view(8, PPS)
+
+    kv_dec = torch.tensor([PPS * PS, 0, 1, 517, 300, 16, 17, 999],
+                          dtype=torch.int32, device=device)
+    bt_dec = pages.clone()
+    for b in range(8):
+        live = -(-int(kv_dec[b]) // PS)
+        bt_dec[b, live:] = garbage(PPS - live)
+
+    start, real, rows = 512, 240, 256
+    kv_chunk = torch.zeros(rows, dtype=torch.int32, device=device)
+    kv_chunk[:real] = torch.arange(start + 1, start + real + 1,
+                                   dtype=torch.int32, device=device)
+    live = -(-(start + real) // PS)
+    row = pages[0].clone()
+    row[live:] = garbage(PPS - live)
+    bt_chunk = row[None].expand(rows, PPS).contiguous()
+    return {
+        "decode": dict(q=randn(8, HQ, D), k=k, v=v, bt=bt_dec, kv_len=kv_dec,
+                       shared=False),
+        "chunk": dict(q=randn(rows, HQ, D), k=k, v=v, bt=bt_chunk,
+                      kv_len=kv_chunk, shared=True),
+    }
+
+
+def attention_bound(case: dict, dtype_name: str) -> tuple[float, str]:
+    """Least time for the work: each input byte read once (the distinct
+    live pages, however many rows share them), each output byte written
+    once, against 2 * 2 * Hq * D operations per (row, key)."""
+    q, kv_len, bt = case["q"], case["kv_len"], case["bt"]
+    esize = q.element_size()
+    B = q.shape[0]
+    live = set()
+    for b in range(B):
+        n = -(-int(kv_len[b]) // PS)
+        live.update(int(p) for p in bt[b, :n])
+    page_bytes = HKV * PS * D * esize
+    nbytes = (2 * q.numel() * esize + B * HQ * 4 + 2 * len(live) * page_bytes
+              + sum(-(-int(n) // PS) for n in kv_len) * 4 + B * 4)
+    ops = 4 * HQ * D * int(kv_len.sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_call(case: dict):
+    """The closest single PyTorch call, as a yardstick only: scaled dot-
+    product attention over the same K/V gathered contiguous outside the
+    timed call, with the lengths as a mask."""
+    import torch
+    import torch.nn.functional as F
+
+    q, kv_len = case["q"], case["kv_len"]
+    P = case["k"].shape[0]
+    B = q.shape[0]
+    S = PPS * PS
+    keys = torch.arange(S, device=q.device)
+    if case["shared"]:
+        pages = case["bt"][0].long().clamp(0, P - 1)
+        kc = case["k"][pages].permute(1, 0, 2, 3).reshape(1, HKV, S, D)
+        vc = case["v"][pages].permute(1, 0, 2, 3).reshape(1, HKV, S, D)
+        qc = q.transpose(0, 1)[None]                          # [1, Hq, B, D]
+        mask = (keys[None, :] < kv_len[:, None])[None, None]  # [1,1,B,S]
+    else:
+        pages = case["bt"].long().clamp(0, P - 1)
+        kc = case["k"][pages].permute(0, 2, 1, 3, 4).reshape(B, HKV, S, D)
+        vc = case["v"][pages].permute(0, 2, 1, 3, 4).reshape(B, HKV, S, D)
+        qc = q[:, :, None]                                    # [B, Hq, 1, D]
+        mask = (keys[None, :] < kv_len[:, None])[:, None, None]
+    return lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def check_attention(device, timed: bool = True) -> list[dict]:
+    """Kernel against plain version in bf16 and f32 at both shapes; raises
+    on disagreement. Returns one record per (type, shape)."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    records = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for shape, case in attention_cases(dtype, device).items():
+            args = (case["q"], case["k"], case["v"], case["bt"],
+                    case["kv_len"])
+            out, lse = fd.gqa_decode_paged(*args)
+            ref_out, ref_lse = fd.gqa_decode_paged_plain(*args)
+            err = (out.float() - ref_out.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            rec = {"case": f"{name} {shape} B={case['q'].shape[0]}",
+                   "max_abs_err": err, "lse_max_abs_err": lse_err,
+                   "atol": OUT_ATOL[name], "lse_atol": LSE_ATOL}
+            if timed:
+                rec["ms"] = perf_func(lambda: fd.gqa_decode_paged(*args))[1]
+                rec["plain_ms"] = perf_func(
+                    lambda: fd.gqa_decode_paged_plain(*args), iters=5)[1]
+                rec["library_ms"] = perf_func(sdpa_call(case))[1]
+                rec["bound_ms"], rec["bound_by"] = attention_bound(case, name)
+            log("kernel gqa_decode_paged", json.dumps(rec))
+            if not (err <= OUT_ATOL[name] and lse_err <= LSE_ATOL):
+                raise AssertionError(f"gqa_decode_paged disagrees with its "
+                                     f"plain version: {rec}")
+            records.append(rec)
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the paged decode step against a dense forward
+# ---------------------------------------------------------------------------
+
+# max |logit diff| / max |logit| of the paged decode step against the dense
+# forward: f32 sums in another order only; bf16 rounds activations at every
+# layer, and at 32 layers of random weights that reaches a few percent
+MODEL_TOL = {"float32": 1e-3, "bfloat16": 0.1}
+
+
+def check_model(params, cfg, device, prompt_len: int = 64) -> dict:
+    """One decode step through the paged pool (the kernel) against a dense
+    full-sequence forward over the same tokens (no kernel): the logits agree
+    within ``MODEL_TOL`` of their scale, and the greedy tokens agree wherever
+    the reference's top-2 gap is wider than that."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.serving.kv_pool import cache_to_pages
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    B = 4
+    toks = torch.randint(1, cfg.vocab_size, (B, prompt_len + 1),
+                         generator=gen, device=device)
+    ref, _ = llama.prefill(params, toks, cfg,
+                           llama.init_kv_cache(cfg, B, prompt_len + 1,
+                                               device=device))
+    cache = llama.init_kv_cache(cfg, B, prompt_len, device=device)
+    _, cache = llama.prefill(params, toks[:, :prompt_len], cfg, cache)
+    n = prompt_len // PS + 1
+    pool = llama.init_page_pool(cfg, 1 + B * n, PS, device=device)
+    bt = torch.arange(1, 1 + B * n, dtype=torch.int32,
+                      device=device).view(B, n)
+    cache_to_pages(cache["k"], pool["k"], bt[:, :prompt_len // PS])
+    cache_to_pages(cache["v"], pool["v"], bt[:, :prompt_len // PS])
+    pos = torch.full((B,), prompt_len, dtype=torch.int32, device=device)
+    got, _ = llama.decode_step_paged(params, toks[:, -1].int(), pos, cfg,
+                                     pool, bt)
+    tol = MODEL_TOL[str(cfg.dtype).split(".")[-1]]
+    scale = ref.abs().max().item()
+    rel = (got - ref).abs().max().item() / scale
+    top2 = ref.topk(2, -1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol * scale
+    same = got.argmax(-1) == ref.argmax(-1)
+    rec = {"dtype": str(cfg.dtype), "layers": cfg.n_layers, "rows": B,
+           "prompt_len": prompt_len, "max_rel_err": rel, "tol": tol,
+           "finite": bool(torch.isfinite(got).all()),
+           "shape": list(got.shape), "clear_rows": int(clear.sum()),
+           "tokens_equal_rows": int(same.sum())}
+    log("model decode_step_paged vs dense", json.dumps(rec))
+    if not (rec["finite"] and rel <= tol and bool(same[clear].all())
+            and rec["shape"] == [B, cfg.vocab_size]):
+        raise AssertionError(f"paged decode disagrees with the dense "
+                             f"forward: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving engine
+# ---------------------------------------------------------------------------
+
+def make_trace(cfg, n: int, seed: int, lo: int = 64, hi: int = 768):
+    """``n`` seeded requests, prompts of ``lo``..``hi`` tokens and 16..64 new
+    tokens, arriving one per engine step. The lengths come from their own
+    generator, so the page schedule (and the preemptions) do not depend on
+    the vocabulary."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(lo, hi + 1, n)
+    budgets = rng.randint(16, 65, n)
+    tok_rng = np.random.RandomState(seed + 1)
+    return [(i, [int(t) for t in tok_rng.randint(1, cfg.vocab_size, plen)],
+             int(m)) for i, (plen, m) in enumerate(zip(lens, budgets))]
+
+
+def serve(params, cfg, device, trace, engine_kw: dict) -> tuple:
+    """Serve ``trace`` on a fresh engine; returns (tokens by rid, engine,
+    wall seconds, kernel launches in the run)."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(params, cfg, device=device, **engine_kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    fd.gqa_decode_paged.launches = 0
+    t0 = time.perf_counter()
+    res = eng.run(max_steps=10_000, arrivals=trace)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return res, eng, time.perf_counter() - t0, fd.gqa_decode_paged.launches
+
+
+def check_engine(params, cfg, device, trace, engine_kw: dict,
+                 card: str) -> dict:
+    """Serve the trace twice; raise unless every request finished with its
+    full budget (``tokens_generated`` also counts the tokens a preempted
+    request generated again), a preemption happened, the kernel ran on every
+    attention of the run and the two runs' token streams are bit-identical."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res, eng, wall, launches = serve(params, cfg, device, trace, engine_kw)
+    c = eng.metrics.counters
+    h = eng.metrics.hist
+    expect_launches = cfg.n_layers * (eng.decode_horizon * c["dispatches"]
+                                      + c["prefill_chunks"])
+    rec = {
+        "card": card, "requests": len(trace),
+        "finished": c["requests_finished"],
+        "tokens_generated": c["tokens_generated"],
+        "tokens_expected": sum(m for _, _, m in trace),
+        "prompt_tokens": sum(len(p) for _, p, _ in trace),
+        "preemptions": c["preemptions"], "dispatches": c["dispatches"],
+        "prefill_chunks": c["prefill_chunks"],
+        "gqa_decode_paged_launches": launches,
+        "launches_expected": expect_launches,
+        "wall_s": wall, "tok_per_s": c["tokens_generated"] / wall,
+        "ttft_p50_s": h["ttft_s"].percentile(50),
+        "step_device_mean_s": h["step_device_s"].mean,
+        "step_host_mean_s": h["step_host_s"].mean,
+        "prefill_stall_mean_s": h["prefill_stall_s"].mean,
+        "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if device.type == "cuda" else None),
+    }
+    del eng
+    res2, eng2, wall2, launches2 = serve(params, cfg, device, trace,
+                                         engine_kw)
+    rec["rerun_bit_identical"] = res2 == res
+    rec["rerun_wall_s"] = wall2
+    del eng2
+    log("engine", json.dumps(rec))
+    ok = (rec["finished"] == len(trace) and len(res) == len(trace)
+          and all(len(res[i]) == m for i, (_, _, m) in enumerate(trace))
+          and rec["tokens_generated"] >= rec["tokens_expected"]
+          and rec["preemptions"] >= 1 and launches > 0
+          and launches == expect_launches and launches2 == launches
+          and rec["rerun_bit_identical"])
+    if not ok:
+        raise AssertionError(f"engine run failed its checks: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 6: where a decode dispatch's time goes
+# ---------------------------------------------------------------------------
+
+def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
+                     horizon: int = 4) -> dict:
+    """One decode dispatch (``horizon`` steps over ``slots`` rows at ``kv``
+    tokens each): its median wall time over three plain runs (the ``.cpu()``
+    of the token slab waits for the card), then one run under
+    ``torch.profiler`` for the device time by kernel family and the device
+    ops per step. The idle share is 1 - device time / plain wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from triton_dist_tpu_torch.models import llama
+
+    n = -(-(kv + horizon) // PS)
+    pool = llama.init_page_pool(cfg, 1 + slots * n, PS, device=device)
+    bt = torch.arange(1, 1 + slots * n, dtype=torch.int32,
+                      device=device).view(slots, n)
+    token = torch.ones(slots, dtype=torch.int32, device=device)
+    pos = torch.full((slots,), kv, dtype=torch.int32, device=device)
+    limit = torch.full((slots,), horizon, dtype=torch.int32, device=device)
+
+    def dispatch():
+        return llama.decode_multistep_paged(params, token, pos, cfg, pool, bt,
+                                            limit, horizon=horizon)[0].cpu()
+
+    card = device.type == "cuda"
+    dispatch()                                   # warm-up
+    if card:
+        torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):                           # unprofiled wall clock
+        t0 = time.perf_counter()
+        dispatch()
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[1]
+    with profile(activities=[ProfilerActivity.CPU] +
+                 ([ProfilerActivity.CUDA] if card else [])) as prof:
+        dispatch()
+        if card:
+            torch.cuda.synchronize()
+    fams = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+    kernels = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kernels += 1
+        name = e.name.lower()
+        fam = ("attention" if "decode_paged_kernel" in name else
+               "gemm" if any(k in name for k in ("gemm", "gemv", "xmma",
+                                                  "nvjet", "cutlass"))
+               else "other")
+        fams[fam] += e.time_range.elapsed_us() / 1e6
+    busy = sum(fams.values())
+    rec = {"slots": slots, "kv_len": kv, "horizon": horizon,
+           "wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1 - busy / wall if busy else None,
+           "device_s_by_family": fams,
+           "device_ops_per_step": kernels / horizon}
+    log("profile decode dispatch", json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "triton_dist_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from triton_dist_tpu_torch import csrc
+    from triton_dist_tpu_torch.models.llama import LlamaConfig, init_params
+    from triton_dist_tpu_torch.utils.env import set_tf32
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    card = smi.splitlines()[0]
+    log(card)
+    log(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
+        f"cuda {torch.version.cuda}; tf32 {set_tf32(False)}")
+
+    report = csrc.build()
+    for name, r in report.items():
+        log(f"build {name}.cu: {r['seconds']:.2f} s")
+        for line in r["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas", line.strip())
+
+    attention = check_attention(device)
+
+    # f32 at full width, depth cut to 4 layers: the tight check
+    cfg32 = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=4,
+                                dtype=torch.float32)
+    check_model(init_params(cfg32, seed=1, device=device), cfg32, device)
+    torch.cuda.empty_cache()
+
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params["blocks"].values()) \
+        + 2 * cfg.vocab_size * cfg.d_model
+    log(f"params {cfg.n_layers} layers x d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B, made in {time.perf_counter() - t0:.1f} s")
+    check_model(params, cfg, device)
+    engine = check_engine(params, cfg, device, make_trace(cfg, N_REQUESTS, 0),
+                          ENGINE, card)
+
+    profile_dispatch(params, cfg, device)
+
+    main_case = attention[0]          # bf16 decode, the hot shape
+    log(json.dumps({"kernels": [{
+        "name": "gqa_decode_paged", "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/flash_decode_paged.cu",
+        "replaces": "triton_dist_tpu/ops/flash_decode.py:184",
+        "launches": engine["gqa_decode_paged_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in attention),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"], "case": main_case["case"],
+        "cases": attention}]}))
+    log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

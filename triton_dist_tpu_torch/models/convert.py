@@ -1,0 +1,50 @@
+"""Parameters of the JAX package, as numpy arrays, into the port's dict.
+
+The cross-framework tests build weights with the JAX ``init_params`` and run
+both models on them. ``jax.tree.map(np.asarray, params)`` gives bf16 arrays
+of ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses; they travel as
+their raw 16-bit words (``view(np.uint16)`` then ``view(torch.bfloat16)``),
+which is bit-exact. A round trip through f32 would be exact too, but it
+would hide a wrong type; the words cannot.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from triton_dist_tpu_torch.utils.env import default_device
+
+
+def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """One array, bit for bit, on ``device``."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:      # jax hands out read-only views
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(np_params: dict, device="cuda",
+                    dtype: torch.dtype | None = None) -> dict:
+    """The JAX parameter pytree (nested dicts of numpy arrays) as the port's
+    parameter dict: the same keys, shapes and layouts, bit for bit.
+    ``dtype``, when given, is the model's working type: every array must be
+    in it or in f32 (the norm gains), else this raises rather than re-round
+    the reference's weights."""
+    dev = default_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        t = tensor_from_numpy(np.asarray(tree), dev)
+        if dtype is not None and t.dtype not in (dtype, torch.float32):
+            raise TypeError(f"array of type {t.dtype} in a {dtype} model")
+        return t
+
+    return conv(np_params)
+
+
+__all__ = ["params_from_jax", "tensor_from_numpy"]

@@ -1,0 +1,353 @@
+"""Llama-style decoder, the serving half: prefill, paged decode, chunked
+paged prefill and the multi-token decode loop.
+
+Counterpart of ``triton_dist_tpu/models/llama.py`` with its layouts kept:
+parameters are a dict of stacked per-layer tensors (leading ``L`` dim), and a
+projection weight is ``[in, out]`` applied as ``x @ w``. PyTorch runs
+eagerly, so the layer loop and the horizon loop are Python loops over device
+tensors; neither syncs with the host.
+
+The JAX functions are pure and return new caches and pools. Here the KV
+cache and the page pool are updated in place (the JAX serving engine donates
+them, so it updates them in place too) and returned for symmetry.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from triton_dist_tpu_torch.ops.flash_decode import (gqa_decode_paged,
+                                                    paged_kv_write)
+from triton_dist_tpu_torch.utils.env import default_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 11008
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-5
+    max_seq_len: int = 4096
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @classmethod
+    def llama_7b(cls):
+        return cls()
+
+    @classmethod
+    def llama3_8b(cls):
+        return cls(vocab_size=128256, d_model=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, d_ff=14336, rope_theta=5e5)
+
+    @classmethod
+    def llama3_70b(cls):
+        return cls(vocab_size=128256, d_model=8192, n_layers=80, n_heads=64,
+                   n_kv_heads=8, d_ff=28672, rope_theta=5e5)
+
+    @classmethod
+    def llama3_405b(cls):
+        return cls(vocab_size=128256, d_model=16384, n_layers=126,
+                   n_heads=128, n_kv_heads=8, d_ff=53248, rope_theta=5e5)
+
+    @classmethod
+    def mistral_7b(cls):
+        return cls(vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, d_ff=14336)
+
+    @classmethod
+    def qwen2_72b(cls):
+        return cls(vocab_size=152064, d_model=8192, n_layers=80, n_heads=64,
+                   n_kv_heads=8, d_ff=29568)
+
+    @classmethod
+    def tiny(cls, n_layers: int = 2):
+        """Test config: a few narrow layers."""
+        return cls(vocab_size=512, d_model=128, n_layers=n_layers, n_heads=4,
+                   n_kv_heads=2, d_ff=256, max_seq_len=128)
+
+
+def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> dict:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``:
+    scaled normals in ``cfg.dtype``, norm gains of one in f32. The same keys
+    and shapes as the JAX ``init_params``; the numbers differ (another
+    generator), so a cross-framework test converts the JAX ones instead
+    (``models.convert.params_from_jax``)."""
+    dev = default_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, D, Fd = cfg.n_layers, cfg.d_model, cfg.d_ff
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def norm(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).mul_(0.02).to(cfg.dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    out_scale = math.sqrt(2 * L)
+    return {
+        "embed": norm(cfg.vocab_size, D),
+        "blocks": {
+            "attn_norm": ones(L, D),
+            "wq": norm(L, D, Hq * Dh),
+            "wk": norm(L, D, Hkv * Dh),
+            "wv": norm(L, D, Hkv * Dh),
+            "wo": norm(L, Hq * Dh, D) / out_scale,
+            "mlp_norm": ones(L, D),
+            "w_gate": norm(L, D, Fd),
+            "w_up": norm(L, D, Fd),
+            "w_down": norm(L, Fd, D) / out_scale,
+        },
+        "final_norm": ones(D),
+        "lm_head": norm(D, cfg.vocab_size),
+    }
+
+
+# ---------------------------------------------------------------------------
+# math building blocks
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, w, eps: float):
+    x32 = x.float()
+    rms = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return ((x32 * rms) * w).to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """x [..., S, H, Dh]; positions [..., S]. Half-split RoPE, angles in
+    f32."""
+    half = x.shape[-1] // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device), exps)
+    angles = positions[..., None].float() * freqs             # [..., S, half]
+    cos = torch.cos(angles)[..., None, :]                  # [..., S, 1, half]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def _attention(q, k, v, sm_scale: float, kv_len=None):
+    """Causal GQA attention. q [B,S,Hq,Dh]; k,v [B,S,Hkv,Dh]. ``kv_len`` [B]
+    (optional) also masks keys at or after each row's length (the bucketed-
+    prefill guard against padded positions), with the same -1e30 fill. Scores
+    and the P.V product accumulate in f32; p is cast to v's type first."""
+    B, S, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, G, Dh).float()
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float()) * sm_scale
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    mask = mask[None, None, None]
+    if kv_len is not None:
+        valid = torch.arange(S, device=q.device)[None] < kv_len[:, None]
+        mask = mask & valid[:, None, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", p.to(v.dtype).float(), v.float())
+    return out.reshape(B, S, Hq, Dh).to(q.dtype)
+
+
+def _ffn(h, p):
+    gate = F.silu((h @ p["w_gate"]).float()).to(h.dtype)
+    return (gate * (h @ p["w_up"])) @ p["w_down"]
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {name: w[i] for name, w in params["blocks"].items()}
+
+
+def _head(params: dict, x, cfg: LlamaConfig):
+    """Final norm and LM head: logits in the working type, then f32, the
+    same rounding point as the JAX model (argmax ties resolve alike)."""
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache + bucketed prefill
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int,
+                  device="cuda") -> dict:
+    """Head-major contiguous cache ``[L, B, Hkv, S, D]``."""
+    dev = default_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def prefill(params: dict, tokens, cfg: LlamaConfig, cache: dict,
+            length=None):
+    """Full-sequence forward that also writes K/V into ``cache[:, :, :, :S]``
+    (in place). Returns (last-position logits [B, V] f32, cache).
+
+    ``length`` [B] (optional) is each row's valid prompt length when
+    ``tokens`` is padded to a bucket: the attention masks the padded tail and
+    the logits are taken at ``length - 1``."""
+    B, S = tokens.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = params["embed"][tokens].to(cfg.dtype)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        q = rope((h @ p["wq"]).view(B, S, Hq, Dh), positions, cfg.rope_theta)
+        k = rope((h @ p["wk"]).view(B, S, Hkv, Dh), positions, cfg.rope_theta)
+        v = (h @ p["wv"]).view(B, S, Hkv, Dh)
+        cache["k"][i, :, :, :S] = k.transpose(1, 2)
+        cache["v"][i, :, :, :S] = v.transpose(1, 2)
+        attn = _attention(q, k, v, 1.0 / math.sqrt(Dh), kv_len=length)
+        x = x + attn.reshape(B, S, Hq * Dh) @ p["wo"]
+        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(h, p)
+    if length is None:
+        last = x[:, -1]
+    else:
+        last = x[torch.arange(B, device=x.device), length.long() - 1]
+    return _head(params, last, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# paged serving path
+# ---------------------------------------------------------------------------
+
+def init_page_pool(cfg: LlamaConfig, num_pages: int, page_size: int,
+                   device="cuda") -> dict:
+    """Paged KV pool ``[L, P, Hkv, page_size, D]``; each page is the slice
+    ``gqa_decode_paged`` reads by block-table index. Page accounting is the
+    serving runtime's (``serving.kv_pool.KVPagePool``)."""
+    assert page_size % 8 == 0, f"page_size {page_size} must be 8-aligned"
+    dev = default_device(device)
+    shape = (cfg.n_layers, num_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def decode_step_paged(params: dict, token, pos, cfg: LlamaConfig,
+                      pages: dict, block_table, active=None,
+                      sample: bool = False):
+    """One-token decode over the paged pool, every row at its own depth.
+
+    ``token`` [B] and ``pos`` [B] int32 (per-row positions); ``block_table``
+    [B, pages_per_seq] int32. Each layer writes the new (k, v) into page
+    ``bt[b, pos_b // page_size]`` slot ``pos_b % page_size`` and attends with
+    ``gqa_decode_paged`` at ``kv_len = pos + 1``. Parked rows point their
+    block-table row at the scratch page 0. ``active`` [B] bool sends frozen
+    rows' writes to the scratch page. Returns (logits [B, V] f32, or with
+    ``sample=True`` the greedy token [B] int32, and the pages)."""
+    B = token.shape[0]
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = params["embed"][token].to(cfg.dtype)                 # [B, D]
+    positions = pos[:, None]                                 # [B, 1]
+    kv_len = (pos + 1).to(torch.int32)
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        q = rope((h @ p["wq"]).view(B, 1, Hq, Dh), positions,
+                 cfg.rope_theta)[:, 0]                       # [B, Hq, Dh]
+        k = rope((h @ p["wk"]).view(B, 1, Hkv, Dh), positions,
+                 cfg.rope_theta)[:, 0]                       # [B, Hkv, Dh]
+        v = (h @ p["wv"]).view(B, Hkv, Dh)
+        kp, vp = pages["k"][i], pages["v"][i]
+        paged_kv_write(kp, vp, k, v, block_table, pos, active=active)
+        attn, _lse = gqa_decode_paged(q, kp, vp, block_table, kv_len)
+        x = x + attn.reshape(B, Hq * Dh) @ p["wo"]
+        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(h, p)
+    logits = _head(params, x, cfg)
+    if sample:
+        return logits.argmax(-1).to(torch.int32), pages
+    return logits, pages
+
+
+def prefill_chunk_paged(params: dict, tokens, start: int, prompt_len: int,
+                        cfg: LlamaConfig, pages: dict, block_table):
+    """Prefill one fixed-size chunk of a prompt straight into the page pool.
+
+    ``tokens`` [C] int32 is chunk ``[start, start + C)`` of the prompt,
+    zero-padded past ``prompt_len``; ``block_table`` [pages_per_seq] int32 is
+    the sequence's row. The C tokens run as C rows of the paged decode
+    machinery: each writes its KV through ``paged_kv_write`` (padded rows go
+    to the scratch page) and attends with ``gqa_decode_paged`` at
+    ``kv_len = position + 1`` over every page filled so far, this chunk's
+    included. All rows' writes of a layer land before that layer's attention
+    reads (one stream, in order). Padded rows run with ``kv_len = 0``.
+
+    Returns ``(tok, pages)``: ``tok`` is the 0-d int32 greedy token of the
+    row at ``prompt_len - 1 - start`` (clamped into the chunk), meaningful
+    for the chunk that holds the prompt's last token."""
+    C = tokens.shape[0]
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dev = tokens.device
+    idx = start + torch.arange(C, dtype=torch.int32, device=dev)
+    valid = idx < prompt_len
+    zero = torch.zeros_like(idx)
+    pos = torch.where(valid, idx, zero)
+    kv_len = torch.where(valid, idx + 1, zero)
+    bt = block_table[None, :].expand(C, -1).contiguous()
+    x = params["embed"][tokens].to(cfg.dtype)                # [C, D]
+    positions = pos[:, None]
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        q = rope((h @ p["wq"]).view(C, 1, Hq, Dh), positions,
+                 cfg.rope_theta)[:, 0]
+        k = rope((h @ p["wk"]).view(C, 1, Hkv, Dh), positions,
+                 cfg.rope_theta)[:, 0]
+        v = (h @ p["wv"]).view(C, Hkv, Dh)
+        kp, vp = pages["k"][i], pages["v"][i]
+        paged_kv_write(kp, vp, k, v, bt, pos, active=valid)
+        attn, _lse = gqa_decode_paged(q, kp, vp, bt, kv_len)
+        x = x + attn.reshape(C, Hq * Dh) @ p["wo"]
+        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(h, p)
+    last = min(max(prompt_len - 1 - start, 0), C - 1)
+    logits = _head(params, x[last:last + 1], cfg)
+    return logits[0].argmax(-1).to(torch.int32), pages
+
+
+def decode_multistep_paged(params: dict, token, pos, cfg: LlamaConfig,
+                           pages: dict, block_table, limit, horizon: int,
+                           eos_id: int | None = None):
+    """``horizon`` sampled decode steps in one call, with no host sync.
+
+    ``limit`` [B] int32 is each row's step budget for this call (0 for parked
+    rows). A row freezes once its step index reaches its limit or it has
+    emitted ``eos_id``: its token and position stop advancing and its KV
+    writes go to the scratch page. Returns ``(toks [horizon, B] int32,
+    token [B], pos [B], pages)``, where ``toks[i, b]`` is row b's step-i
+    token (valid while the row was live) and token/pos are the rows' states
+    after the call."""
+    assert horizon >= 1
+    limit = limit.to(torch.int32)
+    stopped = torch.zeros(token.shape, dtype=torch.bool, device=token.device)
+    toks = []
+    for i in range(horizon):
+        act = (i < limit) & ~stopped
+        nxt, pages = decode_step_paged(params, token, pos, cfg, pages,
+                                       block_table, active=act, sample=True)
+        token = torch.where(act, nxt, token)
+        pos = torch.where(act, pos + 1, pos)
+        if eos_id is not None:
+            stopped = stopped | (act & (nxt == eos_id))
+        toks.append(nxt)
+    return torch.stack(toks), token, pos, pages
+
+
+__all__ = ["LlamaConfig", "init_params", "rmsnorm", "rope", "init_kv_cache",
+           "prefill", "init_page_pool", "decode_step_paged",
+           "prefill_chunk_paged", "decode_multistep_paged"]

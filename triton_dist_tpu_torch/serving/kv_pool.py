@@ -1,0 +1,209 @@
+"""Paged KV block allocator over the ``[P, Hkv, page_size, D]`` page pool
+that ``ops.flash_decode.gqa_decode_paged`` reads, and the converters between
+a contiguous cache and the pool.
+
+Counterpart of ``triton_dist_tpu/serving/kv_pool.py``:
+
+- **host accounting**: ``KVPagePool``, the reference's ledger for one
+  device — a LIFO free list over page ids with per-sequence ownership,
+  allocate-on-decode growth and free-on-finish. Pure Python and
+  deterministic: replaying a trace allocates the same pages. The prefix-
+  cache refcounts, the SP layout, the digest and snapshots, and the
+  migration and lending checks of the reference ledger belong to later
+  slices and are not here.
+- **device memory**: ``models.llama.init_page_pool`` tensors. Nothing in the
+  ledger looks at their values. ``cache_to_pages`` / ``pages_to_cache``
+  move whole pages between the head-major contiguous ``init_kv_cache``
+  layout and the pool (bit-exact round trip).
+"""
+
+from __future__ import annotations
+
+
+def _fnv1a(h: int, *words: int) -> int:
+    """Fold ints into a 32-bit FNV-1a state (4 bytes each, two's
+    complement for negative values); the scheduler's digest uses it."""
+    for w in words:
+        w &= 0xFFFFFFFF
+        for shift in (0, 8, 16, 24):
+            h ^= (w >> shift) & 0xFF
+            h = (h * 0x01000193) & 0xFFFFFFFF
+    return h
+
+
+class PageLedgerError(AssertionError):
+    """Page-accounting corruption: double free, freeing a foreign page, a
+    row wider than the block table. Raised explicitly (not via a bare
+    ``assert``) so detection survives ``python -O``; subclasses
+    ``AssertionError`` because callers catch the ledger checks as such."""
+
+
+class KVPagePool:
+    """Host-side free-list allocator over ``num_pages`` page ids.
+
+    Invariants (``check()`` audits them):
+    - a page id is owned by at most one sequence at a time;
+    - the ``reserved`` low ids are never handed out (the engine parks
+      inactive batch rows on page 0; their writes must never land on a live
+      sequence's page);
+    - alloc is all-or-nothing: a request for ``n`` pages either returns
+      ``n`` ids or ``None`` and changes nothing.
+    The free list is LIFO, so allocation order is deterministic.
+    """
+
+    def __init__(self, num_pages: int, page_size: int, reserved: int = 0):
+        assert num_pages > reserved >= 0
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.reserved = reserved
+        # LIFO: lowest ids on top, so a fresh pool allocates reserved, 1, 2…
+        self._free = list(range(num_pages - 1, reserved - 1, -1))
+        self._owned: dict[object, list[int]] = {}
+
+    # -- introspection ----------------------------------------------------
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return (self.num_pages - self.reserved) - len(self._free)
+
+    def occupancy(self) -> float:
+        cap = self.num_pages - self.reserved
+        return self.used_pages / cap if cap else 0.0
+
+    def pages_of(self, seq_id) -> list[int]:
+        return list(self._owned.get(seq_id, ()))
+
+    # -- allocation -------------------------------------------------------
+    def alloc(self, seq_id, n_pages: int) -> list[int] | None:
+        """Grow ``seq_id`` by ``n_pages``; all-or-nothing. Returns the new
+        page ids or ``None`` when the pool is dry."""
+        if n_pages > len(self._free):
+            return None
+        got = [self._free.pop() for _ in range(n_pages)]
+        self._owned.setdefault(seq_id, []).extend(got)
+        return got
+
+    def _release_page(self, seq_id, p: int) -> None:
+        if p in self._free:
+            raise PageLedgerError(f"double free of page {p} (seq {seq_id!r})")
+        self._free.append(p)
+
+    def ensure(self, seq_id, kv_len: int) -> bool:
+        """Allocate-on-decode growth: make ``seq_id`` own enough pages to
+        hold ``kv_len`` tokens. True on success (including no-op), False
+        when the pool is dry (the caller preempts and retries)."""
+        have = len(self._owned.get(seq_id, ()))
+        need = -(-kv_len // self.page_size) - have
+        if need <= 0:
+            return True
+        return self.alloc(seq_id, need) is not None
+
+    def free_tail(self, seq_id, keep: int) -> int:
+        """Free every page of ``seq_id`` past the first ``keep`` — the
+        mid-prefill preemption primitive: pages already holding computed KV
+        stay owned, only the unfilled tail returns. Freed in allocation
+        order, so replay stays deterministic. Returns how many were freed."""
+        pages = self._owned.get(seq_id, [])
+        if not 0 <= keep <= len(pages):
+            raise PageLedgerError(
+                f"free_tail(keep={keep}) out of range for seq {seq_id!r} "
+                f"owning {len(pages)} pages")
+        tail = pages[keep:]
+        for p in tail:
+            self._release_page(seq_id, p)
+        if keep:
+            self._owned[seq_id] = pages[:keep]
+        else:
+            self._owned.pop(seq_id, None)
+        return len(tail)
+
+    def free_seq(self, seq_id) -> int:
+        """Free-on-finish (and on preemption): return every page of
+        ``seq_id`` to the free list. Returns how many were freed."""
+        pages = self._owned.pop(seq_id, [])
+        for p in pages:
+            self._release_page(seq_id, p)
+        return len(pages)
+
+    def check(self) -> None:
+        """Full-invariant audit; raises ``PageLedgerError`` with the first
+        violation: every free and owned id is in ``[reserved, num_pages)``
+        and appears once; no id is both free and owned; free plus owned
+        account for every non-reserved page."""
+        owner: dict[int, object] = {}
+        for sid, pages in self._owned.items():
+            for p in pages:
+                if not (self.reserved <= p < self.num_pages):
+                    raise PageLedgerError(
+                        f"seq {sid!r} owns out-of-range page {p}")
+                if p in owner:
+                    raise PageLedgerError(
+                        f"page {p} owned by both {owner[p]!r} and {sid!r}")
+                owner[p] = sid
+        free = set(self._free)
+        if len(free) != len(self._free):
+            raise PageLedgerError("duplicate ids on the free list")
+        for p in free:
+            if not (self.reserved <= p < self.num_pages):
+                raise PageLedgerError(f"out-of-range page {p} on free list")
+            if p in owner:
+                raise PageLedgerError(
+                    f"page {p} is both free and owned by seq {owner[p]!r}")
+        if len(free) + len(owner) != self.num_pages - self.reserved:
+            raise PageLedgerError(
+                f"page conservation violated: {len(free)} free + "
+                f"{len(owner)} owned != {self.num_pages - self.reserved} "
+                "non-reserved pages")
+
+    def block_table_row(self, seq_id, pages_per_seq: int,
+                        fill: int = 0) -> list[int]:
+        """Fixed-width block-table row: owned pages, then ``fill`` (the
+        scratch page; entries past the live pages are never read by
+        ``gqa_decode_paged``)."""
+        pages = self._owned.get(seq_id, [])
+        if len(pages) > pages_per_seq:
+            raise PageLedgerError(
+                f"seq {seq_id!r} owns {len(pages)} pages > pages_per_seq "
+                f"{pages_per_seq}")
+        return pages + [fill] * (pages_per_seq - len(pages))
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache <-> page pool converters
+# ---------------------------------------------------------------------------
+
+def cache_to_pages(cache, pages, block_table):
+    """Scatter a head-major contiguous cache into the page pool, in place.
+
+    cache [L, B, Hkv, S, D] (``init_kv_cache`` layout, one of k/v); pages
+    [L, P, Hkv, page_size, D]; block_table [B, n_pages] int with
+    ``n_pages * page_size <= S``. Writes ``cache[:, b, :, p*ps:(p+1)*ps]``
+    into ``pages[:, bt[b, p]]`` for every (b, p), whole pages. Returns
+    ``pages``."""
+    L, B, Hkv, S, D = cache.shape
+    ps = pages.shape[3]
+    n_pages = block_table.shape[1]
+    assert n_pages * ps <= S, (n_pages, ps, S)
+    src = cache[:, :, :, :n_pages * ps].reshape(L, B, Hkv, n_pages, ps, D)
+    src = src.permute(0, 1, 3, 2, 4, 5).reshape(L, B * n_pages, Hkv, ps, D)
+    pages[:, block_table.reshape(-1).long()] = src
+    return pages
+
+
+def pages_to_cache(pages, block_table):
+    """Gather pool pages back into a contiguous head-major cache, the exact
+    inverse of ``cache_to_pages``. pages [L, P, Hkv, ps, D]; block_table
+    [B, n_pages] → [L, B, Hkv, n_pages*ps, D]."""
+    L = pages.shape[0]
+    Hkv, ps, D = pages.shape[2:]
+    B, n_pages = block_table.shape
+    g = pages[:, block_table.reshape(-1).long()]   # [L, B*n_pages, Hkv, ps, D]
+    g = g.reshape(L, B, n_pages, Hkv, ps, D).permute(0, 1, 3, 2, 4, 5)
+    return g.reshape(L, B, Hkv, n_pages * ps, D)
+
+
+__all__ = ["KVPagePool", "PageLedgerError", "cache_to_pages",
+           "pages_to_cache", "_fnv1a"]
