@@ -22,7 +22,18 @@ Phases, each printing its lines:
    finish, the kernel's launch count must match the dispatches, and a rerun
    must give bit-identical token streams;
 6. profile: one decode dispatch under ``torch.profiler``, its device time by
-   kernel family and the device's idle share.
+   kernel family and the device's idle share;
+7. ring attention: the forward and backward kernels against their plain
+   versions at the training shape (B=1, Hq=32, Hkv=8, D=128, S=4096,
+   causal) in bf16 and f32, at a ragged S=1000 in both, and not causal;
+   errors against stated tolerances, two launches bitwise equal, and times
+   beside the plain versions, the bound and ``scaled_dot_product_attention``;
+8. train: the cp train step (ring attention in every layer) at the full
+   width of Llama-3-8B: first its loss and gradients against the dense-
+   attention step in f32 at depth 2, S=1024; then 5 bf16 steps at depth 16
+   on one seeded batch of 4096 tokens (losses finite and falling, each
+   kernel launched layers x steps times), its step time, tokens/s, peak
+   memory and one step under ``torch.profiler``.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -33,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -408,6 +420,311 @@ def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
 
 
 # ---------------------------------------------------------------------------
+# phase 7: ring attention, forward and backward, against the plain versions
+# ---------------------------------------------------------------------------
+
+RING = dict(B=1, Hq=32, Hkv=8, D=128)      # Llama-3-8B attention, one rank
+# (dtype, S, causal); the first is the training path's shape
+RING_CASES = [("bfloat16", 4096, True), ("float32", 4096, True),
+              ("bfloat16", 1000, True), ("float32", 1000, True),
+              ("bfloat16", 2048, False)]
+# max |kernel - plain| / max |plain| for out, dq, dk, dv: f32 sums in
+# another order only; bf16 rounds p and dS to bf16 at the same points, but a
+# rounding may fall the other way (one bf16 ulp is 2^-8 of the value)
+RING_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def ring_bound(S: int, causal: bool, esize: int, dtype_name: str,
+               backward: bool, dims=RING) -> tuple[float, str]:
+    """Least time: each input read once and each output written once,
+    against 4*D operations per (query, key) pair that counts in the forward
+    (q.k and p.v) and 10*D in the backward (s, dp, dq, dk, dv)."""
+    B, Hq, Hkv, D = dims["B"], dims["Hq"], dims["Hkv"], dims["D"]
+    pairs = S * (S + 1) // 2 if causal else S * S
+    q_bytes, kv_bytes = B * Hq * S * D * esize, B * Hkv * S * D * esize
+    if backward:   # q o do -> dq, k v -> dk dv, lse
+        nbytes = 4 * q_bytes + 4 * kv_bytes + B * Hq * S * 4
+        ops = 10 * D * B * Hq * pairs + 2 * B * Hq * S * D
+    else:          # q k v -> out, lse
+        nbytes = 2 * q_bytes + 2 * kv_bytes + B * Hq * S * 4
+        ops = 4 * D * B * Hq * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_calls(q, k, v, do, causal: bool):
+    """The yardstick, timed only: ``scaled_dot_product_attention`` forward,
+    its backward alone, and both, on the same q, k, v, do."""
+    import torch
+    import torch.nn.functional as F
+
+    def fwd(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=causal,
+                                              enable_gqa=True)
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fwd(*leaves)
+    return (lambda: fwd(q, k, v),
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+            lambda: torch.autograd.grad(fwd(*leaves), leaves, do))
+
+
+def check_ring_attention(device, timed: bool = True, cases=RING_CASES,
+                         dims=RING) -> list[dict]:
+    """Each case: forward and backward kernels against their plain versions
+    on the same inputs (the backward on the kernel forward's out and lse),
+    relative errors within ``RING_TOL``, lse within ``LSE_ATOL``, and a
+    second launch of each bitwise equal to the first. Raises on any
+    failure. Returns one record per case."""
+    import torch
+
+    from triton_dist_tpu_torch.ops.ring_attention import (
+        ring_attention_bwd, ring_attention_bwd_plain, ring_attention_fwd,
+        ring_attention_fwd_plain)
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    def absmax(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    B, Hq, Hkv, D = dims["B"], dims["Hq"], dims["Hkv"], dims["D"]
+    records = []
+    for name, S, causal in cases:
+        dtype = getattr(torch, name)
+        gen = torch.Generator(device=device).manual_seed(S + causal)
+
+        def randn(*shape):
+            return (torch.randn(shape, generator=gen, device=device,
+                                dtype=torch.float32) * 0.5).to(dtype)
+
+        q, do = randn(B, Hq, S, D), randn(B, Hq, S, D)
+        k, v = randn(B, Hkv, S, D), randn(B, Hkv, S, D)
+        out, lse = ring_attention_fwd(q, k, v, causal)
+        out2, lse2 = ring_attention_fwd(q, k, v, causal)
+        ref_out, ref_lse = ring_attention_fwd_plain(q, k, v, causal)
+        grads = ring_attention_bwd(q, k, v, out, lse, do, causal)
+        grads2 = ring_attention_bwd(q, k, v, out, lse, do, causal)
+        ref_grads = ring_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        rec = {"case": f"{name} S={S} {'causal' if causal else 'full'}",
+               "tol": RING_TOL[name], "lse_atol": LSE_ATOL,
+               "out_rel_err": rel(out, ref_out),
+               "lse_max_abs_err": absmax(lse, ref_lse),
+               "out_max_abs_err": absmax(out, ref_out)}
+        for n, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+            rec[f"{n}_rel_err"] = rel(got, want)
+            rec[f"{n}_max_abs_err"] = absmax(got, want)
+        rec["bitwise_repeat"] = bool(
+            torch.equal(out, out2) and torch.equal(lse, lse2)
+            and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+        if timed:
+            esize = q.element_size()
+            rec["fwd_ms"] = perf_func(
+                lambda: ring_attention_fwd(q, k, v, causal))[1]
+            rec["bwd_ms"] = perf_func(lambda: ring_attention_bwd(
+                q, k, v, out, lse, do, causal), iters=10)[1]
+            rec["fwd_plain_ms"] = perf_func(
+                lambda: ring_attention_fwd_plain(q, k, v, causal), iters=5)[1]
+            rec["bwd_plain_ms"] = perf_func(lambda: ring_attention_bwd_plain(
+                q, k, v, out, lse, do, causal), iters=5)[1]
+            s_fwd, s_bwd, s_both = sdpa_calls(q, k, v, do, causal)
+            rec["fwd_sdpa_ms"] = perf_func(s_fwd)[1]
+            rec["bwd_sdpa_ms"] = perf_func(s_bwd)[1]
+            rec["fwd_bwd_sdpa_ms"] = perf_func(s_both)[1]
+            rec["fwd_bound_ms"], rec["fwd_bound_by"] = ring_bound(
+                S, causal, esize, name, False, dims)
+            rec["bwd_bound_ms"], rec["bwd_bound_by"] = ring_bound(
+                S, causal, esize, name, True, dims)
+        log("kernel ring_attention", json.dumps(rec))
+        tol = RING_TOL[name]
+        ok = (rec["bitwise_repeat"] and rec["lse_max_abs_err"] <= LSE_ATOL
+              and all(rec[f"{n}_rel_err"] <= tol
+                      for n in ("out", "dq", "dk", "dv")))
+        if not ok:
+            raise AssertionError(f"ring attention kernels disagree with "
+                                 f"their plain versions: {rec}")
+        records.append(rec)
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the single-card trainer with ring attention in every layer
+# ---------------------------------------------------------------------------
+
+# f32 at full width, depth 2: the cp step (kernels) against the dense-
+# attention step, the loss relative and each gradient relative to its scale;
+# they differ only in the attention's summation order
+TRAIN_F32 = dict(layers=2, seq=1024, loss_rtol=1e-5, grad_rtol=1e-3)
+# bf16, one sequence per step. At the default AdamW lr of 3e-4 the first
+# step of a 4.5 B-parameter model at random init overshoots (on the H100:
+# 12.59, 2.26, 6.38, 2.57, 10.46 over five steps), so the run takes 1e-5,
+# where each step lowers the loss on the repeated batch
+TRAIN = dict(layers=16, seq=4096, steps=5, lr=1e-5)
+
+
+def _flat(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def check_train_f32(device, cfg, seq: int = TRAIN_F32["seq"]) -> dict:
+    """Loss and gradients of the cp plan (ring attention kernels) against
+    the plan without cp (dense attention in PyTorch ops) on the same
+    params and tokens; raises outside the stated tolerances."""
+    import torch
+
+    from triton_dist_tpu_torch.models.llama import init_params
+    from triton_dist_tpu_torch.parallel import ParallelPlan, make_loss_fn
+
+    params = init_params(cfg, seed=2, device=device)
+    leaves = [t.requires_grad_(True) for _, t in _flat(params)]
+    names = [n for n, _ in _flat(params)]
+    gen = torch.Generator(device=device).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                           device=device)
+    result = {}
+    for key, plan in (("cp", ParallelPlan(dp=None, tp=None, cp="cp",
+                                          sp=False)),
+                      ("dense", ParallelPlan(dp=None, tp=None, sp=False))):
+        loss = make_loss_fn(cfg, plan)(params, tokens)
+        result[key] = (loss.item(), torch.autograd.grad(loss, leaves))
+    (loss_cp, g_cp), (loss_ref, g_ref) = result["cp"], result["dense"]
+    grad_rel = {n: ((a - b).abs().max() / b.abs().max()).item()
+                for n, a, b in zip(names, g_cp, g_ref)}
+    rec = {"dtype": "float32", "layers": cfg.n_layers, "seq": seq,
+           "loss_cp": loss_cp,
+           "loss_dense": loss_ref,
+           "loss_rel_err": abs(loss_cp - loss_ref) / abs(loss_ref),
+           "loss_rtol": TRAIN_F32["loss_rtol"],
+           "grad_rel_err_max": max(grad_rel.values()),
+           "grad_rtol": TRAIN_F32["grad_rtol"], "grad_rel_err": grad_rel}
+    log("train f32 cp vs dense", json.dumps(rec))
+    del params, leaves, result, g_cp, g_ref
+    if not (rec["loss_rel_err"] <= rec["loss_rtol"]
+            and rec["grad_rel_err_max"] <= rec["grad_rtol"]):
+        raise AssertionError(f"the cp train step disagrees with the dense "
+                             f"one: {rec}")
+    return rec
+
+
+def _family(name: str) -> str:
+    name = name.lower()
+    if "ring_fwd_kernel" in name:
+        return "attention_fwd"
+    if any(k in name for k in ("ring_delta_kernel", "ring_dq_kernel",
+                               "ring_dkv_kernel")):
+        return "attention_bwd"
+    if any(k in name for k in ("gemm", "gemv", "xmma", "nvjet", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def check_train(device, cfg, card: str, seq: int = TRAIN["seq"],
+                steps: int = TRAIN["steps"]) -> dict:
+    """``steps`` cp steps on one seeded batch of ``seq`` tokens, each timed
+    to a synchronize; raises unless every loss is finite and below the one
+    before, and each kernel ran layers x steps times. Then one more step
+    under ``torch.profiler``: device time by family, the busiest kernels,
+    and the idle share of that step (1 - the union of its device intervals
+    / its wall time)."""
+    import functools
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from triton_dist_tpu_torch.ops.ring_attention import (ring_attention_bwd,
+                                                          ring_attention_fwd)
+    from triton_dist_tpu_torch.parallel import (ParallelPlan, adamw,
+                                                make_train_step)
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    plan = ParallelPlan(dp=None, tp=None, cp="cp", sp=False)
+    init_fn, step_fn = make_train_step(
+        cfg, plan, functools.partial(adamw, lr=TRAIN["lr"]), device=device)
+    state = init_fn(0)
+    n_params = sum(t.numel() for _, t in _flat(state.params))
+    gen = torch.Generator(device=device).manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                           device=device)
+    sync()
+    ring_attention_fwd.launches = 0
+    ring_attention_bwd.launches = 0
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, tokens)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = {"ring_attention_fwd": ring_attention_fwd.launches,
+                "ring_attention_bwd": ring_attention_bwd.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    step_s = statistics.median(walls[1:])
+
+    with profile(activities=[ProfilerActivity.CPU] +
+                 ([ProfilerActivity.CUDA] if on_card else [])) as prof:
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, tokens)
+        sync()
+        wall = time.perf_counter() - t0
+    fams = {"attention_fwd": 0.0, "attention_bwd": 0.0, "gemm": 0.0,
+            "other": 0.0}
+    by_name, spans = {}, []
+    for e in prof.events():
+        # GPU-side user annotations (``Optimizer.step#AdamW.step``) span
+        # kernels that are counted on their own
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = e.time_range.elapsed_us()
+        fams[_family(e.name)] += us / 1e6
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+    busy_us, last = 0.0, None
+    for start, end in sorted(spans):          # union of device intervals
+        if last is not None and start < last:
+            start = last
+        if end > start:
+            busy_us += end - start
+        last = end if last is None else max(last, end)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    expect = cfg.n_layers * steps
+    rec = {"card": card, "dtype": str(cfg.dtype), "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "seq": seq, "params_b": n_params / 1e9,
+           "steps": steps,
+           "losses": losses, "step_s": walls, "step_s_median": step_s,
+           "tokens_per_s": seq / step_s, "peak_mem_gib": peak,
+           "launches": launches, "launches_expected": expect,
+           "profiled_step": {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+                             "device_idle_share": 1 - busy_us / 1e6 / wall,
+                             "device_s_by_family": fams,
+                             "device_ops": len(spans),
+                             "top_kernels_ms": [[n[:80], t] for n, t in top]}}
+    log("train bf16", json.dumps(rec))
+    ok = (all(math.isfinite(x) for x in losses)
+          and all(b < a for a, b in zip(losses, losses[1:]))
+          and all(n == expect for n in launches.values()))
+    if not ok:
+        raise AssertionError(f"the train run failed its checks: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -465,18 +782,51 @@ def main() -> int:
                           ENGINE, card)
 
     profile_dispatch(params, cfg, device)
+    del params                        # the trainer needs the card's memory
+    torch.cuda.empty_cache()
+
+    ring = check_ring_attention(device)
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(LlamaConfig.llama3_8b(),
+                                n_layers=TRAIN_F32["layers"],
+                                dtype=torch.float32)
+    check_train_f32(device, cfg32)
+    torch.cuda.empty_cache()
+    train = check_train(device, dataclasses.replace(
+        LlamaConfig.llama3_8b(), n_layers=TRAIN["layers"]), card)
 
     main_case = attention[0]          # bf16 decode, the hot shape
+    ring_main = ring[0]               # bf16 S=4096 causal, the training shape
+    ring_source = "triton_dist_tpu_torch/csrc/ring_attention.cu"
     log(json.dumps({"kernels": [{
         "name": "gqa_decode_paged", "route": "cuda",
         "source": "triton_dist_tpu_torch/csrc/flash_decode_paged.cu",
-        "replaces": "triton_dist_tpu/ops/flash_decode.py:184",
+        "replaces": "triton_dist_tpu/ops/flash_decode.py:231",
         "launches": engine["gqa_decode_paged_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in attention),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"], "case": main_case["case"],
-        "cases": attention}]}))
+        "cases": attention}, {
+        "name": "ring_attention_fwd", "route": "cuda", "source": ring_source,
+        "replaces": "triton_dist_tpu/ops/ring_attention.py:621",
+        "launches": train["launches"]["ring_attention_fwd"],
+        "max_abs_err": max(r["out_max_abs_err"] for r in ring),
+        "ms": ring_main["fwd_ms"], "plain_ms": ring_main["fwd_plain_ms"],
+        "bound_ms": ring_main["fwd_bound_ms"],
+        "bound_by": ring_main["fwd_bound_by"],
+        "library_ms": ring_main["fwd_sdpa_ms"], "case": ring_main["case"]}, {
+        "name": "ring_attention_bwd", "route": "cuda", "source": ring_source,
+        "replaces": "triton_dist_tpu/ops/ring_attention.py:1067",
+        "launches": train["launches"]["ring_attention_bwd"],
+        "max_abs_err": max(r[f"{n}_max_abs_err"] for r in ring
+                           for n in ("dq", "dk", "dv")),
+        "ms": ring_main["bwd_ms"], "plain_ms": ring_main["bwd_plain_ms"],
+        "bound_ms": ring_main["bwd_bound_ms"],
+        "bound_by": ring_main["bwd_bound_by"],
+        "library_ms": ring_main["bwd_sdpa_ms"],
+        "case": ring_main["case"]}]}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

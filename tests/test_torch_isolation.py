@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "triton_dist_tpu_torch"
 MODULES = ["triton_dist_tpu_torch", "triton_dist_tpu_torch.csrc",
            "triton_dist_tpu_torch.utils", "triton_dist_tpu_torch.ops",
-           "triton_dist_tpu_torch.models", "triton_dist_tpu_torch.serving"]
+           "triton_dist_tpu_torch.models", "triton_dist_tpu_torch.parallel",
+           "triton_dist_tpu_torch.serving"]
 
 
 def _forbidden(name: str) -> bool:

@@ -1,11 +1,11 @@
 from triton_dist_tpu_torch.models.convert import params_from_jax
-from triton_dist_tpu_torch.models.llama import (LlamaConfig,
+from triton_dist_tpu_torch.models.llama import (LlamaConfig, block_apply,
                                                 decode_multistep_paged,
-                                                decode_step_paged,
+                                                decode_step_paged, forward,
                                                 init_kv_cache, init_page_pool,
                                                 init_params, prefill,
                                                 prefill_chunk_paged)
 
-__all__ = ["LlamaConfig", "decode_multistep_paged", "decode_step_paged",
-           "init_kv_cache", "init_page_pool", "init_params",
-           "params_from_jax", "prefill", "prefill_chunk_paged"]
+__all__ = ["LlamaConfig", "block_apply", "decode_multistep_paged",
+           "decode_step_paged", "forward", "init_kv_cache", "init_page_pool",
+           "init_params", "params_from_jax", "prefill", "prefill_chunk_paged"]

@@ -1,5 +1,6 @@
-"""Llama-style decoder, the serving half: prefill, paged decode, chunked
-paged prefill and the multi-token decode loop.
+"""Llama-style decoder: the differentiable full-sequence forward (training)
+and the serving half (prefill, paged decode, chunked paged prefill and the
+multi-token decode loop).
 
 Counterpart of ``triton_dist_tpu/models/llama.py`` with its layouts kept:
 parameters are a dict of stacked per-layer tensors (leading ``L`` dim), and a
@@ -19,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from triton_dist_tpu_torch.ops.flash_decode import (gqa_decode_paged,
                                                     paged_kv_write)
@@ -175,6 +177,53 @@ def _head(params: dict, x, cfg: LlamaConfig):
     same rounding point as the JAX model (argmax ties resolve alike)."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (training)
+# ---------------------------------------------------------------------------
+
+def block_apply(cfg: LlamaConfig, x, p: dict, positions, attn_fn=None):
+    """One transformer block. x [B, S, D]; ``p`` one layer's weights.
+    ``attn_fn(q, k, v, sm_scale)`` replaces the dense attention (the ring
+    attention kernel under the cp plan, ``parallel.train``). Nothing that
+    autograd saves is updated in place. The JAX ``act_spec`` sharding pins
+    have no counterpart on one card."""
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    q = rope((h @ p["wq"]).view(B, S, Hq, Dh), positions, cfg.rope_theta)
+    k = rope((h @ p["wk"]).view(B, S, Hkv, Dh), positions, cfg.rope_theta)
+    v = (h @ p["wv"]).view(B, S, Hkv, Dh)
+    attn = (attn_fn or _attention)(q, k, v, 1.0 / math.sqrt(Dh))
+    x = x + attn.reshape(B, S, Hq * Dh) @ p["wo"]
+    h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    return x + _ffn(h, p)
+
+
+def forward(params: dict, tokens, cfg: LlamaConfig, remat: bool = False,
+            attn_fn=None):
+    """Full-sequence forward: logits [B, S, V] f32, differentiable.
+
+    The stacked layer weights are split with one ``unbind`` each, so the
+    backward stacks each weight's per-layer gradients once (a ``w[i]``
+    select per layer would build a full-size gradient per layer).
+    ``remat`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` of the scanned
+    body)."""
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(cfg.dtype)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    names = list(params["blocks"])
+    per_layer = zip(*(params["blocks"][n].unbind(0) for n in names))
+    for ws in per_layer:
+        p = dict(zip(names, ws))
+        if remat:
+            x = checkpoint(block_apply, cfg, x, p, positions, attn_fn,
+                           use_reentrant=False)
+        else:
+            x = block_apply(cfg, x, p, positions, attn_fn)
+    return _head(params, x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +397,7 @@ def decode_multistep_paged(params: dict, token, pos, cfg: LlamaConfig,
     return torch.stack(toks), token, pos, pages
 
 
-__all__ = ["LlamaConfig", "init_params", "rmsnorm", "rope", "init_kv_cache",
-           "prefill", "init_page_pool", "decode_step_paged",
-           "prefill_chunk_paged", "decode_multistep_paged"]
+__all__ = ["LlamaConfig", "init_params", "rmsnorm", "rope", "block_apply",
+           "forward", "init_kv_cache", "prefill", "init_page_pool",
+           "decode_step_paged", "prefill_chunk_paged",
+           "decode_multistep_paged"]
