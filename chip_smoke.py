@@ -33,7 +33,19 @@ Phases, each printing its lines:
    attention step in f32 at depth 2, S=1024; then 5 bf16 steps at depth 16
    on one seeded batch of 4096 tokens (losses finite and falling, each
    kernel launched layers x steps times), its step time, tokens/s, peak
-   memory and one step under ``torch.profiler``.
+   memory and one step under ``torch.profiler``;
+9. MoE: Mixtral-8x7B's widths (d_model 4096, 32/8 heads, 8 experts top-2,
+   expert FFN 14336, vocab 32000) with the depth cut to 16 layers, random
+   weights from a seed: the one-rank EP dispatch and combine
+   (``ep_dispatch``, ``ep_combine``) and the grouped GEMM kernels
+   (``grouped_gemm_gated``, ``grouped_gemm``) against their plain versions
+   at the decode and chunk row counts in bf16 and f32 (bitwise repeatable,
+   timed beside the bound, the plain version and ``F.embedding_bag`` or
+   ``torch._grouped_mm``), the MoE block against a plain reference block
+   written out in this script, a seeded trace served twice by the one-rank
+   ``ShardedServingEngine`` (every request finishes, preemptions, launches =
+   layers x (decode steps + chunks) for each kernel, bit-identical rerun),
+   and one decode dispatch under ``torch.profiler``.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -284,23 +296,23 @@ def make_trace(cfg, n: int, seed: int, lo: int = 64, hi: int = 768):
              int(m)) for i, (plen, m) in enumerate(zip(lens, budgets))]
 
 
-def serve(params, cfg, device, trace, engine_kw: dict) -> tuple:
-    """Serve ``trace`` on a fresh engine; returns (tokens by rid, engine,
-    wall seconds, kernel launches in the run)."""
+def serve(make_engine, device, trace, kernels) -> tuple:
+    """Serve ``trace`` on a fresh engine from ``make_engine()``; returns
+    (tokens by rid, engine, wall seconds, launches by kernel in the run). The
+    launch counts of ``kernels`` are set to 0 just before the run."""
     import torch
 
-    from triton_dist_tpu_torch.ops import flash_decode as fd
-    from triton_dist_tpu_torch.serving import ServingEngine
-
-    eng = ServingEngine(params, cfg, device=device, **engine_kw)
+    eng = make_engine()
     if device.type == "cuda":
         torch.cuda.synchronize()
-    fd.gqa_decode_paged.launches = 0
+    for k in kernels:
+        k.launches = 0
     t0 = time.perf_counter()
     res = eng.run(max_steps=10_000, arrivals=trace)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    return res, eng, time.perf_counter() - t0, fd.gqa_decode_paged.launches
+    return (res, eng, time.perf_counter() - t0,
+            {k.__name__: k.launches for k in kernels})
 
 
 def check_engine(params, cfg, device, trace, engine_kw: dict,
@@ -311,9 +323,17 @@ def check_engine(params, cfg, device, trace, engine_kw: dict,
     attention of the run and the two runs' token streams are bit-identical."""
     import torch
 
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.serving import ServingEngine
+
+    def make():
+        return ServingEngine(params, cfg, device=device, **engine_kw)
+
+    kernels = (fd.gqa_decode_paged,)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    res, eng, wall, launches = serve(params, cfg, device, trace, engine_kw)
+    res, eng, wall, launches = serve(make, device, trace, kernels)
+    launches = launches["gqa_decode_paged"]
     c = eng.metrics.counters
     h = eng.metrics.hist
     expect_launches = cfg.n_layers * (eng.decode_horizon * c["dispatches"]
@@ -337,8 +357,8 @@ def check_engine(params, cfg, device, trace, engine_kw: dict,
                          if device.type == "cuda" else None),
     }
     del eng
-    res2, eng2, wall2, launches2 = serve(params, cfg, device, trace,
-                                         engine_kw)
+    res2, eng2, wall2, launches2 = serve(make, device, trace, kernels)
+    launches2 = launches2["gqa_decode_paged"]
     rec["rerun_bit_identical"] = res2 == res
     rec["rerun_wall_s"] = wall2
     del eng2
@@ -359,12 +379,16 @@ def check_engine(params, cfg, device, trace, engine_kw: dict,
 # ---------------------------------------------------------------------------
 
 def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
-                     horizon: int = 4) -> dict:
+                     horizon: int = 4, ffn=None, distinct_tokens: bool = False,
+                     label: str = "") -> dict:
     """One decode dispatch (``horizon`` steps over ``slots`` rows at ``kv``
-    tokens each): its median wall time over three plain runs (the ``.cpu()``
-    of the token slab waits for the card), then one run under
-    ``torch.profiler`` for the device time by kernel family and the device
-    ops per step. The idle share is 1 - device time / plain wall time."""
+    tokens each, the layers' FFN replaced by ``ffn`` when given): its median
+    wall time over three plain runs (the ``.cpu()`` of the token slab waits
+    for the card), then one run under ``torch.profiler`` for the device time
+    by kernel family and the device ops per step. The idle share is 1 -
+    device time / plain wall time. Every slot starts from token 1, or with
+    ``distinct_tokens`` from a token of its own (1..slots), so that MoE rows
+    route to several experts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -374,13 +398,16 @@ def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
     pool = llama.init_page_pool(cfg, 1 + slots * n, PS, device=device)
     bt = torch.arange(1, 1 + slots * n, dtype=torch.int32,
                       device=device).view(slots, n)
-    token = torch.ones(slots, dtype=torch.int32, device=device)
+    token = (torch.arange(1, slots + 1, dtype=torch.int32, device=device)
+             if distinct_tokens else
+             torch.ones(slots, dtype=torch.int32, device=device))
     pos = torch.full((slots,), kv, dtype=torch.int32, device=device)
     limit = torch.full((slots,), horizon, dtype=torch.int32, device=device)
 
     def dispatch():
         return llama.decode_multistep_paged(params, token, pos, cfg, pool, bt,
-                                            limit, horizon=horizon)[0].cpu()
+                                            limit, horizon=horizon,
+                                            ffn=ffn)[0].cpu()
 
     card = device.type == "cuda"
     dispatch()                                   # warm-up
@@ -397,7 +424,8 @@ def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
         dispatch()
         if card:
             torch.cuda.synchronize()
-    fams = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+    fams = {"attention": 0.0, "grouped_gemm": 0.0, "ep_rows": 0.0,
+            "gemm": 0.0, "other": 0.0}
     kernels = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -405,6 +433,8 @@ def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
         kernels += 1
         name = e.name.lower()
         fam = ("attention" if "decode_paged_kernel" in name else
+               "grouped_gemm" if "grouped_gemm" in name else
+               "ep_rows" if "ep_dispatch" in name or "ep_combine" in name else
                "gemm" if any(k in name for k in ("gemm", "gemv", "xmma",
                                                   "nvjet", "cutlass"))
                else "other")
@@ -415,7 +445,7 @@ def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
            "device_idle_share": 1 - busy / wall if busy else None,
            "device_s_by_family": fams,
            "device_ops_per_step": kernels / horizon}
-    log("profile decode dispatch", json.dumps(rec))
+    log(f"profile {label}decode dispatch", json.dumps(rec))
     return rec
 
 
@@ -725,6 +755,461 @@ def check_train(device, cfg, card: str, seq: int = TRAIN["seq"],
 
 
 # ---------------------------------------------------------------------------
+# phase 9: MoE serving at Mixtral-8x7B width through the grouped GEMMs
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's published widths with the depth cut from 32 to 16 layers:
+# 23.5 B parameters, 47 GB in bf16 (32 layers would need 93 GB)
+MOE_LAYERS = 16
+# (tokens, aligned row block) of the engine's two programs, each token top-2:
+# a decode step of 8 slots and a 256-token prefill chunk
+GG_SHAPES = {"decode": (8, 16), "chunk": (256, 64)}
+# max |kernel - plain| / max |plain| for the grouped GEMMs and the MoE block:
+# both sum in f32, in other orders; bf16 then rounds once, and a rounding may
+# fall the other way (one bf16 ulp is 2^-8 of the value)
+GG_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp(min=1e-30)).item()
+
+
+def grouped_bound(ids, H: int, N: int, n_w: int, esize: int, n_blocks: int,
+                  dtype_name: str) -> tuple[float, str]:
+    """Least time: the used experts' ``n_w`` weight matrices, the routed
+    rows in and out, the block table and the bound each read or written
+    once, against 2 * H * N operations per routed row and weight matrix."""
+    routed = ids[ids >= 0]
+    rows, used = int(routed.numel()), int(routed.unique().numel())
+    nbytes = (n_w * used * H * N + rows * (H + N)) * esize + 4 * n_blocks + 4
+    ops = 2 * n_w * rows * H * N
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def grouped_mm_call(x_rows, ids, w):
+    """The yardstick, timed only: one ``torch._grouped_mm`` over the routed
+    rows sorted by expert. Returns (the call, None) or (None, why not)."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    if x_rows.dtype != torch.bfloat16:
+        return None, "torch._grouped_mm takes bf16 only"
+    order = torch.argsort(ids, stable=True)
+    xs = x_rows[order].contiguous()
+    offs = torch.bincount(ids, minlength=w.shape[0]).cumsum(0).to(torch.int32)
+    errors = []
+    # row-major weights first, then the column-major layout some builds need
+    for wl in (w, w.transpose(-2, -1).contiguous().transpose(-2, -1)):
+        try:
+            def call(wl=wl):
+                return torch._grouped_mm(xs, wl, offs=offs)
+            call()
+            torch.cuda.synchronize()
+            return call, None
+        except (RuntimeError, TypeError, ValueError) as e:
+            errors.append(str(e).splitlines()[0][:160])
+    return None, "torch._grouped_mm refused: " + " | ".join(errors)
+
+
+def check_grouped(device, w_gate, w_up, w_down, timed: bool = True,
+                  shapes=GG_SHAPES, seed: int = 5) -> list[dict]:
+    """B18 (``grouped_gemm_gated``) and B17 (``grouped_gemm``) against their
+    plain versions at the engine's two row counts, in bf16 and f32, on one
+    layer's expert weights (w_gate, w_up [E, H, F], w_down [E, F, H]). Rows
+    are routed top-2 from a seeded draw, so some blocks lie past the bound.
+    Compared: the rows below the bound (unmasked, as the engine calls them);
+    a second launch gives the same bits; ``masked=True`` zeroes the rows
+    past the bound and leaves the others' bits. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    E, H, F = w_gate.shape
+    records = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        wg, wu, wd = (w.to(dtype) for w in (w_gate, w_up, w_down))
+        for shape, (T, bm) in shapes.items():
+            gen = torch.Generator(device=device).manual_seed(seed + T)
+            ids = torch.rand(T, E, generator=gen, device=device) \
+                .topk(2, -1).indices.reshape(-1).to(torch.int32)
+            g, valid, be, nb = gg.align_tokens_by_expert(ids, E, bm,
+                                                         with_used_count=True)
+            rows = torch.randn(T, H, generator=gen, device=device,
+                               dtype=torch.float32).to(dtype)
+            rows = rows.repeat_interleave(2, 0)
+            x = torch.where(valid[:, None], rows[g.long()],
+                            torch.zeros((), dtype=dtype, device=device))
+            used = int(nb) * bm
+            h_ref = gg.grouped_gemm_gated_plain(x, wg, wu, be, bm, nb)
+            cases = (
+                ("grouped_gemm_gated", gg.grouped_gemm_gated, x, (wg, wu),
+                 h_ref, F),
+                ("grouped_gemm", gg.grouped_gemm, h_ref, (wd,),
+                 gg.grouped_gemm_plain(h_ref, wd, be, bm, nb), H))
+            for kname, fn, inp, ws, ref, N in cases:
+                out = fn(inp, *ws, be, block_m=bm, n_blocks_used=nb,
+                         masked=False)
+                out2 = fn(inp, *ws, be, block_m=bm, n_blocks_used=nb,
+                          masked=False)
+                masked = fn(inp, *ws, be, block_m=bm, n_blocks_used=nb)
+                rec = {"kernel": kname, "dtype": name, "shape": shape,
+                       "case": f"{name} {shape} T={T} top-2 E={E} H={H} "
+                               f"N={N} block_m={bm}",
+                       "rows": int(valid.sum()), "aligned_rows": x.shape[0],
+                       "used_blocks": int(nb), "blocks": be.numel(),
+                       "rel_err": _rel(out[:used], ref[:used]),
+                       "max_abs_err": (out[:used].float()
+                                       - ref[:used].float()).abs().max()
+                       .item(), "tol": GG_TOL[name],
+                       "bitwise_repeat": bool(torch.equal(out[:used],
+                                                          out2[:used])),
+                       "masked_ok": bool(torch.equal(masked[:used],
+                                                     out[:used])
+                                         and not masked[used:].any())}
+                if timed:
+                    rec["ms"] = perf_func(lambda: fn(
+                        inp, *ws, be, block_m=bm, n_blocks_used=nb,
+                        masked=False))[1]
+                    plain = (gg.grouped_gemm_gated_plain if len(ws) == 2
+                             else gg.grouped_gemm_plain)
+                    rec["plain_ms"] = perf_func(lambda: plain(
+                        inp, *ws, be, bm, nb), iters=3, warmup_iters=1)[1]
+                    rec["bound_ms"], rec["bound_by"] = grouped_bound(
+                        ids, H if len(ws) == 2 else F, N, len(ws),
+                        inp.element_size(), be.numel(), name)
+                    routed = inp[valid]
+                    sorted_ids = ids[ids >= 0].sort(stable=True).values
+                    if len(ws) == 2:
+                        # no single call computes silu(x@wg) * (x@wu): the
+                        # library's grouped product over gate|up is timed
+                        # beside it, not as its yardstick
+                        rec["library_ms"] = None
+                        rec["library_none_because"] = (
+                            "no single PyTorch call computes silu(x@Wg) * "
+                            "(x@Wu)")
+                        call, why = grouped_mm_call(
+                            routed, sorted_ids,
+                            torch.cat(ws, -1) if dtype == torch.bfloat16
+                            else ws[0])
+                        rec["grouped_mm_gate_up_products_ms"] = (
+                            perf_func(call)[1] if call else why)
+                    else:
+                        call, why = grouped_mm_call(routed, sorted_ids, wd)
+                        rec["library_ms"] = perf_func(call)[1] \
+                            if call else None
+                        if why:
+                            rec["library_none_because"] = why
+                log(f"kernel {kname}", json.dumps(rec))
+                if not (rec["rel_err"] <= rec["tol"] and rec["bitwise_repeat"]
+                        and rec["masked_ok"]):
+                    raise AssertionError(f"{kname} disagrees with its plain "
+                                         f"version: {rec}")
+                records.append(rec)
+            del h_ref
+        del wg, wu, wd
+    return records
+
+
+def kernel_device_ms(fn, match: str, calls: int = 10) -> float:
+    """The median device time of the kernels whose name holds ``match`` over
+    ``calls`` calls of ``fn`` under ``torch.profiler``: the kernel alone,
+    where a CUDA-event time around one call also holds the host's time to
+    enqueue it when the kernel is shorter than that."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and match in e.name]
+    return statistics.median(times) if times else None
+
+
+def ep_rows_bound(nbytes: int) -> tuple[float, str]:
+    """Least time of a row movement: its bytes at the HBM rate (one multiply
+    and add per value at most, far under the operations bound)."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def embedding_bag_call(idx, table, weights):
+    """The yardstick, timed only: one ``F.embedding_bag`` (mode sum, per-
+    row weights in the table's type) that gathers and sums the same rows.
+    Returns (the call, None) or (None, why not)."""
+    import torch
+    import torch.nn.functional as F
+
+    try:
+        def call():
+            return F.embedding_bag(idx, table, per_sample_weights=weights,
+                                   mode="sum")
+        call()
+        torch.cuda.synchronize()
+        return call, None
+    except (RuntimeError, TypeError, ValueError, NotImplementedError) as e:
+        return None, "F.embedding_bag refused: " + str(e).splitlines()[0][:160]
+
+
+# the one-rank dispatch and combine against their plain versions: the same
+# f32 operations in the same order (the dispatch only copies), so exact
+EP_TOL = 0.0
+
+
+def check_ep_rows(device, H: int, E: int, topk: int, timed: bool = True,
+                  shapes=GG_SHAPES, seed: int = 9) -> list[dict]:
+    """B21's one-rank form: ``ep_dispatch`` (the pairs' rows into expert-
+    aligned rows) and ``ep_combine`` (the aligned rows back, weighted and
+    summed over k in f32) against their plain versions at the engine's two
+    row counts, in bf16 and f32, with rows routed top-``topk`` over ``E``
+    experts from a seeded draw; a second launch gives the same bits. Raises
+    on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import all_to_all as ea
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    records = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for shape, (T, bm) in shapes.items():
+            gen = torch.Generator(device=device).manual_seed(seed + T)
+            ids = torch.rand(T, E, generator=gen, device=device) \
+                .topk(topk, -1).indices.reshape(-1).to(torch.int32)
+            src, valid, _, _, pos = gg.expert_alignment(ids, E, bm)
+            P = src.shape[0]
+            tokens = torch.randn(T, H, generator=gen, device=device,
+                                 dtype=torch.float32).to(dtype)
+            y = torch.randn(P, H, generator=gen, device=device,
+                            dtype=torch.float32).to(dtype)
+            w = torch.rand(T, topk, generator=gen, device=device) + 0.1
+            w = w / w.sum(-1, keepdim=True)
+            es = tokens.element_size()
+            cases = (
+                ("ep_dispatch", lambda: ea.ep_dispatch(tokens, src, valid,
+                                                       topk),
+                 lambda: ea.ep_dispatch_plain(tokens, src, valid, topk),
+                 # pair ids and validity in, the tokens once, P rows out
+                 P * 5 + T * H * es + P * H * es,
+                 # one bag per aligned row: its token, weight 1 or 0
+                 ((src.long() // topk).clamp(max=T - 1)[:, None], tokens,
+                  valid.to(dtype)[:, None])),
+                ("ep_combine", lambda: ea.ep_combine(y, pos, w),
+                 lambda: ea.ep_combine_plain(y, pos, w),
+                 # positions and weights in, the named rows once, T out
+                 T * topk * 8 + T * topk * H * es + T * H * es,
+                 (pos.long().view(T, topk), y, w.to(dtype))))
+            for kname, fn, plain, nbytes, bag in cases:
+                out, out2, ref = fn(), fn(), plain()
+                err = (out.float() - ref.float()).abs().max().item()
+                rec = {"kernel": kname, "dtype": name, "shape": shape,
+                       "case": f"{name} {shape} T={T} top-{topk} E={E} "
+                               f"H={H} block_m={bm} P={P}",
+                       "max_abs_err": err, "tol": EP_TOL,
+                       "bitwise_repeat": bool(torch.equal(out, out2))}
+                if timed:
+                    rec["ms"] = perf_func(fn)[1]
+                    rec["kernel_device_ms"] = kernel_device_ms(
+                        fn, f"{kname}_kernel")
+                    rec["plain_ms"] = perf_func(plain)[1]
+                    rec["bound_ms"], rec["bound_by"] = ep_rows_bound(nbytes)
+                    call, why = embedding_bag_call(*bag)
+                    rec["library_ms"] = perf_func(call)[1] if call else None
+                    if why:
+                        rec["library_none_because"] = why
+                log(f"kernel {kname}", json.dumps(rec))
+                if not (err <= EP_TOL and rec["bitwise_repeat"]):
+                    raise AssertionError(f"{kname} disagrees with its plain "
+                                         f"version: {rec}")
+                records.append(rec)
+    return records
+
+
+def moe_block_reference(x, router_w, we_gate, we_up, we_down, topk: int):
+    """The MoE block written out plainly, sharing no code with the port's:
+    the f32 router, softmax and renormalised top-k; for each expert its
+    routed tokens through silu(x @ Wg) * (x @ Wu) in f32, cast, then @ Wd in
+    f32, cast; then the weighted sum over k in k order in f32, cast once."""
+    import torch
+
+    T, D = x.shape
+    probs = torch.softmax(x.float() @ router_w, -1)
+    vals, ids = probs.topk(topk, -1)
+    vals = vals / vals.sum(-1, keepdim=True)
+    y = torch.zeros(T, topk, D, dtype=x.dtype, device=x.device)
+    for e in range(we_gate.shape[0]):
+        t_idx, j_idx = (ids == e).nonzero(as_tuple=True)
+        if t_idx.numel() == 0:
+            continue
+        xe = x[t_idx].float()
+        h = (torch.nn.functional.silu(xe @ we_gate[e].float())
+             * (xe @ we_up[e].float())).to(x.dtype)
+        y[t_idx, j_idx] = (h.float() @ we_down[e].float()).to(x.dtype)
+    acc = torch.zeros(T, D, dtype=torch.float32, device=x.device)
+    for j in range(topk):
+        acc = acc + y[:, j].float() * vals[:, j:j + 1]
+    return acc.to(x.dtype)
+
+
+def check_moe_block(params, cfg, device, shapes=GG_SHAPES) -> list[dict]:
+    """The one-rank MoE block of layer 0 (router, top-2, B21's dispatch,
+    B18, B17, B21's combine) against ``moe_block_reference``, at both row
+    counts; a second run and a run at the other row block give the same
+    bits. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import moe_mlp_ep_overlap
+
+    p = {k: v[0] for k, v in params["blocks"].items()}
+    ws = (p["w_router"], p["we_gate"], p["we_up"], p["we_down"])
+    records = []
+    for shape, (T, bm) in shapes.items():
+        gen = torch.Generator(device=device).manual_seed(T)
+        x = torch.randn(T, cfg.base.d_model, generator=gen, device=device,
+                        dtype=torch.float32).to(cfg.base.dtype)
+        got = moe_mlp_ep_overlap(x, *ws, cfg.topk, block_m=bm)
+        again = moe_mlp_ep_overlap(x, *ws, cfg.topk, block_m=bm)
+        other = moe_mlp_ep_overlap(x, *ws, cfg.topk,
+                                   block_m=64 if bm == 16 else 16)
+        ref = moe_block_reference(x, *ws, cfg.topk)
+        name = str(cfg.base.dtype).split(".")[-1]
+        rec = {"shape": shape, "tokens": T, "block_m": bm, "dtype": name,
+               "rel_err": _rel(got, ref), "tol": GG_TOL[name],
+               "finite": bool(torch.isfinite(got).all()),
+               "bitwise_repeat": bool(torch.equal(got, again)),
+               "block_m_invariant": bool(torch.equal(got, other))}
+        log("moe block kernels vs reference", json.dumps(rec))
+        if not (rec["finite"] and rec["rel_err"] <= rec["tol"]
+                and rec["bitwise_repeat"] and rec["block_m_invariant"]):
+            raise AssertionError(f"the MoE block disagrees with its "
+                                 f"reference: {rec}")
+        records.append(rec)
+    return records
+
+
+def check_moe_engine(params, cfg, device, trace, engine_kw: dict,
+                     card: str) -> dict:
+    """Serve the trace twice on the one-rank ``ShardedServingEngine``; raise
+    unless every request finished with its full budget, a preemption
+    happened, each of the five kernels ran on every layer of every decode
+    step and chunk, and the two runs' token streams are bit-identical."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import all_to_all as ea
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.serving import ShardedServingEngine
+
+    def make():
+        return ShardedServingEngine(params, cfg, device=device, **engine_kw)
+
+    kernels = (fd.gqa_decode_paged, ea.ep_dispatch, gg.grouped_gemm_gated,
+               gg.grouped_gemm, ea.ep_combine)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    res, eng, wall, launches = serve(make, device, trace, kernels)
+    c = eng.metrics.counters
+    h = eng.metrics.hist
+    expect = cfg.base.n_layers * (eng.decode_horizon * c["dispatches"]
+                                  + c["prefill_chunks"])
+    rec = {
+        "card": card, "requests": len(trace),
+        "finished": c["requests_finished"],
+        "tokens_generated": c["tokens_generated"],
+        "tokens_expected": sum(m for _, _, m in trace),
+        "prompt_tokens": sum(len(p) for _, p, _ in trace),
+        "preemptions": c["preemptions"], "dispatches": c["dispatches"],
+        "prefill_chunks": c["prefill_chunks"], "launches": launches,
+        "launches_expected": expect,
+        "wall_s": wall, "tok_per_s": c["tokens_generated"] / wall,
+        "ttft_p50_s": h["ttft_s"].percentile(50),
+        "step_device_mean_s": h["step_device_s"].mean,
+        "step_host_mean_s": h["step_host_s"].mean,
+        "prefill_stall_mean_s": h["prefill_stall_s"].mean,
+        "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if on_card else None),
+    }
+    del eng
+    res2, eng2, wall2, launches2 = serve(make, device, trace, kernels)
+    rec["rerun_bit_identical"] = res2 == res
+    rec["rerun_wall_s"] = wall2
+    del eng2
+    log("moe engine", json.dumps(rec))
+    ok = (rec["finished"] == len(trace) and len(res) == len(trace)
+          and all(len(res[i]) == m for i, (_, _, m) in enumerate(trace))
+          and rec["tokens_generated"] >= rec["tokens_expected"]
+          and rec["preemptions"] >= 1
+          and all(n == expect for n in launches.values()) and expect > 0
+          and launches2 == launches and rec["rerun_bit_identical"])
+    if not ok:
+        raise AssertionError(f"the MoE engine run failed its checks: {rec}")
+    return rec
+
+
+def check_moe(device, card: str) -> dict:
+    """Phase 9: Mixtral-8x7B's widths at 16 layers with random weights
+    (seed 0): the grouped GEMMs against their plain versions on layer 0's
+    experts, the MoE block against its plain path, a seeded trace through
+    the one-rank ``ShardedServingEngine`` (served twice), then one decode
+    dispatch under the profiler. Frees the weights before it returns."""
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import (MoEConfig, init_moe_params,
+                                                  moe_mlp_ep_overlap)
+    from triton_dist_tpu_torch.serving.sharded import DECODE_BLOCK_M
+
+    preset = MoEConfig.mixtral_8x7b()
+    cfg = dataclasses.replace(preset, base=dataclasses.replace(
+        preset.base, n_layers=MOE_LAYERS))
+    t0 = time.perf_counter()
+    params = init_moe_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params["blocks"].values()) \
+        + 2 * cfg.base.vocab_size * cfg.base.d_model
+    log(f"moe params {cfg.base.n_layers} layers x d_model "
+        f"{cfg.base.d_model}, {cfg.num_experts} experts x d_ff "
+        f"{cfg.moe_d_ff}, {n_params / 1e9:.3f} B, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    blocks = params["blocks"]
+    ep_rows = check_ep_rows(device, cfg.base.d_model, cfg.num_experts,
+                            cfg.topk)
+    grouped = check_grouped(device, blocks["we_gate"][0], blocks["we_up"][0],
+                            blocks["we_down"][0])
+    torch.cuda.empty_cache()
+    block = check_moe_block(params, cfg, device)
+    torch.cuda.empty_cache()
+    engine = check_moe_engine(params, cfg, device,
+                              make_trace(cfg.base, N_REQUESTS, 0), ENGINE,
+                              card)
+
+    def ffn(h, p):
+        return moe_mlp_ep_overlap(h, p["w_router"], p["we_gate"], p["we_up"],
+                                  p["we_down"], cfg.topk,
+                                  block_m=DECODE_BLOCK_M)
+
+    profile = profile_dispatch(params, cfg.base, device, ffn=ffn,
+                               distinct_tokens=True, label="moe ")
+    del params, blocks
+    torch.cuda.empty_cache()
+    return {"ep_rows": ep_rows, "grouped": grouped, "block": block,
+            "engine": engine, "profile": profile}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -795,6 +1280,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = check_train(device, dataclasses.replace(
         LlamaConfig.llama3_8b(), n_layers=TRAIN["layers"]), card)
+    torch.cuda.empty_cache()           # the MoE model needs 47 GB of it
+    moe = check_moe(device, card)
+    moe_cases = moe["grouped"] + moe["ep_rows"]
+    gg_main = {r["kernel"]: r for r in moe_cases
+               if r["dtype"] == "bfloat16" and r["shape"] == "decode"}
 
     main_case = attention[0]          # bf16 decode, the hot shape
     ring_main = ring[0]               # bf16 S=4096 causal, the training shape
@@ -826,7 +1316,25 @@ def main() -> int:
         "bound_ms": ring_main["bwd_bound_ms"],
         "bound_by": ring_main["bwd_bound_by"],
         "library_ms": ring_main["bwd_sdpa_ms"],
-        "case": ring_main["case"]}]}))
+        "case": ring_main["case"]}] + [{
+        "name": name, "route": "cuda",
+        "source": f"triton_dist_tpu_torch/csrc/{source}.cu",
+        "replaces": replaces,
+        "launches": moe["engine"]["launches"][name],
+        "max_abs_err": max(r["max_abs_err"] for r in moe_cases
+                           if r["kernel"] == name),
+        **{k: gg_main[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "case")},
+        "cases": [r for r in moe_cases if r["kernel"] == name]}
+        for name, source, replaces in (
+            ("ep_dispatch", "all_to_all",
+             "triton_dist_tpu/ops/all_to_all.py:347"),
+            ("grouped_gemm_gated", "group_gemm",
+             "triton_dist_tpu/ops/group_gemm.py:779"),
+            ("grouped_gemm", "group_gemm",
+             "triton_dist_tpu/ops/group_gemm.py:391"),
+            ("ep_combine", "all_to_all",
+             "triton_dist_tpu/ops/all_to_all.py:347"))]}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

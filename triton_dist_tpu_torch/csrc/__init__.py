@@ -11,6 +11,7 @@ one ``nvcc`` process each.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +22,7 @@ from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "_build"
-SOURCES = ("flash_decode_paged", "ring_attention")
+SOURCES = ("flash_decode_paged", "ring_attention", "group_gemm", "all_to_all")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -88,6 +89,16 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
         lib.tdt_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def current_on(device):
+    """A context that makes ``device`` the current CUDA device for a launch,
+    or nothing to do when it already is (the one-card case)."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

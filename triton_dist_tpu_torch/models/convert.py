@@ -30,10 +30,12 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 def params_from_jax(np_params: dict, device="cuda",
                     dtype: torch.dtype | None = None) -> dict:
     """The JAX parameter pytree (nested dicts of numpy arrays) as the port's
-    parameter dict: the same keys, shapes and layouts, bit for bit.
+    parameter dict: the same keys, shapes and layouts, bit for bit. That
+    covers the MoE blocks of ``init_moe_params`` too: ``w_router`` f32
+    [L, D, E], ``we_gate`` / ``we_up`` [L, E, D, F], ``we_down`` [L, E, F, D].
     ``dtype``, when given, is the model's working type: every array must be
-    in it or in f32 (the norm gains), else this raises rather than re-round
-    the reference's weights."""
+    in it or in f32 (the norm gains, the router), else this raises rather
+    than re-round the reference's weights."""
     dev = default_device(device)
 
     def conv(tree):

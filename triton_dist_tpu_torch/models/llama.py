@@ -288,7 +288,7 @@ def init_page_pool(cfg: LlamaConfig, num_pages: int, page_size: int,
 
 def decode_step_paged(params: dict, token, pos, cfg: LlamaConfig,
                       pages: dict, block_table, active=None,
-                      sample: bool = False):
+                      sample: bool = False, ffn=None):
     """One-token decode over the paged pool, every row at its own depth.
 
     ``token`` [B] and ``pos`` [B] int32 (per-row positions); ``block_table``
@@ -296,8 +296,10 @@ def decode_step_paged(params: dict, token, pos, cfg: LlamaConfig,
     ``bt[b, pos_b // page_size]`` slot ``pos_b % page_size`` and attends with
     ``gqa_decode_paged`` at ``kv_len = pos + 1``. Parked rows point their
     block-table row at the scratch page 0. ``active`` [B] bool sends frozen
-    rows' writes to the scratch page. Returns (logits [B, V] f32, or with
-    ``sample=True`` the greedy token [B] int32, and the pages)."""
+    rows' writes to the scratch page. ``ffn(h, p) -> [B, D]`` replaces the
+    dense FFN of every layer (``p`` the layer's weights; MoE serving plugs
+    ``models.moe.moe_mlp_ep_overlap`` in here). Returns (logits [B, V] f32,
+    or with ``sample=True`` the greedy token [B] int32, and the pages)."""
     B = token.shape[0]
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = params["embed"][token].to(cfg.dtype)                 # [B, D]
@@ -316,7 +318,7 @@ def decode_step_paged(params: dict, token, pos, cfg: LlamaConfig,
         attn, _lse = gqa_decode_paged(q, kp, vp, block_table, kv_len)
         x = x + attn.reshape(B, Hq * Dh) @ p["wo"]
         h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(h, p)
+        x = x + (_ffn if ffn is None else ffn)(h, p).to(x.dtype)
     logits = _head(params, x, cfg)
     if sample:
         return logits.argmax(-1).to(torch.int32), pages
@@ -324,7 +326,7 @@ def decode_step_paged(params: dict, token, pos, cfg: LlamaConfig,
 
 
 def prefill_chunk_paged(params: dict, tokens, start: int, prompt_len: int,
-                        cfg: LlamaConfig, pages: dict, block_table):
+                        cfg: LlamaConfig, pages: dict, block_table, ffn=None):
     """Prefill one fixed-size chunk of a prompt straight into the page pool.
 
     ``tokens`` [C] int32 is chunk ``[start, start + C)`` of the prompt,
@@ -335,6 +337,7 @@ def prefill_chunk_paged(params: dict, tokens, start: int, prompt_len: int,
     ``kv_len = position + 1`` over every page filled so far, this chunk's
     included. All rows' writes of a layer land before that layer's attention
     reads (one stream, in order). Padded rows run with ``kv_len = 0``.
+    ``ffn`` replaces the dense FFN as in ``decode_step_paged``.
 
     Returns ``(tok, pages)``: ``tok`` is the 0-d int32 greedy token of the
     row at ``prompt_len - 1 - start`` (clamped into the chunk), meaningful
@@ -363,7 +366,7 @@ def prefill_chunk_paged(params: dict, tokens, start: int, prompt_len: int,
         attn, _lse = gqa_decode_paged(q, kp, vp, bt, kv_len)
         x = x + attn.reshape(C, Hq * Dh) @ p["wo"]
         h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(h, p)
+        x = x + (_ffn if ffn is None else ffn)(h, p).to(x.dtype)
     last = min(max(prompt_len - 1 - start, 0), C - 1)
     logits = _head(params, x[last:last + 1], cfg)
     return logits[0].argmax(-1).to(torch.int32), pages
@@ -371,13 +374,14 @@ def prefill_chunk_paged(params: dict, tokens, start: int, prompt_len: int,
 
 def decode_multistep_paged(params: dict, token, pos, cfg: LlamaConfig,
                            pages: dict, block_table, limit, horizon: int,
-                           eos_id: int | None = None):
+                           eos_id: int | None = None, ffn=None):
     """``horizon`` sampled decode steps in one call, with no host sync.
 
     ``limit`` [B] int32 is each row's step budget for this call (0 for parked
     rows). A row freezes once its step index reaches its limit or it has
     emitted ``eos_id``: its token and position stop advancing and its KV
-    writes go to the scratch page. Returns ``(toks [horizon, B] int32,
+    writes go to the scratch page. ``ffn`` is ``decode_step_paged``'s.
+    Returns ``(toks [horizon, B] int32,
     token [B], pos [B], pages)``, where ``toks[i, b]`` is row b's step-i
     token (valid while the row was live) and token/pos are the rows' states
     after the call."""
@@ -388,7 +392,8 @@ def decode_multistep_paged(params: dict, token, pos, cfg: LlamaConfig,
     for i in range(horizon):
         act = (i < limit) & ~stopped
         nxt, pages = decode_step_paged(params, token, pos, cfg, pages,
-                                       block_table, active=act, sample=True)
+                                       block_table, active=act, sample=True,
+                                       ffn=ffn)
         token = torch.where(act, nxt, token)
         pos = torch.where(act, pos + 1, pos)
         if eos_id is not None:

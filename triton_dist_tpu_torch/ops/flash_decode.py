@@ -126,7 +126,7 @@ def gqa_decode_paged(q, k_pages, v_pages, block_table, kv_len,
     lib = csrc.load("flash_decode_paged",
                     {name: _SIGNATURE for name in _ENTRIES.values()})
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with csrc.current_on(q.device):
         rc = getattr(lib, _ENTRIES[q.dtype])(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),

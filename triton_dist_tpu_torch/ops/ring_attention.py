@@ -177,7 +177,7 @@ def ring_attention_fwd(q, k, v, causal: bool = True,
     lse = torch.empty(B, Hq, S, dtype=torch.float32, device=q.device)
     lib = csrc.load("ring_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with csrc.current_on(q.device):
         rc = getattr(lib, _FWD[q.dtype])(
             qp.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B, Hq, k.shape[1], S, D, int(causal), stream)
@@ -217,7 +217,7 @@ def ring_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = csrc.load("ring_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with csrc.current_on(q.device):
         rc = getattr(lib, _BWD[q.dtype])(
             qp.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),

@@ -1,6 +1,7 @@
 """The serving tier of the port: the continuous-batching engine over the
-paged KV pool, its scheduler and its metrics (counterpart of
-``triton_dist_tpu/serving``, the single-device core)."""
+paged KV pool, its scheduler and its metrics, and the MoE engine at mesh
+1x1x1 (counterpart of ``triton_dist_tpu/serving``, the single-device
+core)."""
 
 from triton_dist_tpu_torch.serving.deadline import (Backoff, Deadline,
                                                     EngineStallError)
@@ -10,6 +11,8 @@ from triton_dist_tpu_torch.serving.kv_pool import (KVPagePool,
                                                    cache_to_pages,
                                                    pages_to_cache)
 from triton_dist_tpu_torch.serving.metrics import Histogram, ServingMetrics
+from triton_dist_tpu_torch.serving.sharded import (ShardedServingEngine,
+                                                   serving_mesh)
 from triton_dist_tpu_torch.serving.scheduler import (
     AdmissionRejected, ClassSpec, ContinuousBatchingScheduler, Request,
     RequestState, SLOPolicy, TtlExpired)
@@ -18,4 +21,5 @@ __all__ = ["AdmissionRejected", "Backoff", "ClassSpec",
            "ContinuousBatchingScheduler", "Deadline", "EngineStallError",
            "Histogram", "KVPagePool", "PageLedgerError", "Request",
            "RequestState", "SLOPolicy", "ServingEngine", "ServingMetrics",
+           "ShardedServingEngine", "serving_mesh",
            "TtlExpired", "cache_to_pages", "pages_to_cache"]

@@ -29,8 +29,8 @@ an uncontended one request by request.
 
 Left for later slices: the journal and checkpoints, the prefix cache, SLO
 policies and chunk budgets, bounded queues and TTLs, speculation, the AOT
-artifact, fault injection, the sigcheck lint and the
-``ffn``/``attn_io``/``linear`` hooks.
+artifact, fault injection, the sigcheck lint and the ``attn_io``/``linear``
+hooks.
 """
 
 from __future__ import annotations
@@ -65,8 +65,12 @@ class ServingEngine:
     power of two, at least 8), an ascending tuple of bucket lengths, or
     ``None`` for exact-length prefill. ``eos_id`` ends a request early.
     ``prefill_chunk`` switches admission to chunked paged prefill (one
-    chunk per step; ``prefill_buckets`` is then unused). The params and the
-    pool live on ``device``, ``cuda`` unless the caller asks for the CPU.
+    chunk per step; ``prefill_buckets`` is then unused). ``ffn(h, p)``
+    replaces every layer's dense FFN in the decode dispatch and, unless
+    ``ffn_chunk`` is given, in the prefill chunks (the MoE engine,
+    ``serving.sharded``); a hooked engine needs ``prefill_chunk``, since the
+    bucketed inline prefill takes no hook. The params and the pool live on
+    ``device``, ``cuda`` unless the caller asks for the CPU.
     """
 
     def __init__(self, params: dict, cfg: LlamaConfig, num_slots: int = 4,
@@ -74,8 +78,13 @@ class ServingEngine:
                  pages_per_seq: int = 8, decode_horizon: int = 1,
                  prefill_buckets="pow2", eos_id: int | None = None,
                  prefill_chunk: int | None = None,
-                 stall_deadline_steps: int = 256, device="cuda"):
+                 stall_deadline_steps: int = 256, ffn=None, ffn_chunk=None,
+                 device="cuda"):
         assert decode_horizon >= 1
+        hooked = ffn is not None or ffn_chunk is not None
+        if hooked and prefill_chunk is None:
+            raise ValueError("an ffn hook needs prefill_chunk set: the "
+                             "bucketed inline prefill takes no hook")
         assert prefill_chunk is None or prefill_chunk >= 1
         assert stall_deadline_steps >= 1
         self.device = default_device(device)
@@ -91,6 +100,8 @@ class ServingEngine:
         self.decode_horizon = decode_horizon
         self.eos_id = eos_id
         self.prefill_chunk = prefill_chunk
+        self.ffn = ffn
+        self.ffn_chunk = ffn_chunk or ffn
         self._stall_steps = stall_deadline_steps
         if prefill_buckets is not None and prefill_buckets != "pow2":
             prefill_buckets = tuple(sorted(int(b) for b in prefill_buckets))
@@ -266,7 +277,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         tok_dev, self.pool = prefill_chunk_paged(
             self.params, self._upload(toks), start, end, self.cfg, self.pool,
-            self._upload(row))
+            self._upload(row), ffn=self.ffn_chunk)
         # one int32 download: it fences the chunk for the stall timing and,
         # on the last chunk, is the first token
         tok0 = int(tok_dev)
@@ -389,7 +400,7 @@ class ServingEngine:
                                    self._pos_dev, self.cfg, self.pool,
                                    self._bt_dev, self._upload(limits),
                                    horizon=self.decode_horizon,
-                                   eos_id=self.eos_id)
+                                   eos_id=self.eos_id, ffn=self.ffn)
         slab = toks.cpu().numpy()          # [horizon, B]; waits for the card
         t_done = time.perf_counter()
 
