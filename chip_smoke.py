@@ -45,7 +45,22 @@ Phases, each printing its lines:
    written out in this script, a seeded trace served twice by the one-rank
    ``ShardedServingEngine`` (every request finishes, preemptions, launches =
    layers x (decode steps + chunks) for each kernel, bit-identical rerun),
-   and one decode dispatch under ``torch.profiler``.
+   and one decode dispatch under ``torch.profiler``;
+10. contiguous-cache decode on phase 5's 32-layer bf16 params: the split-KV
+   decode (``gqa_decode_partial``), its combine (``decode_combine``) and
+   the SP merge (``ll_merge``, the merge half of ``ll_ag_merge``) against
+   their plain versions in bf16 and f32 at G-batch's and G-long's decode
+   shapes and at ragged lengths (bitwise repeatable, each row alone equal
+   to its row in the batch; timed beside the bound, the plain version and
+   ``scaled_dot_product_attention``), and the one-rank push/ring
+   ``all_gather`` at the SP wire's shape (exact, timed beside a clone);
+   ``decode_step`` against the dense forward in f32 at depth 4 (run beside
+   phase 4), with the one-rank ``decode_step_sp`` (fused, push and ring)
+   bitwise equal to it; ``generate`` at full width and
+   depth for G-batch (8 prompts of 1024 tokens, 128 new, run twice,
+   bit-identical) and G-long (one prompt of 7936 tokens, 128 new, cache of
+   8192), with each kernel launched layers x decode steps times; and one
+   G-batch decode step under ``torch.profiler``.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -378,6 +393,38 @@ def check_engine(params, cfg, device, trace, engine_kw: dict,
 # phase 6: where a decode dispatch's time goes
 # ---------------------------------------------------------------------------
 
+CUBLAS_NAMES = ("gemm", "gemv", "xmma", "nvjet", "cutlass")
+
+
+def device_time_by_family(fn, card: bool, families) -> tuple[dict, int]:
+    """Run ``fn`` once under ``torch.profiler``: the device seconds of its
+    kernels by family (the first of ``families``, ``(name, substrings)``
+    pairs, whose substring a kernel's name holds; then cuBLAS's GEMMs;
+    then the rest) and the number of device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU] +
+                 ([ProfilerActivity.CUDA] if card else [])) as prof:
+        fn()
+        if card:
+            torch.cuda.synchronize()
+    fams = {name: 0.0 for name, _ in families}
+    fams.update(gemm=0.0, other=0.0)
+    ops = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ops += 1
+        name = e.name.lower()
+        fam = next((f for f, keys in families
+                    if any(k in name for k in keys)),
+                   "gemm" if any(k in name for k in CUBLAS_NAMES)
+                   else "other")
+        fams[fam] += e.time_range.elapsed_us() / 1e6
+    return fams, ops
+
+
 def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
                      horizon: int = 4, ffn=None, distinct_tokens: bool = False,
                      label: str = "") -> dict:
@@ -390,7 +437,6 @@ def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
     ``distinct_tokens`` from a token of its own (1..slots), so that MoE rows
     route to several experts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from triton_dist_tpu_torch.models import llama
 
@@ -419,26 +465,10 @@ def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
         dispatch()
         walls.append(time.perf_counter() - t0)
     wall = sorted(walls)[1]
-    with profile(activities=[ProfilerActivity.CPU] +
-                 ([ProfilerActivity.CUDA] if card else [])) as prof:
-        dispatch()
-        if card:
-            torch.cuda.synchronize()
-    fams = {"attention": 0.0, "grouped_gemm": 0.0, "ep_rows": 0.0,
-            "gemm": 0.0, "other": 0.0}
-    kernels = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kernels += 1
-        name = e.name.lower()
-        fam = ("attention" if "decode_paged_kernel" in name else
-               "grouped_gemm" if "grouped_gemm" in name else
-               "ep_rows" if "ep_dispatch" in name or "ep_combine" in name else
-               "gemm" if any(k in name for k in ("gemm", "gemv", "xmma",
-                                                  "nvjet", "cutlass"))
-               else "other")
-        fams[fam] += e.time_range.elapsed_us() / 1e6
+    fams, kernels = device_time_by_family(
+        dispatch, card, (("attention", ("decode_paged_kernel",)),
+                         ("grouped_gemm", ("grouped_gemm",)),
+                         ("ep_rows", ("ep_dispatch", "ep_combine"))))
     busy = sum(fams.values())
     rec = {"slots": slots, "kv_len": kv, "horizon": horizon,
            "wall_s": wall, "device_busy_s": busy,
@@ -1210,6 +1240,458 @@ def check_moe(device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: contiguous-cache decode, generation and the one-rank SP step
+# ---------------------------------------------------------------------------
+
+# (case, B, S, kv_len by row) of B3: G-batch's decode shape, G-long's, and
+# ragged rows (empty, one key, either side of a split edge, past a split)
+DECODE_CASES = (("batch", 8, 4096, (1152,) * 8),
+                ("long", 1, 8192, (8192,)),
+                ("ragged", 8, 4096, (0, 1, 255, 256, 257, 1000, 2049, 4096)))
+# B4 at these R, B5's merge at these n, both on the batch case's partials
+COMBINE_R = (1, 8)
+MERGE_N = (1, 4)
+# greedy generation at Llama-3-8B's widths and depth: a batch at the
+# preset's max_seq_len, and one long sequence at its published context
+GEN = {"batch": dict(B=8, prompt=1024, new=128, max_seq=4096),
+       "long": dict(B=1, prompt=7936, new=128, max_seq=8192)}
+# decode_step against the dense forward (f32, full width, depth 4)
+DECODE_VS_FORWARD = dict(B=2, prompt=64, steps=8, max_seq=4096)
+# rows of the one-rank SP step's push/ring wire (out || lse, f32): phase
+# 10b's, and G-batch's
+AG_ROWS = (DECODE_VS_FORWARD["B"], GEN["batch"]["B"])
+SP_METHODS = ("fused", "push", "ring")
+
+
+def decode_bound(q, kv_len, S: int, dtype_name: str) -> tuple[float, str]:
+    """Least time of B3: the live keys and values read once, q read and
+    out written once, lse written and kv_len read, against 2 * 2 * Hq * D
+    operations per (row, live key)."""
+    B, Hq, Dh = q.shape
+    esize = q.element_size()
+    live = sum(min(max(int(n), 0), S) for n in kv_len)
+    nbytes = (2 * q.numel() * esize + 2 * live * HKV * Dh * esize
+              + B * Hq * 4 + B * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * Hq * Dh * live / PEAK_OPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def merge_bound(outs, out_esize: int) -> tuple[float, str]:
+    """Least time of B4 or B5: the R partials and their lses read once, the
+    merged rows written once (a few operations per value, far under the
+    operations bound)."""
+    rows = outs[0].numel() // outs.shape[-1]
+    nbytes = (outs.numel() * outs.element_size() + outs.shape[0] * rows * 4
+              + outs[0].numel() * out_esize)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def sdpa_decode_call(q, k, v, kv_len):
+    """The yardstick, timed only: scaled dot-product attention with GQA over
+    the same cache, the lengths as a mask."""
+    import torch
+    import torch.nn.functional as F
+
+    keys = torch.arange(k.shape[2], device=q.device)
+    mask = (keys[None, :] < kv_len[:, None].long())[:, None, None]
+    qc = q[:, :, None]
+    return lambda: F.scaled_dot_product_attention(qc, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def check_decode_kernels(device, timed: bool = True, cases=DECODE_CASES,
+                         seed: int = 10) -> dict:
+    """B3 (``gqa_decode_partial``) against its plain version at each case
+    in bf16 and f32: out relative to the plain version's scale within
+    ``OUT_ATOL``, lse within ``LSE_ATOL``, two launches bitwise equal, and
+    each row alone (B=1) bitwise equal to its row in the batch. On the batch
+    case's per-split partials, B4 (``decode_combine``) at ``COMBINE_R`` and
+    B5's merge (``ll_merge``) at ``MERGE_N`` against theirs, bitwise
+    repeatable. Raises on any failure; returns the records by kernel."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    recs = {"gqa_decode_partial": [], "decode_combine": [], "ll_merge": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for case, B, S, lens in cases:
+            gen = torch.Generator(device=device).manual_seed(seed + S + B)
+
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device=device,
+                                   dtype=torch.float32).to(dtype)
+
+            q, k, v = randn(B, HQ, D), randn(B, HKV, S, D), randn(B, HKV, S, D)
+            kv = torch.tensor(lens, dtype=torch.int32, device=device)
+            out, lse = fd.gqa_decode_partial(q, k, v, kv)
+            out2, lse2 = fd.gqa_decode_partial(q, k, v, kv)
+            ref, ref_lse = fd.gqa_decode_partial_plain(q, k, v, kv)
+            rows_alone = all(
+                torch.equal(o, out[i:i + 1]) and torch.equal(l, lse[i:i + 1])
+                for i in range(B)
+                for o, l in [fd.gqa_decode_partial(q[i:i + 1], k[i:i + 1],
+                                                   v[i:i + 1], kv[i:i + 1])])
+            rec = {"case": f"{name} {case} B={B} S={S} kv_len="
+                           f"{lens[0] if len(set(lens)) == 1 else list(lens)}",
+                   "splits": fd.split_count(S),
+                   "rel_err": _rel(out, ref),
+                   "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+                   "atol": OUT_ATOL[name], "lse_atol": LSE_ATOL,
+                   "finite": bool(torch.isfinite(out.float()).all()),
+                   "bitwise_repeat": bool(torch.equal(out, out2)
+                                          and torch.equal(lse, lse2)),
+                   "row_independent": rows_alone}
+            rec["max_abs_err"] = (out.float() - ref.float()).abs().max().item()
+            if timed:
+                call = lambda: fd.gqa_decode_partial(q, k, v, kv)  # noqa: E731
+                rec["ms"] = perf_func(call)[1]
+                rec["partial_kernel_device_ms"] = kernel_device_ms(
+                    call, "decode_partial_kernel")
+                if fd.split_count(S) > 1:
+                    rec["combine_kernel_device_ms"] = kernel_device_ms(
+                        call, "combine_kernel")
+                rec["plain_ms"] = perf_func(
+                    lambda: fd.gqa_decode_partial_plain(q, k, v, kv),
+                    iters=5)[1]
+                rec["library_ms"] = perf_func(sdpa_decode_call(q, k, v,
+                                                               kv))[1]
+                rec["bound_ms"], rec["bound_by"] = decode_bound(q, lens, S,
+                                                                name)
+            log("kernel gqa_decode_partial", json.dumps(rec))
+            if not (rec["rel_err"] <= OUT_ATOL[name]
+                    and rec["lse_max_abs_err"] <= LSE_ATOL and rec["finite"]
+                    and rec["bitwise_repeat"] and rows_alone):
+                raise AssertionError(f"gqa_decode_partial disagrees with its "
+                                     f"plain version: {rec}")
+            recs["gqa_decode_partial"].append(rec)
+            if case == "batch":
+                recs["decode_combine"] += _check_merges(
+                    fd.decode_combine, fd.decode_combine_plain,
+                    "decode_combine", "combine_kernel", q, k, v, kv, name,
+                    timed)
+                recs["ll_merge"] += _check_merges(
+                    lambda o, l: fd.ll_merge(o.float(), l, o.dtype),
+                    lambda o, l: fd.ll_merge_plain(o.float(), l, o.dtype),
+                    "ll_merge", "merge_kernel", q, k, v, kv, name, timed)
+            del q, k, v, out, out2, ref
+    return recs
+
+
+def _check_merges(fn, plain, kname: str, kernel: str, q, k, v, kv, name: str,
+                  timed: bool) -> list[dict]:
+    """``fn`` (B4 or B5's merge) against ``plain`` over the first R of B3's
+    per-split partials of the cache (each split decoded alone, its partial
+    in q's type), at ``COMBINE_R`` or ``MERGE_N``."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    n = fd.split_count(k.shape[2])
+    parts = [fd.gqa_decode_partial(
+        q, k[:, :, r * fd.SPLIT_KEYS:(r + 1) * fd.SPLIT_KEYS].contiguous(),
+        v[:, :, r * fd.SPLIT_KEYS:(r + 1) * fd.SPLIT_KEYS].contiguous(),
+        (kv - r * fd.SPLIT_KEYS).clamp(0, fd.SPLIT_KEYS).to(torch.int32))
+        for r in range(n)]
+    outs_all = torch.stack([o for o, _ in parts])
+    lses_all = torch.stack([l for _, l in parts])
+    records = []
+    for R in (COMBINE_R if kname == "decode_combine" else MERGE_N):
+        outs, lses = outs_all[:R].contiguous(), lses_all[:R].contiguous()
+        got, got2, ref = fn(outs, lses), fn(outs, lses), plain(outs, lses)
+        rec = {"kernel": kname, "case": f"{name} R={R} rows={q.shape[0]}x"
+                                        f"{q.shape[1]} D={q.shape[2]}",
+               "rel_err": _rel(got, ref), "atol": OUT_ATOL[name],
+               "bitwise_repeat": bool(torch.equal(got, got2))}
+        rec["max_abs_err"] = (got.float() - ref.float()).abs().max().item()
+        if timed:
+            call = lambda: fn(outs, lses)  # noqa: E731
+            rec["ms"] = perf_func(call)[1]
+            rec["kernel_device_ms"] = kernel_device_ms(call, kernel)
+            rec["plain_ms"] = perf_func(lambda: plain(outs, lses))[1]
+            rec["bound_ms"], rec["bound_by"] = merge_bound(
+                outs.float() if kname == "ll_merge" else outs,
+                q.element_size())
+            rec["library_ms"] = None
+            rec["library_none_because"] = (
+                "no single PyTorch call computes an lse-weighted merge of "
+                "partial attention outputs")
+        log(f"kernel {kname}", json.dumps(rec))
+        if not (rec["rel_err"] <= rec["atol"] and rec["bitwise_repeat"]):
+            raise AssertionError(f"{kname} disagrees with its plain version: "
+                                 f"{rec}")
+        records.append(rec)
+    return records
+
+
+def check_all_gather(device, timed: bool = True, rows=AG_ROWS,
+                     seed: int = 11) -> list[dict]:
+    """B9's one-rank form (``all_gather``, push and ring) against its plain
+    version on the SP wire [1, B, Hq, D + 1] f32 at each of ``rows``: exact
+    and bitwise repeatable, timed beside the bound (the wire read and
+    written once) and ``Tensor.clone``, the one PyTorch call that copies
+    it. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.shmem import initialize_distributed
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    ctx = initialize_distributed(("x",), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    records = []
+    for B in rows:
+        wire = torch.randn((1, B, HQ, D + 1), generator=gen, device=device)
+        for method in ("push", "ring"):
+            def call():
+                return ag.all_gather(ctx, wire, method=method)
+
+            got, got2, ref = call(), call(), ag.all_gather_plain(wire)
+            rec = {"kernel": "all_gather",
+                   "case": f"float32 {method} wire [1, {B}, {HQ}, {D + 1}]",
+                   "max_abs_err": (got - ref).abs().max().item(),
+                   "exact": bool(torch.equal(got, ref)),
+                   "bitwise_repeat": bool(torch.equal(got, got2))}
+            if timed:
+                rec["ms"] = perf_func(call)[1]
+                rec["kernel_device_ms"] = kernel_device_ms(call,
+                                                           "ag_copy_kernel")
+                rec["plain_ms"] = perf_func(
+                    lambda: ag.all_gather_plain(wire))[1]
+                rec["library_ms"] = perf_func(wire.clone)[1]
+                rec["library_call"] = "Tensor.clone"
+                rec["bound_ms"], rec["bound_by"] = ep_rows_bound(
+                    2 * wire.numel() * wire.element_size())
+            log("kernel all_gather", json.dumps(rec))
+            if not (rec["exact"] and rec["bitwise_repeat"]):
+                raise AssertionError(f"all_gather disagrees with its plain "
+                                     f"version: {rec}")
+            records.append(rec)
+    return records
+
+
+def check_decode_step(params, cfg, device, B: int = DECODE_VS_FORWARD["B"],
+                      prompt_len: int = DECODE_VS_FORWARD["prompt"],
+                      steps: int = DECODE_VS_FORWARD["steps"],
+                      max_seq: int = DECODE_VS_FORWARD["max_seq"]) -> dict:
+    """Greedy decode steps through ``decode_step`` (B3, B4 in every layer)
+    against the dense ``forward`` over the prompt and the tokens so far,
+    within ``MODEL_TOL`` of the logits' scale, and the one-rank
+    ``decode_step_sp`` beside it for each of ``SP_METHODS`` (fused: B3 then
+    B5's merge; push and ring: B3, B9's one-rank gather and B4), each on its
+    own cache and bitwise equal to ``decode_step`` at every step. The launch
+    counts are set to 0 just before the steps and read after. Raises on any
+    failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.shmem import initialize_distributed
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    seq = torch.randint(1, cfg.vocab_size, (B, prompt_len), generator=gen,
+                        device=device)
+    cache = llama.init_kv_cache(cfg, B, max_seq, device=device)
+    logits, cache = llama.prefill(params, seq, cfg, cache)
+    caches = [cache] + [{n: t.clone() for n, t in cache.items()}
+                        for _ in SP_METHODS]
+    ctx = initialize_distributed(("x",), device=device)
+    tok = logits.argmax(-1).to(torch.int32)
+    kernels = (fd.gqa_decode_partial, fd.decode_combine, fd.ll_merge,
+               ag.all_gather)
+    for kern in kernels:
+        kern.launches = 0
+    rels, bitwise, clear_same = [], True, True
+    tol = MODEL_TOL[str(cfg.dtype).split(".")[-1]]
+    for i in range(steps):
+        seq = torch.cat([seq, tok[:, None].long()], 1)
+        got, caches[0] = llama.decode_step(params, tok, prompt_len + i, cfg,
+                                           caches[0])
+        for j, method in enumerate(SP_METHODS, 1):
+            sp, caches[j] = llama.decode_step_sp(ctx, params, tok,
+                                                 prompt_len + i, cfg,
+                                                 caches[j], ag_method=method)
+            bitwise = bitwise and bool(torch.equal(sp, got))
+        with torch.no_grad():
+            ref = llama.forward(params, seq, cfg)[:, -1]
+        scale = ref.abs().max().item()
+        rels.append((got - ref).abs().max().item() / scale)
+        top2 = ref.topk(2, -1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol * scale
+        clear_same = clear_same and bool(
+            (got.argmax(-1) == ref.argmax(-1))[clear].all())
+        tok = got.argmax(-1).to(torch.int32)
+    launches = {k.__name__: k.launches for k in kernels}
+    runs = cfg.n_layers * steps                # of each attention call
+    split = fd.split_count(max_seq) > 1
+    expect = {"gqa_decode_partial": (1 + len(SP_METHODS)) * runs,
+              "decode_combine": ((1 + len(SP_METHODS)) * runs if split
+                                 else 0) + 2 * runs,
+              "ll_merge": runs,
+              "all_gather": 2 * runs}
+    rec = {"dtype": str(cfg.dtype), "layers": cfg.n_layers, "rows": B,
+           "prompt_len": prompt_len, "steps": steps, "max_seq": max_seq,
+           "max_rel_err": max(rels), "rel_err_by_step": rels, "tol": tol,
+           "greedy_tokens_agree_where_clear": clear_same,
+           "sp_methods": list(SP_METHODS), "sp_bitwise_equal": bitwise,
+           "launches": launches, "launches_expected": expect}
+    log("model decode_step vs dense forward", json.dumps(rec))
+    if not (max(rels) <= tol and bitwise and clear_same
+            and launches == expect):
+        raise AssertionError(f"decode_step disagrees with the dense forward "
+                             f"or decode_step_sp: {rec}")
+    return rec
+
+
+def run_generate(params, cfg, device, name: str, card: str, B: int,
+                 prompt: int, new: int, max_seq: int, runs: int,
+                 seed: int = 5) -> dict:
+    """``generate`` on ``B`` seeded prompts of ``prompt`` tokens, ``runs``
+    times: each run's wall time between device synchronisations, its peak
+    memory and the launches of B3 and B4 (set to 0 just before each run and
+    read after); then ``prefill`` alone once on the same prompts (a fresh
+    cache included, as ``generate`` makes one), whose time split from each
+    run's gives the decode time, ms per step and tokens/s. Raises unless
+    each run launched each kernel layers x decode steps times, the tokens
+    lie in the vocabulary, and every run gave the first run's tokens
+    bitwise."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompts = torch.randint(1, cfg.vocab_size, (B, prompt), generator=gen,
+                            device=device)
+    kernels = (fd.gqa_decode_partial, fd.decode_combine)
+    on_card = device.type == "cuda"
+
+    def clock() -> float:
+        if on_card:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    runs_out = []
+    for _ in range(runs):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        t0 = clock()
+        toks = llama.generate(params, prompts, cfg, new, max_seq=max_seq)
+        wall = clock() - t0
+        runs_out.append((toks, {
+            "generate_s": wall,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                             if on_card else None),
+            "launches": {k.__name__: k.launches for k in kernels}}))
+    t0 = clock()
+    cache = llama.init_kv_cache(cfg, B, max_seq, device=device)
+    logits, cache = llama.prefill(params, prompts, cfg, cache)
+    logits.argmax(-1)
+    prefill_s = clock() - t0
+    del cache, logits
+    toks = runs_out[0][0]
+    steps = new - 1
+    for _, r in runs_out:
+        r["decode_s"] = r["generate_s"] - prefill_s
+        r["decode_ms_per_step"] = r["decode_s"] / steps * 1e3
+        r["decode_tok_per_s"] = B * steps / r["decode_s"]
+    splits = fd.split_count(max_seq)
+    expect = {"gqa_decode_partial": cfg.n_layers * steps,
+              "decode_combine": cfg.n_layers * steps if splits > 1 else 0}
+    rec = {"run": name, "card": card, "dtype": str(cfg.dtype),
+           "layers": cfg.n_layers, "B": B, "prompt": prompt, "new": new,
+           "max_seq": max_seq, "splits": splits, "decode_steps": steps,
+           "prefill_s": prefill_s,
+           "cache_gib": (2 * cfg.n_layers * B * cfg.n_kv_heads * max_seq
+                         * cfg.head_dim * toks.new_zeros(0, dtype=cfg.dtype)
+                         .element_size() / 2 ** 30),
+           "shape_ok": list(toks.shape) == [B, new],
+           "in_vocab": bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+           "launches_expected": expect,
+           "runs": [r for _, r in runs_out],
+           "reruns_bit_identical": all(torch.equal(t, toks)
+                                       for t, _ in runs_out[1:]),
+           "first_tokens": toks[:, :8].tolist()}
+    log(f"generate {name}", json.dumps(rec))
+    ok = (rec["shape_ok"] and rec["in_vocab"] and rec["reruns_bit_identical"]
+          and all(r["launches"] == expect for _, r in runs_out))
+    if not ok:
+        raise AssertionError(f"generate {name} failed its checks: {rec}")
+    return rec
+
+
+def profile_decode_step(params, cfg, device, B: int = GEN["batch"]["B"],
+                        kv: int = GEN["batch"]["prompt"] + GEN["batch"]["new"],
+                        max_seq: int = GEN["batch"]["max_seq"]) -> dict:
+    """One ``decode_step`` at G-batch's last position (B rows at ``kv``
+    keys): its median wall time over three plain runs (the ``.cpu()`` of
+    the greedy tokens waits for the card), then one run under
+    ``torch.profiler`` for the device time by family (B3's partial kernel,
+    B4's combine, GEMMs, the rest), the device ops and the idle share (1 -
+    device time / wall time)."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+
+    cache = llama.init_kv_cache(cfg, B, max_seq, device=device)
+    token = torch.ones(B, dtype=torch.int32, device=device)
+
+    def step():
+        return llama.decode_step(params, token, kv - 1, cfg,
+                                 cache)[0].argmax(-1).cpu()
+
+    card = device.type == "cuda"
+    step()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[1]
+    fams, ops = device_time_by_family(
+        step, card, (("decode_partial", ("decode_partial_kernel",)),
+                     ("decode_combine", ("combine_kernel",))))
+    busy = sum(fams.values())
+    rec = {"rows": B, "kv_len": kv, "max_seq": max_seq, "wall_s": wall,
+           "device_busy_s": busy,
+           "device_idle_share": 1 - busy / wall if busy else None,
+           "device_s_by_family": fams, "device_ops": ops,
+           "device_ops_per_layer": ops / cfg.n_layers}
+    log("profile decode_step", json.dumps(rec))
+    del cache
+    return rec
+
+
+def check_generation(params, cfg, device, card: str) -> dict:
+    """Phase 10 on the 32-layer bf16 params: the kernels against their
+    plain versions, G-batch (served twice) and G-long through ``generate``,
+    and one G-batch decode step under the profiler."""
+    import torch
+
+    kernels = check_decode_kernels(device)
+    kernels["all_gather"] = check_all_gather(device)
+    torch.cuda.empty_cache()
+    gen_batch = run_generate(params, cfg, device, "G-batch", card,
+                             runs=2, **GEN["batch"])
+    gen_long = run_generate(params, cfg, device, "G-long", card, runs=1,
+                            **GEN["long"])
+    torch.cuda.empty_cache()
+    profile = profile_decode_step(params, cfg, device)
+    torch.cuda.empty_cache()
+    return {"kernels": kernels, "batch": gen_batch, "long": gen_long,
+            "profile": profile}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -1248,10 +1730,14 @@ def main() -> int:
 
     attention = check_attention(device)
 
-    # f32 at full width, depth cut to 4 layers: the tight check
+    # f32 at full width, depth cut to 4 layers: the tight checks of the
+    # paged decode step and (phase 10b) of the contiguous one
     cfg32 = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=4,
                                 dtype=torch.float32)
-    check_model(init_params(cfg32, seed=1, device=device), cfg32, device)
+    params32 = init_params(cfg32, seed=1, device=device)
+    check_model(params32, cfg32, device)
+    decode_step_rec = check_decode_step(params32, cfg32, device)
+    del params32
     torch.cuda.empty_cache()
 
     cfg = LlamaConfig.llama3_8b()
@@ -1267,6 +1753,7 @@ def main() -> int:
                           ENGINE, card)
 
     profile_dispatch(params, cfg, device)
+    generation = check_generation(params, cfg, device, card)
     del params                        # the trainer needs the card's memory
     torch.cuda.empty_cache()
 
@@ -1287,6 +1774,23 @@ def main() -> int:
                if r["dtype"] == "bfloat16" and r["shape"] == "decode"}
 
     main_case = attention[0]          # bf16 decode, the hot shape
+    fd_source = "triton_dist_tpu_torch/csrc/flash_decode.cu"
+    dec = generation["kernels"]
+    # the main path's shapes: B3 at G-batch's bf16 decode; B4 over 8 of its
+    # split partials in f32 (the type B3 hands it); B5's merge over one
+    # rank's partial; B9's one-rank gather of phase 10b's push wire
+    fd_main = {"gqa_decode_partial": dec["gqa_decode_partial"][0],
+               "decode_combine": next(r for r in dec["decode_combine"]
+                                      if r["case"].startswith("float32 R=8")),
+               "ll_merge": next(r for r in dec["ll_merge"]
+                                if r["case"].startswith("float32 R=1")),
+               "all_gather": dec["all_gather"][0]}
+    fd_launches = {"gqa_decode_partial": generation["batch"]["runs"][0]
+                   ["launches"]["gqa_decode_partial"],
+                   "decode_combine": generation["batch"]["runs"][0]
+                   ["launches"]["decode_combine"],
+                   "ll_merge": decode_step_rec["launches"]["ll_merge"],
+                   "all_gather": decode_step_rec["launches"]["all_gather"]}
     ring_main = ring[0]               # bf16 S=4096 causal, the training shape
     ring_source = "triton_dist_tpu_torch/csrc/ring_attention.cu"
     log(json.dumps({"kernels": [{
@@ -1334,7 +1838,25 @@ def main() -> int:
             ("grouped_gemm", "group_gemm",
              "triton_dist_tpu/ops/group_gemm.py:391"),
             ("ep_combine", "all_to_all",
-             "triton_dist_tpu/ops/all_to_all.py:347"))]}))
+             "triton_dist_tpu/ops/all_to_all.py:347"))] + [{
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "wrapper": wrapper,
+        "launches": fd_launches[wrapper],
+        "max_abs_err": max(r["max_abs_err"] for r in dec[wrapper]),
+        **{k: fd_main[wrapper][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "case")},
+        "cases": dec[wrapper]}
+        for name, wrapper, source, replaces in (
+            ("gqa_decode_partial", "gqa_decode_partial", fd_source,
+             "triton_dist_tpu/ops/flash_decode.py:150"),
+            ("decode_combine", "decode_combine", fd_source,
+             "triton_dist_tpu/ops/flash_decode.py:319"),
+            ("ll_ag_merge", "ll_merge", fd_source,
+             "triton_dist_tpu/ops/flash_decode.py:431"),
+            ("all_gather", "all_gather",
+             "triton_dist_tpu_torch/csrc/allgather.cu",
+             "triton_dist_tpu/ops/allgather.py:262"))]}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,4 +8,5 @@ a CUDA tensor (``triton_dist_tpu_torch.csrc``). Entry points run on
 kernel wrapper takes its plain PyTorch version.
 """
 
-__all__ = ["csrc", "models", "ops", "parallel", "serving", "utils"]
+__all__ = ["csrc", "layers", "models", "ops", "parallel", "serving", "shmem",
+           "utils"]

@@ -1,6 +1,8 @@
-"""Llama-style decoder: the differentiable full-sequence forward (training)
-and the serving half (prefill, paged decode, chunked paged prefill and the
-multi-token decode loop).
+"""Llama-style decoder: the differentiable full-sequence forward (training),
+the contiguous-cache decode (``decode_step``, its sequence-parallel twin
+``decode_step_sp`` and the greedy ``generate``) and the serving half
+(prefill, paged decode, chunked paged prefill and the multi-token decode
+loop).
 
 Counterpart of ``triton_dist_tpu/models/llama.py`` with its layouts kept:
 parameters are a dict of stacked per-layer tensors (leading ``L`` dim), and a
@@ -23,7 +25,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from triton_dist_tpu_torch.ops.flash_decode import (gqa_decode_paged,
-                                                    paged_kv_write)
+                                                    gqa_decode_partial,
+                                                    paged_kv_write,
+                                                    sp_gqa_flash_decode)
 from triton_dist_tpu_torch.utils.env import default_device
 
 
@@ -271,6 +275,94 @@ def prefill(params: dict, tokens, cfg: LlamaConfig, cache: dict,
 
 
 # ---------------------------------------------------------------------------
+# contiguous-cache decode and greedy generation
+# ---------------------------------------------------------------------------
+
+def _decode_layers(params: dict, token, pos, cfg: LlamaConfig, cache: dict,
+                   attend, ffn):
+    """One-token decode at the scalar position ``pos`` over the contiguous
+    cache: each layer writes its new (k, v) row into ``cache[i, :, :, pos]``
+    in place and attends with ``attend(q, ck, cv, kv_len)`` at
+    ``kv_len = pos + 1``. Returns (logits [B, V] f32, cache)."""
+    B = token.shape[0]
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pos = int(pos)
+    x = params["embed"][token].to(cfg.dtype)                 # [B, D]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    kv_len = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        q = rope((h @ p["wq"]).view(B, 1, Hq, Dh), positions,
+                 cfg.rope_theta)[:, 0]                       # [B, Hq, Dh]
+        k = rope((h @ p["wk"]).view(B, 1, Hkv, Dh), positions,
+                 cfg.rope_theta)[:, 0]                       # [B, Hkv, Dh]
+        v = (h @ p["wv"]).view(B, Hkv, Dh)
+        ck, cv = cache["k"][i], cache["v"][i]                # [B, Hkv, S, Dh]
+        ck[:, :, pos] = k
+        cv[:, :, pos] = v
+        attn = attend(q, ck, cv, kv_len)
+        x = x + attn.reshape(B, Hq * Dh) @ p["wo"]
+        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        x = x + (_ffn if ffn is None else ffn)(h, p).to(x.dtype)
+    return _head(params, x, cfg), cache
+
+
+def decode_step(params: dict, token, pos, cfg: LlamaConfig, cache: dict,
+                ffn=None):
+    """One-token decode over the contiguous cache from ``init_kv_cache``.
+
+    ``token`` [B] int32; ``pos`` an int (or 0-d tensor): the cache slots
+    filled so far, the same for every row. The new (k, v) row is written
+    into the cache at ``pos`` in place (the JAX version's
+    ``dynamic_update_slice``), and attention is ``gqa_decode_partial`` at
+    ``kv_len = pos + 1``. ``ffn(h, p) -> [B, D]`` replaces the dense FFN of
+    every layer. Returns (logits [B, V] f32, cache)."""
+    def attend(q, ck, cv, kv_len):
+        return gqa_decode_partial(q, ck, cv, kv_len)[0]
+
+    return _decode_layers(params, token, pos, cfg, cache, attend, ffn)
+
+
+def decode_step_sp(ctx, params: dict, token, pos, cfg: LlamaConfig,
+                   cache: dict, axis: str | None = None,
+                   ag_method: str = "fused", ffn=None):
+    """``decode_step`` with sequence-parallel attention
+    (``sp_gqa_flash_decode``: this rank's partial over its KV shard, the
+    partial all-gather and the lse merge) over the mesh axis ``axis`` of
+    ``ctx``. At one rank the shard is the whole cache and the merge of one
+    partial keeps its bits, so the logits equal ``decode_step``'s bit for
+    bit. More ranks wait for the shmem layer (ROADMAP A6)."""
+    def attend(q, ck, cv, kv_len):
+        return sp_gqa_flash_decode(ctx, q, ck, cv, kv_len, axis=axis,
+                                   ag_method=ag_method)
+
+    return _decode_layers(params, token, pos, cfg, cache, attend, ffn)
+
+
+def generate(params: dict, prompt, cfg: LlamaConfig, max_new_tokens: int,
+             max_seq: int | None = None):
+    """Greedy generation: ``prefill`` of the prompt [B, S0] into a fresh
+    contiguous cache of ``max_seq`` slots, then a loop of ``decode_step``.
+    Returns the tokens [B, max_new_tokens] int32; the first column is the
+    prefill's argmax, as in the JAX version. The JAX scan also runs one
+    decode step whose token it drops; this loop stops before it, so it runs
+    ``max_new_tokens - 1`` decode steps."""
+    B, S0 = prompt.shape
+    max_seq = max_seq or cfg.max_seq_len
+    assert S0 + max_new_tokens <= max_seq
+    cache = init_kv_cache(cfg, B, max_seq, device=prompt.device)
+    logits, cache = prefill(params, prompt, cfg, cache)
+    tok = logits.argmax(-1).to(torch.int32)
+    toks = [tok]
+    for i in range(max_new_tokens - 1):
+        logits, cache = decode_step(params, tok, S0 + i, cfg, cache)
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok)
+    return torch.stack(toks, dim=1)
+
+
+# ---------------------------------------------------------------------------
 # paged serving path
 # ---------------------------------------------------------------------------
 
@@ -403,6 +495,7 @@ def decode_multistep_paged(params: dict, token, pos, cfg: LlamaConfig,
 
 
 __all__ = ["LlamaConfig", "init_params", "rmsnorm", "rope", "block_apply",
-           "forward", "init_kv_cache", "prefill", "init_page_pool",
+           "forward", "init_kv_cache", "prefill", "decode_step",
+           "decode_step_sp", "generate", "init_page_pool",
            "decode_step_paged", "prefill_chunk_paged",
            "decode_multistep_paged"]

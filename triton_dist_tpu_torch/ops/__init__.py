@@ -1,9 +1,12 @@
+from triton_dist_tpu_torch.ops.allgather import all_gather, all_gather_plain
 from triton_dist_tpu_torch.ops.all_to_all import (ep_combine, ep_combine_plain,
                                                   ep_dispatch,
                                                   ep_dispatch_plain)
-from triton_dist_tpu_torch.ops.flash_decode import (NEG_INF, gqa_decode_paged,
-                                                    gqa_decode_paged_plain,
-                                                    paged_kv_write)
+from triton_dist_tpu_torch.ops.flash_decode import (
+    NEG_INF, SPLIT_KEYS, decode_combine, decode_combine_plain,
+    gqa_decode_paged, gqa_decode_paged_plain, gqa_decode_partial,
+    gqa_decode_partial_plain, ll_ag_merge, ll_merge, ll_merge_plain,
+    paged_kv_write, sp_gqa_flash_decode)
 from triton_dist_tpu_torch.ops.group_gemm import (
     align_tokens_by_expert, apply_grouped, expert_alignment, grouped_gemm,
     grouped_gemm_gated, grouped_gemm_gated_plain, grouped_gemm_plain,
@@ -12,12 +15,17 @@ from triton_dist_tpu_torch.ops.ring_attention import (
     ring_attention, ring_attention_bwd, ring_attention_bwd_plain,
     ring_attention_fwd, ring_attention_fwd_plain, zigzag_indices)
 
-__all__ = ["NEG_INF", "align_tokens_by_expert", "apply_grouped",
+__all__ = ["NEG_INF", "SPLIT_KEYS", "align_tokens_by_expert", "all_gather",
+           "all_gather_plain",
+           "apply_grouped", "decode_combine", "decode_combine_plain",
            "ep_combine", "ep_combine_plain", "ep_dispatch",
            "ep_dispatch_plain", "expert_alignment",
-           "gqa_decode_paged", "gqa_decode_paged_plain", "grouped_gemm",
+           "gqa_decode_paged", "gqa_decode_paged_plain",
+           "gqa_decode_partial", "gqa_decode_partial_plain",
+           "ll_ag_merge", "ll_merge", "ll_merge_plain", "grouped_gemm",
            "grouped_gemm_gated", "grouped_gemm_gated_plain",
            "grouped_gemm_plain", "moe_ffn_local", "paged_kv_write",
+           "sp_gqa_flash_decode",
            "used_block_count", "ring_attention", "ring_attention_bwd",
            "ring_attention_bwd_plain", "ring_attention_fwd",
            "ring_attention_fwd_plain", "zigzag_indices"]

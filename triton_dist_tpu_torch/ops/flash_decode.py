@@ -1,15 +1,34 @@
-"""Paged GQA decode attention and the paged KV write.
+"""GQA decode attention: paged and contiguous caches, the partials'
+combine, and the sequence-parallel decode at one rank.
 
-Counterpart of ``triton_dist_tpu/ops/flash_decode.py``: ``gqa_decode_paged``
-(the TPU kernel ``_decode_paged_kernel`` + ``_online_softmax_body``) and
-``paged_kv_write``. On a CUDA tensor ``gqa_decode_paged`` launches the
-hand-written Hopper kernel in ``csrc/flash_decode_paged.cu``; on a CPU
-tensor it runs ``gqa_decode_paged_plain``, the PyTorch version that repeats
-the kernel's arithmetic page by page.
+Counterpart of ``triton_dist_tpu/ops/flash_decode.py``. Four kernel
+wrappers, each with its plain PyTorch version beside it:
 
-The TPU kernel returns lse lane-broadcast as ``[B, Hq, 128]``, a tiling
-artifact of the TPU (every DMA slice stays 128 lanes wide). The port returns
-lse as ``[B, Hq]``; it equals the TPU's ``lse[..., 0]``.
+- ``gqa_decode_paged`` (TPU kernel ``_decode_paged_kernel``): decode over
+  the serving page pool, ``csrc/flash_decode_paged.cu``;
+- ``gqa_decode_partial`` (``_decode_kernel``): decode over a contiguous
+  head-major cache. On the card it is split-KV: the keys are cut into splits
+  of ``SPLIT_KEYS``, one block per (split, kv head, row), and the partials
+  are merged by the combine kernel; where one split covers the cache the
+  partial kernel writes the result itself. ``csrc/flash_decode.cu``;
+- ``decode_combine`` (``_combine_kernel``): the lse-weighted merge of R
+  partials, ``csrc/flash_decode.cu``;
+- ``ll_merge``: the merge half of ``ll_ag_merge`` (``_ll_ag_merge_kernel``),
+  the canonical-order running merge of gathered partials,
+  ``csrc/flash_decode.cu``.
+
+A wrapper given CPU tensors runs its plain version; given CUDA tensors it
+launches its kernel or raises, and adds one to its ``launches`` count at
+each launch. ``ll_ag_merge`` and ``sp_gqa_flash_decode`` run at one rank:
+the fused partial all-gather of one shard is the shard itself, and the
+``push``/``ring`` gather is ``ops.allgather.all_gather``'s one-rank kernel.
+More ranks wait for the shmem layer (ROADMAP A6).
+
+The TPU kernels return lse lane-broadcast as ``[B, Hq, 128]``, a tiling
+artifact of the TPU (every DMA slice stays 128 lanes wide), and the SP wire
+packs ``(out || lse)`` into ``D + 128`` f32 lanes. The port keeps lse as
+``[B, Hq]``, the TPU's ``lse[..., 0]``, partials as ``(outs, lses)`` pairs,
+and the ``push``/``ring`` wire as ``D + 1`` f32 values.
 """
 
 from __future__ import annotations
@@ -20,6 +39,7 @@ import math
 import torch
 
 from triton_dist_tpu_torch import csrc
+from triton_dist_tpu_torch.ops.allgather import all_gather
 
 NEG_INF = -1e30
 
@@ -167,5 +187,394 @@ def paged_kv_write(k_pages, v_pages, k_new, v_new, block_table, pos,
     return k_pages, v_pages
 
 
-__all__ = ["NEG_INF", "gqa_decode_paged", "gqa_decode_paged_plain",
-           "paged_kv_write"]
+# ---------------------------------------------------------------------------
+# contiguous cache: split-KV partials, their combine, the SP merge
+# ---------------------------------------------------------------------------
+
+# keys per split of the contiguous decode. A constant, so the split count
+# depends on the cache length S alone, never on the batch, kv_len or the
+# device: a row's bits do not depend on which rows share the launch
+SPLIT_KEYS = 256
+# keys per shared-memory tile of the partial kernel (16 KB of K a tile), by
+# type; the plain version walks the same tiles, so both rescale the running
+# softmax at the same keys
+_TILE = {torch.bfloat16: 64, torch.float32: 32}
+
+_PARTIAL_SIG = [_P, _P, _P, _P, _P, _P, _P, _P,    # q k v kv_len out lse po pl
+                _I, _I, _I, _I, _I, _I, _I,        # B Hq Hkv S D split n_split
+                ctypes.c_float, _P]                # sm_scale stream
+_COMBINE_SIG = [_P, _P, _P, _P, _P,                # outs lses out lse kv_len
+                _I, _I, _I, _I, _I, _I, _P]        # R rows D Hq S split stream
+_MERGE_SIG = [_P, _P, _P, _I, _I, _I, _P]          # outs lses out n rows D
+_PARTIAL_ENTRIES = {torch.float32: "tdt_gqa_decode_partial_f32",
+                    torch.bfloat16: "tdt_gqa_decode_partial_bf16"}
+# (partials' type, output type)
+_COMBINE_ENTRIES = {(torch.float32, torch.float32): "tdt_decode_combine_f32",
+                    (torch.bfloat16, torch.bfloat16):
+                        "tdt_decode_combine_bf16",
+                    (torch.float32, torch.bfloat16):
+                        "tdt_decode_combine_f32_bf16"}
+_MERGE_ENTRIES = {torch.float32: "tdt_ll_merge_f32",
+                  torch.bfloat16: "tdt_ll_merge_bf16"}
+
+
+def _fd_lib():
+    sigs = {**{n: _PARTIAL_SIG for n in _PARTIAL_ENTRIES.values()},
+            **{n: _COMBINE_SIG for n in _COMBINE_ENTRIES.values()},
+            **{n: _MERGE_SIG for n in _MERGE_ENTRIES.values()}}
+    return csrc.load("flash_decode", sigs)
+
+
+def split_count(S: int, split: int = SPLIT_KEYS) -> int:
+    """Splits of a cache of S keys (1 when one split covers it)."""
+    return max(1, -(-S // split))
+
+
+def _partials_plain(q, k_cache, v_cache, kv_len, scale: float, split: int):
+    """Each split's online softmax over its key tiles, vectorised over
+    splits, rows and heads: f32 ``(outs [n, B, Hq, D], lses [n, B, Hq])``.
+    A tile's state is updated only when it holds a key below kv_len (the
+    kernel reads no other), so a split past kv_len keeps zeros and
+    NEG_INF."""
+    B, Hq, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    G = Hq // Hkv
+    n = split_count(S, split)
+    tile = min(_TILE.get(q.dtype, 64), split)
+    dev = q.device
+    kv = kv_len.to(dev, torch.int64).clamp(0, S)
+    pad = n * split - S
+    if pad:
+        k_cache = torch.nn.functional.pad(k_cache, (0, 0, 0, pad))
+        v_cache = torch.nn.functional.pad(v_cache, (0, 0, 0, pad))
+    ks = k_cache.reshape(B, Hkv, n, split, D)
+    vs = v_cache.reshape(B, Hkv, n, split, D)
+    qf = q.reshape(B, Hkv, G, D).float()
+    acc = torch.zeros(n, B, Hkv, G, D, dtype=torch.float32, device=dev)
+    m = torch.full((n, B, Hkv, G, 1), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros(n, B, Hkv, G, 1, dtype=torch.float32, device=dev)
+    starts = torch.arange(n, device=dev) * split                 # [n]
+    for t0 in range(0, split, tile):
+        kt = ks[:, :, :, t0:t0 + tile].float()             # [B, Hkv, n, j, D]
+        vt = vs[:, :, :, t0:t0 + tile]
+        width = kt.shape[3]
+        scores = torch.einsum("bhgd,bhnjd->nbhgj", qf, kt) * scale
+        pos = starts[:, None] + t0 + torch.arange(width, device=dev)
+        valid = pos[:, None, :] < kv[None, :, None]              # [n, B, j]
+        scores = torch.where(valid[:, :, None, None, :], scores,
+                             torch.full_like(scores, NEG_INF))
+        live = ((starts + t0)[:, None] < kv[None, :]).view(n, B, 1, 1, 1)
+        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new)
+        l_new = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.einsum("nbhgj,bhnjd->nbhgd", p.to(vt.dtype).float(),
+                          vt.float())
+        acc = torch.where(live, acc * alpha + pv, acc)
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l_new, l)
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    outs = (acc / l_safe).reshape(n, B, Hq, D)
+    lses = torch.where(l > 0, m + torch.log(l_safe),
+                       torch.full_like(l, NEG_INF)).reshape(n, B, Hq)
+    return outs, lses
+
+
+def _combine_plain(partial_outs, partial_lses, out_dtype):
+    """The combine's arithmetic: ``(merged in out_dtype, merged lse)``, the
+    weighted sum taken over r = 0..R-1 in order, each product and sum
+    rounded to f32 on its own."""
+    lses = partial_lses.float()
+    m = lses.amax(0)
+    acc = torch.zeros(partial_outs.shape[1:], dtype=torch.float32,
+                      device=partial_outs.device)
+    denom = torch.zeros_like(m)
+    for r in range(partial_outs.shape[0]):
+        w = torch.exp(lses[r] - m)
+        denom = denom + w
+        acc = acc + partial_outs[r].float() * w[..., None]
+    safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+    merged = (acc / safe[..., None]).to(out_dtype)
+    lse = torch.where(denom > 0, m + torch.log(safe),
+                      torch.full_like(m, NEG_INF))
+    return merged, lse
+
+
+def gqa_decode_partial_plain(q, k_cache, v_cache, kv_len,
+                             sm_scale: float | None = None,
+                             split: int = SPLIT_KEYS):
+    """The plain PyTorch version of ``gqa_decode_partial``: the kernel's
+    split-KV walk (``_partials_plain``), then, with more than one split, the
+    combine's arithmetic. ``split`` is the kernel's ``SPLIT_KEYS``; a test
+    may take a shorter one to walk several splits at a small S."""
+    D = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    outs, lses = _partials_plain(q, k_cache, v_cache, kv_len, scale, split)
+    if outs.shape[0] == 1:
+        return outs[0].to(q.dtype), lses[0]
+    return _combine_plain(outs, lses, q.dtype)
+
+
+def _check_cuda(name: str, tensors) -> None:
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all inputs must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def gqa_decode_partial(q, k_cache, v_cache, kv_len, block_s: int = 128,
+                       sm_scale: float | None = None):
+    """Decode over a contiguous (possibly partial) KV shard.
+
+    q [B, Hq, D]; k_cache / v_cache [B, Hkv, S, D] head-major; kv_len [B]
+    int32 valid keys (0 allowed: the row gives zeros and lse = NEG_INF).
+    Returns ``(out [B, Hq, D] in q's type, lse [B, Hq] f32)``. ``block_s``
+    is the TPU kernel's tile of the S axis; it does not change the result,
+    and the port tiles by its own rule.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the split-KV
+    kernel (bf16 or f32, ``Hq % Hkv == 0``, D dividing 256 and a multiple of
+    8, ``Hq / Hkv * D <= 1024``), adding one to
+    ``gqa_decode_partial.launches``, and with more than one split the
+    combine kernel, adding one to ``decode_combine.launches``; or raises.
+    """
+    del block_s
+    if q.device.type == "cpu":
+        return gqa_decode_partial_plain(q, k_cache, v_cache, kv_len,
+                                        sm_scale)
+    B, Hq, D = q.shape
+    Bk, Hkv, S, Dk = k_cache.shape
+    _check_cuda("gqa_decode_partial", (q, k_cache, v_cache, kv_len))
+    if q.dtype not in _PARTIAL_ENTRIES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise TypeError(f"gqa_decode_partial: q/k/v must share a type in "
+                        f"{list(_PARTIAL_ENTRIES)}, got {q.dtype}, "
+                        f"{k_cache.dtype}, {v_cache.dtype}")
+    if kv_len.dtype != torch.int32:
+        raise TypeError("gqa_decode_partial: kv_len must be int32")
+    if (Bk != B or Dk != D or v_cache.shape != k_cache.shape or Hq % Hkv
+            or 256 % D or D % 8 or (Hq // Hkv) * D > 1024 or B < 1 or S < 1
+            or kv_len.shape != (B,)):
+        raise ValueError(
+            f"gqa_decode_partial: unsupported shapes q {tuple(q.shape)}, "
+            f"cache {tuple(k_cache.shape)}/{tuple(v_cache.shape)}, kv_len "
+            f"{tuple(kv_len.shape)}")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("gqa_decode_partial: caches must be 16-byte aligned")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    n = split_count(S)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, Hq, dtype=torch.float32, device=q.device)
+    po = pl = None
+    if n > 1:
+        po = torch.empty(n, B, Hq, D, dtype=torch.float32, device=q.device)
+        pl = torch.empty(n, B, Hq, dtype=torch.float32, device=q.device)
+    lib = _fd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with csrc.current_on(q.device):
+        rc = getattr(lib, _PARTIAL_ENTRIES[q.dtype])(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            po.data_ptr() if n > 1 else None,
+            pl.data_ptr() if n > 1 else None,
+            B, Hq, Hkv, S, D, SPLIT_KEYS, n, scale, stream)
+    csrc.check(lib, rc, "gqa_decode_partial")
+    gqa_decode_partial.launches += 1
+    if n > 1:
+        _combine_launch(po, pl, out, lse, kv_len, S)
+    return out, lse
+
+
+gqa_decode_partial.launches = 0
+
+
+def _combine_launch(partial_outs, partial_lses, out, lse=None, kv_len=None,
+                    S: int = 0) -> None:
+    """Launch the combine kernel into ``out``; adds one to
+    ``decode_combine.launches``. B3's use also passes ``lse`` (the merged
+    lse is written there) and its ``kv_len`` and S: row b then merges only
+    the splits that start below ``kv_len[b]``, the others holding zeros
+    and NEG_INF (weight exactly 0)."""
+    R, B, Hq, D = partial_outs.shape
+    lib = _fd_lib()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    with csrc.current_on(out.device):
+        rc = getattr(lib, _COMBINE_ENTRIES[(partial_outs.dtype, out.dtype)])(
+            partial_outs.data_ptr(), partial_lses.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            kv_len.data_ptr() if kv_len is not None else None,
+            R, B * Hq, D, Hq, S, SPLIT_KEYS, stream)
+    csrc.check(lib, rc, "decode_combine")
+    decode_combine.launches += 1
+
+
+def decode_combine_plain(partial_outs, partial_lses):
+    """The plain PyTorch version of ``decode_combine``."""
+    return _combine_plain(partial_outs, partial_lses, partial_outs.dtype)[0]
+
+
+def decode_combine(partial_outs, partial_lses):
+    """The lse-weighted merge of R partial attention outputs:
+    ``m = max_r lse``, ``w = exp(lse - m)``, ``merged = sum_r outs * w /
+    sum_r w`` (the sum replaced by 1 where it is 0), summed in the order
+    r = 0..R-1 in f32. Partials whose lse is NEG_INF everywhere give zeros.
+
+    partial_outs [R, B, Hq, D]; partial_lses [R, B, Hq] f32. Returns
+    [B, Hq, D] in the outs' type. A CPU tensor runs the plain version; a
+    CUDA tensor (bf16 or f32 outs, D <= 256) launches the kernel, adding one
+    to ``decode_combine.launches``, or raises."""
+    if partial_outs.device.type == "cpu":
+        return decode_combine_plain(partial_outs, partial_lses)
+    _check_cuda("decode_combine", (partial_outs, partial_lses))
+    if (partial_outs.dtype, partial_outs.dtype) not in _COMBINE_ENTRIES \
+            or partial_lses.dtype != torch.float32:
+        raise TypeError(f"decode_combine: outs must be bf16 or f32 and lses "
+                        f"f32, got {partial_outs.dtype}, "
+                        f"{partial_lses.dtype}")
+    if (partial_outs.dim() != 4 or partial_lses.shape
+            != partial_outs.shape[:3] or partial_outs.shape[0] < 1
+            or partial_outs.shape[-1] > 256 or partial_outs[0].numel() == 0):
+        raise ValueError(f"decode_combine: unsupported shapes outs "
+                         f"{tuple(partial_outs.shape)}, lses "
+                         f"{tuple(partial_lses.shape)}")
+    out = torch.empty(partial_outs.shape[1:], dtype=partial_outs.dtype,
+                      device=partial_outs.device)
+    _combine_launch(partial_outs, partial_lses, out)
+    return out
+
+
+decode_combine.launches = 0
+
+
+def ll_merge_plain(partial_outs, partial_lses, out_dtype=torch.float32):
+    """The plain PyTorch version of ``ll_merge``: segment 0 initialises
+    ``(acc, m, denom) = (out, lse, 1)``, each later segment rescales
+    (``_ll_ag_merge_kernel`` :391-404), each product and sum rounded to f32
+    on its own."""
+    acc = partial_outs[0].float()
+    m = partial_lses[0].float()
+    denom = torch.ones_like(m)
+    for s in range(1, partial_outs.shape[0]):
+        lse = partial_lses[s].float()
+        new_m = torch.maximum(m, lse)
+        scale = torch.exp(m - new_m)
+        w = torch.exp(lse - new_m)
+        acc = acc * scale[..., None] + partial_outs[s].float() * w[..., None]
+        denom = denom * scale + w
+        m = new_m
+    safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+    return (acc / safe[..., None]).to(out_dtype)
+
+
+def ll_merge(partial_outs, partial_lses, out_dtype=torch.float32):
+    """The merge half of ``ll_ag_merge``: the gathered partials merged in
+    canonical rank order 0..n-1 with the running (m, denom, acc) rescaling,
+    then ``acc / denom`` in ``out_dtype``. It rounds in another order than
+    ``decode_combine`` (running rescale against two passes); over one
+    segment it returns the segment's bits.
+
+    partial_outs [n, B, Hq, D] f32; partial_lses [n, B, Hq] f32; any n. A
+    CPU tensor runs the plain version; a CUDA tensor (``out_dtype`` bf16 or
+    f32, D <= 256) launches the kernel, adding one to ``ll_merge.launches``,
+    or raises."""
+    if partial_outs.device.type == "cpu":
+        return ll_merge_plain(partial_outs, partial_lses, out_dtype)
+    _check_cuda("ll_merge", (partial_outs, partial_lses))
+    if partial_outs.dtype != torch.float32 \
+            or partial_lses.dtype != torch.float32 \
+            or out_dtype not in _MERGE_ENTRIES:
+        raise TypeError(f"ll_merge: partials must be f32 and the output bf16 "
+                        f"or f32, got {partial_outs.dtype}, "
+                        f"{partial_lses.dtype} -> {out_dtype}")
+    if (partial_outs.dim() != 4 or partial_lses.shape
+            != partial_outs.shape[:3] or partial_outs.shape[0] < 1
+            or partial_outs.shape[-1] > 256 or partial_outs[0].numel() == 0):
+        raise ValueError(f"ll_merge: unsupported shapes outs "
+                         f"{tuple(partial_outs.shape)}, lses "
+                         f"{tuple(partial_lses.shape)}")
+    n, D = partial_outs.shape[0], partial_outs.shape[-1]
+    out = torch.empty(partial_outs.shape[1:], dtype=out_dtype,
+                      device=partial_outs.device)
+    lib = _fd_lib()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    with csrc.current_on(out.device):
+        rc = getattr(lib, _MERGE_ENTRIES[out_dtype])(
+            partial_outs.data_ptr(), partial_lses.data_ptr(), out.data_ptr(),
+            n, partial_outs[0].numel() // D, D, stream)
+    csrc.check(lib, rc, "ll_merge")
+    ll_merge.launches += 1
+    return out
+
+
+ll_merge.launches = 0
+
+
+def _multi_rank(what: str, n: int):
+    raise NotImplementedError(
+        f"{what} over {n} ranks is not ported yet: the partial all-gather "
+        "waits for the shmem layer (ROADMAP.md Queue A, item 6)")
+
+
+def ll_ag_merge(ctx, partial_outs, partial_lses, out_dtype, axis: str):
+    """The fused partial all-gather and lse merge at one rank. Each rank's
+    partial ``(out [1, B, Hq, D] f32, lse [1, B, Hq])`` is gathered over
+    ``axis`` (at one rank, the shard itself) and merged by ``ll_merge``.
+    Returns [B, Hq, D] in ``out_dtype``. An axis above 1 raises."""
+    n = ctx.axis_size(axis)
+    if n != 1:
+        _multi_rank("ll_ag_merge", n)
+    if partial_outs.shape[0] != n or partial_lses.shape[0] != n:
+        raise ValueError(f"ll_ag_merge: expected {n} partial, got "
+                         f"{partial_outs.shape[0]}")
+    return ll_merge(partial_outs, partial_lses, out_dtype)
+
+
+AG_METHODS = ("fused", "push", "ring")
+
+
+def sp_gqa_flash_decode(ctx, q, k_cache, v_cache, global_kv_lens,
+                        axis: str | None = None, block_s: int = 128,
+                        ag_method: str = "fused"):
+    """Sequence-parallel flash-decode at one rank: this rank's partial over
+    its KV shard (``gqa_decode_partial``), the partial all-gather, and the
+    lse merge.
+
+    q [B, Hq, D]; k_cache / v_cache [B, Hkv, S, D] (the whole cache at one
+    rank); global_kv_lens [B] int32. Returns [B, Hq, D] in q's type.
+    ``ag_method="fused"`` merges with ``ll_merge`` (``ll_ag_merge``);
+    ``"push"`` and ``"ring"`` pack the partial as one f32 wire
+    ``(out || lse)`` [1, B, Hq, D + 1], gather it with ``all_gather`` and
+    merge with ``decode_combine`` over the outs cast to q's type, as the JAX
+    path does. Over one partial both give the partial's bits. Other methods
+    and axes above 1 raise ``NotImplementedError``."""
+    axis = axis or ctx.axis_names[0]
+    n = ctx.axis_size(axis)
+    if ag_method not in AG_METHODS:
+        raise NotImplementedError(
+            f"sp_gqa_flash_decode: ag_method {ag_method!r} is not ported "
+            f"(one rank takes {AG_METHODS}; the 2-D all-gathers wait for "
+            "ROADMAP A7)")
+    if n != 1:
+        _multi_rank("sp_gqa_flash_decode", n)
+    S = k_cache.shape[2]
+    local_len = global_kv_lens.clamp(0, S).to(torch.int32)
+    out_p, lse_p = gqa_decode_partial(q, k_cache, v_cache, local_len,
+                                      block_s=block_s)
+    if ag_method == "fused":
+        return ll_ag_merge(ctx, out_p.float()[None], lse_p[None], q.dtype,
+                           axis)
+    D = q.shape[-1]
+    wire = torch.cat([out_p.float(), lse_p[..., None]], -1)[None]
+    g = all_gather(ctx, wire, axis=axis, method=ag_method)
+    return decode_combine(g[..., :D].to(q.dtype).contiguous(),
+                          g[..., D].contiguous())
+
+
+__all__ = ["AG_METHODS", "NEG_INF", "SPLIT_KEYS", "decode_combine",
+           "decode_combine_plain", "gqa_decode_paged",
+           "gqa_decode_paged_plain", "gqa_decode_partial",
+           "gqa_decode_partial_plain", "ll_ag_merge", "ll_merge",
+           "ll_merge_plain", "paged_kv_write", "sp_gqa_flash_decode",
+           "split_count"]
