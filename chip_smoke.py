@@ -60,7 +60,18 @@ Phases, each printing its lines:
    depth for G-batch (8 prompts of 1024 tokens, 128 new, run twice,
    bit-identical) and G-long (one prompt of 7936 tokens, 128 new, cache of
    8192), with each kernel launched layers x decode steps times; and one
-   G-batch decode step under ``torch.profiler``.
+   G-batch decode step under ``torch.profiler``;
+11. the tensor-parallel overlap forward on phase 5's params: the dense GEMM
+   (``matmul``, B2) against its plain version at the four GEMMs of a layer
+   at 4096 token rows, a ragged shape, a transposed B and in f32 (bitwise
+   repeatable, timed beside the bound, the plain version and
+   ``torch.matmul``); AG-GEMM (B15) and GEMM-RS (B16) through the
+   persistent ``tp_linear`` layers, and GEMM-RS's slot reduction alone;
+   ``forward_tp_overlap`` against the dense ``forward`` in f32 at depth 4
+   (run beside phase 4), and at full depth in bf16 on 2 x 2048 tokens
+   twice (bit-identical; launches, time by family, idle share, peak memory,
+   the dense forward beside it); ``mlp_tp_overlap``'s f32 gradients against
+   the dense MLP's, and one bf16 forward plus backward at 4096 rows.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -1692,6 +1703,424 @@ def check_generation(params, cfg, device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the tensor-parallel overlap forward over the dense GEMM
+# ---------------------------------------------------------------------------
+
+# B2's cases (name, M, K, N, dtype, B given transposed): the four GEMMs of a
+# Llama-3-8B layer at T = 4096 token rows (qkv, wo, gate‖up, down), ragged
+# M, K and N, the backward's dy @ w_down^T (B read as [N, K]) and one f32
+GEMM_CASES = (("qkv", 4096, 4096, 6144, "bfloat16", False),
+              ("wo", 4096, 4096, 4096, "bfloat16", False),
+              ("gate_up", 4096, 4096, 28672, "bfloat16", False),
+              ("down", 4096, 14336, 4096, "bfloat16", False),
+              ("ragged", 100, 72, 200, "bfloat16", False),
+              ("down_bt", 4096, 4096, 14336, "bfloat16", True),
+              ("f32", 2048, 4096, 4096, "float32", False))
+GEMM_MAIN = "gate_up"
+# max |kernel - plain| / max |plain|: both sum in f32 and cast once, in
+# other orders; in bf16 the one rounding may fall the other way (one bf16
+# ulp is 2^-8 of a value)
+GEMM_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# B15 and B16 through the persistent tp_linear layers at the qkv and down
+# shapes (rows, in, out)
+TP_LAYER_SHAPES = {"ag_gemm": (4096, 4096, 6144), "gemm_rs": (4096, 14336, 4096)}
+# the overlap forward against the dense one: f32 at full width, depth 4
+# (phase 4's params); bf16 at full width and depth, 2 x 2048 tokens
+TP_F32 = dict(B=1, S=512, tol=1e-4)
+TP_FWD = dict(B=2, S=2048, runs=2)
+# mlp_tp_overlap's f32 gradients against autograd through the dense MLP
+# (relative to each gradient's scale), and the bf16 step that is timed
+TP_MLP = dict(T=512, tol=1e-4, T_timed=4096)
+
+
+def gemm_bound(M: int, K: int, N: int, esize: int, out_esize: int,
+               dtype_name: str) -> tuple[float, str]:
+    """Least time of an [M, K] @ [K, N] product: each input read once and
+    the output written once, against 2 M N K operations."""
+    t_bytes = ((M * K + K * N) * esize + M * N * out_esize) / HBM_BYTES_PER_S
+    t_ops = 2 * M * N * K / PEAK_OPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _kernel_vs_plain(got, again, ref) -> dict:
+    """The kernel's absolute and relative error against the plain version,
+    and whether a second launch gave the same bits."""
+    import torch
+
+    err = (got.float() - ref.float()).abs().max().item()
+    return {"max_abs_err": err,
+            "rel_err": err / max(ref.float().abs().max().item(), 1e-30),
+            "bitwise_repeat": bool(torch.equal(got, again))}
+
+
+def _timings(call, plain, library, matches, bound) -> dict:
+    """One call between CUDA events, the kernels alone (``torch.profiler``,
+    the sum of the medians of the kernels named by ``matches``), the plain
+    version, the library call and the bound."""
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    alone = [kernel_device_ms(call, m) for m in matches]
+    rec = {"ms": perf_func(call)[1],
+           "kernel_device_ms": (sum(alone) if all(t is not None
+                                                  for t in alone) else None),
+           "plain_ms": perf_func(plain, iters=5)[1],
+           "library_ms": perf_func(library)[1] if library else None}
+    rec["bound_ms"], rec["bound_by"] = bound
+    return rec
+
+
+def check_gemm_kernels(device, timed: bool = True, cases=GEMM_CASES,
+                       seed: int = 11) -> list[dict]:
+    """B2 (``matmul``, the kernel behind ``gemm_into``) against
+    ``matmul_plain`` at each case: within ``GEMM_TOL`` of the plain
+    version's scale and two launches bitwise equal; timed beside the plain
+    version, ``torch.matmul`` on the same operands (TF32 off) and the bound.
+    Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import gemm as tg
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    records = []
+    for name, M, K, N, dtype_name, trans in cases:
+        dtype = getattr(torch, dtype_name)
+        a = torch.randn(M, K, generator=gen, device=device).to(dtype)
+        b = (torch.randn(N, K, generator=gen, device=device).t() if trans
+             else torch.randn(K, N, generator=gen, device=device))
+        b = (b * 0.02).to(dtype)
+        got = tg.matmul(a, b)
+        again = tg.matmul(a, b)
+        ref = tg.matmul_plain(a, b)
+        rec = {"case": f"{name} {dtype_name} {M}x{K}x{N}"
+                       + (" (B as [N, K])" if trans else ""),
+               **_kernel_vs_plain(got, again, ref), "tol": GEMM_TOL[dtype_name]}
+        if timed:
+            esize = a.element_size()
+            rec.update(_timings(lambda: tg.matmul(a, b),
+                                lambda: tg.matmul_plain(a, b),
+                                lambda: torch.matmul(a, b), ("tdt_gemm",),
+                                gemm_bound(M, K, N, esize, esize, dtype_name)))
+        log("kernel matmul", json.dumps(rec))
+        if not (rec["rel_err"] <= rec["tol"] and rec["bitwise_repeat"]):
+            raise AssertionError(f"matmul disagrees with its plain version: "
+                                 f"{rec}")
+        records.append(rec)
+        del a, b, got, again, ref
+    return records
+
+
+def check_tp_layers(device, timed: bool = True, shapes=TP_LAYER_SHAPES,
+                    seed: int = 12) -> dict:
+    """B15 through a persistent ``ColumnParallelLinear`` and B16 through a
+    persistent ``RowParallelLinear`` on a one-rank context, in bf16, against
+    their plain versions (the f32 product cast once; B16's slot reduction
+    of one f32 slot is that cast): within ``GEMM_TOL``, two calls bitwise
+    equal, one workspace context reused; then the slot reduction alone on
+    the down shape's f32 partial. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.layers import (ColumnParallelLinear,
+                                              RowParallelLinear)
+    from triton_dist_tpu_torch.ops import gemm as tg
+    from triton_dist_tpu_torch.shmem import initialize_distributed
+
+    ctx = initialize_distributed(("tp",), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for name, layer in (("ag_gemm", ColumnParallelLinear(ctx,
+                                                         persistent=True)),
+                        ("gemm_rs", RowParallelLinear(ctx, persistent=True))):
+        M, K, N = shapes[name]
+        x = torch.randn(M, K, generator=gen, device=device).bfloat16()
+        w = (torch.randn(K, N, generator=gen, device=device) * 0.02).bfloat16()
+        got = layer(x, w)
+        again = layer(x, w)
+        ref = tg.matmul_plain(x, w)
+        ctxs = layer._ag_ctxs if name == "ag_gemm" else layer._rs_ctxs
+        rec = {"case": f"{name} bfloat16 {M}x{K}x{N} (persistent "
+                       f"{type(layer).__name__})",
+               **_kernel_vs_plain(got, again, ref), "tol": GEMM_TOL["bfloat16"],
+               "workspace_contexts": len(ctxs)}
+        if timed:
+            rec.update(_timings(
+                lambda: layer(x, w), lambda: tg.matmul_plain(x, w),
+                lambda: torch.matmul(x, w),
+                ("tdt_gemm",) + (("tdt_slot_reduce",) if name == "gemm_rs"
+                                 else ()),
+                gemm_bound(M, K, N, 2, 2, "bfloat16")))
+        log(f"kernel {name}", json.dumps(rec))
+        if not (rec["rel_err"] <= rec["tol"] and rec["bitwise_repeat"]
+                and len(ctxs) == 1):
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{rec}")
+        out[name] = rec
+        if name == "gemm_rs":        # the f32 partial the reduction sums
+            ws = next(iter(ctxs.values())).ws[0]
+            red = tg.slot_reduce(ws, torch.bfloat16)
+            rec = {"case": f"slot_reduce f32 {tuple(ws.shape)} -> bfloat16",
+                   **_kernel_vs_plain(red, tg.slot_reduce(ws, torch.bfloat16),
+                                      tg.slot_reduce_plain(ws,
+                                                           torch.bfloat16)),
+                   "tol": 0.0}
+            if timed:
+                nbytes = ws.numel() * 4 + red.numel() * 2
+                rec.update(_timings(
+                    lambda: tg.slot_reduce(ws, torch.bfloat16),
+                    lambda: tg.slot_reduce_plain(ws, torch.bfloat16),
+                    lambda: ws[0].to(torch.bfloat16), ("tdt_slot_reduce",),
+                    (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")))
+            log("kernel slot_reduce", json.dumps(rec))
+            if not (rec["max_abs_err"] == 0.0 and rec["bitwise_repeat"]):
+                raise AssertionError(f"slot_reduce disagrees with its plain "
+                                     f"version: {rec}")
+            out["slot_reduce"] = rec
+        del x, w, got, again, ref
+    return out
+
+
+def _tp_kernels():
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import allgather_gemm as agg
+    from triton_dist_tpu_torch.ops import gemm as tg
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as rs
+
+    return {"matmul": tg.matmul, "ag_gemm": agg.ag_gemm,
+            "gemm_rs": rs.gemm_rs, "slot_reduce": tg.slot_reduce,
+            "all_gather": ag.all_gather}
+
+
+def _zero_launches() -> dict:
+    kernels = _tp_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    return kernels
+
+
+def check_tp_forward_f32(params, cfg, device, B: int = TP_F32["B"],
+                         S: int = TP_F32["S"], tol: float = TP_F32["tol"]
+                         ) -> dict:
+    """``forward_tp_overlap`` (every linear through B15/B16 over B2) against
+    the dense ``forward`` on the same params and tokens: the logits within
+    ``tol`` of their scale, 4 GEMM launches a layer. Raises on failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import initialize_distributed
+
+    ctx = initialize_distributed(("tp",), device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device=device)
+    with torch.inference_mode():
+        kernels = _zero_launches()
+        got = llama.forward_tp_overlap(ctx, params, tokens, cfg)
+        launches = {n: k.launches for n, k in kernels.items()}
+        ref = llama.forward(params, tokens, cfg)
+    scale = ref.abs().max().item()
+    rec = {"dtype": str(cfg.dtype), "layers": cfg.n_layers, "B": B, "S": S,
+           "max_rel_err": (got - ref).abs().max().item() / scale, "tol": tol,
+           "finite": bool(torch.isfinite(got).all()),
+           "argmax_agree_share": (got.argmax(-1) == ref.argmax(-1)).float()
+           .mean().item(), "launches": launches}
+    log("model forward_tp_overlap vs dense forward", json.dumps(rec))
+    on_card = device.type == "cuda"
+    if not (rec["finite"] and rec["max_rel_err"] <= tol and (
+            not on_card or launches["matmul"] == 4 * cfg.n_layers)):
+        raise AssertionError(f"forward_tp_overlap disagrees with the dense "
+                             f"forward: {rec}")
+    return rec
+
+
+def run_tp_forward(params, cfg, device, card: str, B: int = TP_FWD["B"],
+                   S: int = TP_FWD["S"], runs: int = TP_FWD["runs"]) -> dict:
+    """``forward_tp_overlap`` at full width and depth on B x S seeded tokens
+    under ``torch.inference_mode``, ``runs`` times: each run's wall time
+    between device synchronisations, its peak memory and the launches (set
+    to 0 just before each run and read after: B2 4 a layer, B15, B16 and the
+    slot reduction 2 a layer); then one more run under ``torch.profiler``
+    (device time by family, idle share against the median wall time), the
+    dense ``forward`` beside it (its wall time and the share of positions
+    whose argmax agrees, a report), and, timed alone, the LM head's product
+    and one layer's plain attention (``_attention``) on seeded q, k, v of
+    the forward's shapes. Raises
+    unless every run launched as expected and gave the first run's logits
+    bitwise, finite and of the right shape."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import initialize_distributed
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    ctx = initialize_distributed(("tp",), device=device)
+    gen = torch.Generator(device=device).manual_seed(6)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device=device)
+    on_card = device.type == "cuda"
+
+    def clock() -> float:
+        if on_card:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    L = cfg.n_layers
+    expect = {"matmul": 4 * L, "ag_gemm": 2 * L, "gemm_rs": 2 * L,
+              "slot_reduce": 2 * L, "all_gather": 0}
+    first, run_recs, same = None, [], True
+    with torch.inference_mode():
+        for _ in range(runs):
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            kernels = _zero_launches()
+            t0 = clock()
+            logits = llama.forward_tp_overlap(ctx, params, tokens, cfg)
+            wall = clock() - t0
+            run_recs.append({
+                "wall_s": wall,
+                "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                 if on_card else None),
+                "launches": {n: k.launches for n, k in kernels.items()}})
+            if first is None:
+                first = logits
+                finite = bool(torch.isfinite(logits).all())
+            else:
+                same = same and bool(torch.equal(logits, first))
+            del logits
+        tp_argmax = first.argmax(-1)
+        shape = list(first.shape)
+        del first
+        fams, ops = device_time_by_family(
+            lambda: llama.forward_tp_overlap(ctx, params, tokens, cfg),
+            on_card, (("B2", ("tdt_gemm",)),
+                      ("slot_reduce", ("tdt_slot_reduce",)),
+                      ("softmax", ("softmax",))))
+        t0 = clock()
+        dense = llama.forward(params, tokens, cfg)
+        dense_s = clock() - t0
+        agree = (dense.argmax(-1) == tp_argmax).float().mean().item()
+        del dense
+        xn = torch.randn(B * S, cfg.d_model, generator=gen, device=device) \
+            .to(cfg.dtype)
+        head_ms = (perf_func(lambda: xn @ params["lm_head"], iters=5)[1]
+                   if on_card else None)
+        del xn
+        Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, k, v = (torch.randn(B, S, h, Dh, generator=gen, device=device)
+                   .to(cfg.dtype) for h in (Hq, Hkv, Hkv))
+        attn_ms = (perf_func(lambda: llama._attention(q, k, v, Dh ** -0.5),
+                             iters=5)[1] if on_card else None)
+        del q, k, v
+    walls = sorted(r["wall_s"] for r in run_recs)
+    wall = walls[len(walls) // 2]
+    busy = sum(fams.values())
+    rec = {"card": card, "dtype": str(cfg.dtype), "layers": L, "B": B,
+           "S": S, "tokens": B * S, "shape": shape, "finite": finite,
+           "runs": run_recs, "reruns_bit_identical": same,
+           "launches_expected": expect, "device_busy_s": busy,
+           "device_idle_share": 1 - busy / wall if busy else None,
+           "device_s_by_family": fams, "device_ops": ops,
+           "lm_head_ms": head_ms, "attention_ms_per_layer": attn_ms,
+           "dense_forward_s": dense_s,
+           "argmax_agree_with_dense": agree}
+    log("forward_tp_overlap", json.dumps(rec))
+    ok = (finite and same and shape == [B, S, cfg.vocab_size]
+          and (not on_card or all(r["launches"] == expect
+                                  for r in run_recs)))
+    if not ok:
+        raise AssertionError(f"forward_tp_overlap failed its checks: {rec}")
+    return rec
+
+
+def check_tp_mlp(device, w_gate, w_up, w_down, T: int = TP_MLP["T"],
+                 tol: float = TP_MLP["tol"], T_timed: int = TP_MLP["T_timed"],
+                 seed: int = 13) -> dict:
+    """``mlp_tp_overlap``'s gradients in f32 (weights ``w_gate``, ``w_up``,
+    ``w_down`` cast to f32) against autograd through the dense MLP, each of
+    dx, dw_gate, dw_up, dw_down within ``tol`` of its scale; then one bf16
+    forward plus backward at ``T_timed`` rows on the weights as given,
+    timed (median of 3 between synchronisations) with its launches: B2 4
+    (B15 2 and B16 2, forward and backward), the slot reduction 2 and B9
+    1. Raises on failure."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import initialize_distributed
+
+    ctx = initialize_distributed(("tp",), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D = w_gate.shape[0]
+    on_card = device.type == "cuda"
+
+    def leaf(t, dtype):
+        return t.detach().to(dtype).clone().requires_grad_()
+
+    def grads(mlp, x, ws, g):
+        loss = (mlp(x, *ws).float() * g).sum()
+        loss.backward()
+        return [t.grad for t in (x, *ws)]
+
+    x = leaf(torch.randn(T, D, generator=gen, device=device), torch.float32)
+    ws = [leaf(w, torch.float32) for w in (w_gate, w_up, w_down)]
+    g = torch.randn(T, D, generator=gen, device=device)
+    got = grads(lambda x, *w: llama.mlp_tp_overlap(ctx, x, *w), x, ws, g)
+    x2, ws2 = leaf(x, torch.float32), [leaf(w, torch.float32) for w in ws]
+    ref = grads(lambda x, wg, wu, wd: (F.silu(x @ wg) * (x @ wu)) @ wd, x2,
+                ws2, g)
+    rels = {n: ((a - b).abs().max() / b.abs().max()).item()
+            for n, a, b in zip(("dx", "dw_gate", "dw_up", "dw_down"), got,
+                               ref)}
+    del x, ws, x2, ws2, got, ref, g
+    xb = leaf(torch.randn(T_timed, D, generator=gen, device=device),
+              torch.bfloat16)
+    wb = [leaf(w, torch.bfloat16) for w in (w_gate, w_up, w_down)]
+    gb = torch.randn(T_timed, D, generator=gen, device=device)
+    walls, launches = [], None
+    for _ in range(4):                      # a warm-up, then three timed
+        for t in (xb, *wb):
+            t.grad = None
+        kernels = _zero_launches()
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads(lambda x, *w: llama.mlp_tp_overlap(ctx, x, *w), xb, wb, gb)
+        if on_card:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = {n: k.launches for n, k in kernels.items()}
+    expect = {"matmul": 4, "ag_gemm": 2, "gemm_rs": 2, "slot_reduce": 2,
+              "all_gather": 1}
+    rec = {"grad_T": T, "d_model": D, "d_ff": w_gate.shape[1],
+           "grad_rel_err": rels, "tol": tol, "timed_T": T_timed,
+           "fwd_bwd_bf16_s": sorted(walls[1:])[1], "launches": launches,
+           "launches_expected": expect}
+    log("mlp_tp_overlap gradients and step", json.dumps(rec))
+    if not (max(rels.values()) <= tol
+            and (not on_card or launches == expect)):
+        raise AssertionError(f"mlp_tp_overlap failed its checks: {rec}")
+    return rec
+
+
+def check_tp_overlap(params, cfg, device, card: str) -> dict:
+    """Phase 11 on the 32-layer bf16 params: B2 against its plain version,
+    B15 and B16 through the persistent layers and the slot reduction alone,
+    the forward at full depth twice beside the dense one, and the MLP's
+    gradients (its weights are layer 0's)."""
+    import torch
+
+    gemm = check_gemm_kernels(device)
+    layers = check_tp_layers(device)
+    torch.cuda.empty_cache()
+    forward = run_tp_forward(params, cfg, device, card)
+    torch.cuda.empty_cache()
+    b = params["blocks"]
+    mlp = check_tp_mlp(device, b["w_gate"][0], b["w_up"][0], b["w_down"][0])
+    torch.cuda.empty_cache()
+    return {"gemm": gemm, "layers": layers, "forward": forward, "mlp": mlp}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -1737,6 +2166,7 @@ def main() -> int:
     params32 = init_params(cfg32, seed=1, device=device)
     check_model(params32, cfg32, device)
     decode_step_rec = check_decode_step(params32, cfg32, device)
+    check_tp_forward_f32(params32, cfg32, device)
     del params32
     torch.cuda.empty_cache()
 
@@ -1754,6 +2184,7 @@ def main() -> int:
 
     profile_dispatch(params, cfg, device)
     generation = check_generation(params, cfg, device, card)
+    tp = check_tp_overlap(params, cfg, device, card)
     del params                        # the trainer needs the card's memory
     torch.cuda.empty_cache()
 
@@ -1856,7 +2287,25 @@ def main() -> int:
              "triton_dist_tpu/ops/flash_decode.py:431"),
             ("all_gather", "all_gather",
              "triton_dist_tpu_torch/csrc/allgather.cu",
-             "triton_dist_tpu/ops/allgather.py:262"))]}))
+             "triton_dist_tpu/ops/allgather.py:262"))] + [{
+        "name": name, "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/gemm.cu", "replaces": replaces,
+        "launches": tp["forward"]["runs"][0]["launches"][name],
+        "max_abs_err": max(r["max_abs_err"] for r in cases),
+        **{k: main_rec[k] for k in ("ms", "kernel_device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "case")},
+        "cases": cases}
+        for name, replaces, main_rec, cases in (
+            ("matmul", "triton_dist_tpu/ops/gemm.py:190",
+             next(r for r in tp["gemm"]
+                  if r["case"].startswith(GEMM_MAIN + " ")), tp["gemm"]),
+            ("ag_gemm", "triton_dist_tpu/ops/allgather_gemm.py:255",
+             tp["layers"]["ag_gemm"], [tp["layers"]["ag_gemm"]]),
+            ("gemm_rs", "triton_dist_tpu/ops/gemm_reduce_scatter.py:343",
+             tp["layers"]["gemm_rs"], [tp["layers"]["gemm_rs"]]),
+            ("slot_reduce", "triton_dist_tpu/ops/gemm_reduce_scatter.py:88",
+             tp["layers"]["slot_reduce"], [tp["layers"]["slot_reduce"]]))]}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

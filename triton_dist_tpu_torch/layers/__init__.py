@@ -1,4 +1,7 @@
 from triton_dist_tpu_torch.layers.sp_flash_decode_layer import (
     PagedGQADecodeAttention, SpGQAFlashDecodeAttention)
+from triton_dist_tpu_torch.layers.tp_linear import (ColumnParallelLinear,
+                                                    RowParallelLinear)
 
-__all__ = ["PagedGQADecodeAttention", "SpGQAFlashDecodeAttention"]
+__all__ = ["ColumnParallelLinear", "PagedGQADecodeAttention",
+           "RowParallelLinear", "SpGQAFlashDecodeAttention"]

@@ -1,5 +1,6 @@
 """Llama-style decoder: the differentiable full-sequence forward (training),
-the contiguous-cache decode (``decode_step``, its sequence-parallel twin
+its tensor-parallel twin over the overlap ops (``forward_tp_overlap``), the
+contiguous-cache decode (``decode_step``, its sequence-parallel twin
 ``decode_step_sp`` and the greedy ``generate``) and the serving half
 (prefill, paged decode, chunked paged prefill and the multi-token decode
 loop).
@@ -24,10 +25,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from triton_dist_tpu_torch.ops.allgather_gemm import ag_gemm
+from triton_dist_tpu_torch.ops.autodiff import ag_gemm_diff, gemm_rs_diff
 from triton_dist_tpu_torch.ops.flash_decode import (gqa_decode_paged,
                                                     gqa_decode_partial,
                                                     paged_kv_write,
                                                     sp_gqa_flash_decode)
+from triton_dist_tpu_torch.ops.gemm import GemmConfig
+from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_rs
 from triton_dist_tpu_torch.utils.env import default_device
 
 
@@ -228,6 +233,82 @@ def forward(params: dict, tokens, cfg: LlamaConfig, remat: bool = False,
         else:
             x = block_apply(cfg, x, p, positions, attn_fn)
     return _head(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# hand-overlapped tensor-parallel forward
+# ---------------------------------------------------------------------------
+
+def _tile(m: int, n: int) -> GemmConfig:
+    """The largest power-of-two tiles up to 128 that divide [m, n]."""
+    return GemmConfig(math.gcd(128, m), math.gcd(128, n))
+
+
+def mlp_tp_overlap(ctx, x2d, w_gate, w_up, w_down, axis: str | None = None,
+                   gemm_cfg=None):
+    """The Llama MLP over the differentiable overlap ops, for the Megatron
+    sequence-parallel layout: x2d [T, D] sharded on rows -> [T, D] sharded
+    on rows. Gate and up run as one AG-GEMM over the per-shard [gate_i ‖
+    up_i] interleave (at one rank the concatenation [w_gate ‖ w_up], built
+    per call), the down projection as its GEMM-RS adjoint; both are
+    autograd functions whose backward is the other op (``ops.autodiff``)."""
+    axis = axis or ctx.axis_names[0]
+    n = ctx.axis_size(axis)
+    D, Fd = w_gate.shape
+    T_local = x2d.shape[0] // n
+    if gemm_cfg is not None:
+        cfg_ag = cfg_rs = gemm_cfg
+    else:
+        cfg_ag = _tile(T_local, 2 * (Fd // n))
+        cfg_rs = _tile(T_local, D)
+    wf = torch.cat([w_gate.reshape(D, n, Fd // n),
+                    w_up.reshape(D, n, Fd // n)], dim=2).reshape(D, 2 * Fd)
+    h2 = ag_gemm_diff(ctx, axis, cfg_ag, x2d, wf).reshape(-1, n,
+                                                          2 * (Fd // n))
+    gate, up = h2[..., :Fd // n], h2[..., Fd // n:]
+    ff = (F.silu(gate.float()).to(x2d.dtype) * up).reshape(-1, Fd)
+    return gemm_rs_diff(ctx, axis, cfg_rs, ff, w_down)
+
+
+def forward_tp_overlap(ctx, params: dict, tokens, cfg: LlamaConfig,
+                       axis: str | None = None):
+    """Full-sequence forward where every Megatron linear pair runs through
+    the overlap ops: qkv and gate‖up through AG-GEMM, o and down through
+    GEMM-RS (the model-level composition of the reference's tutorials 07
+    and 08). The fused [wq ‖ wk ‖ wv] is built per call. tokens [B, S];
+    returns logits [B, S, V] f32 (the LM head is a plain product, as in the
+    JAX model)."""
+    axis = axis or ctx.axis_names[0]
+    nr = ctx.axis_size(axis)
+    B, S = tokens.shape
+    D = cfg.d_model
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = params["embed"][tokens].to(cfg.dtype)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    T = B * S
+    qw, kw = Hq * Dh // nr, Hkv * Dh // nr
+    xs = x.reshape(T, D)
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        h = rmsnorm(xs, p["attn_norm"], cfg.norm_eps)
+        wqkv = torch.cat([p["wq"].reshape(D, nr, qw),
+                          p["wk"].reshape(D, nr, kw),
+                          p["wv"].reshape(D, nr, kw)], dim=2).reshape(D, -1)
+        qkv = ag_gemm(ctx, h, wqkv, axis=axis,
+                      cfg=_tile(T // nr, wqkv.shape[1] // nr)
+                      ).reshape(T, nr, qw + 2 * kw)
+        q = rope(qkv[..., :qw].reshape(B, S, Hq, Dh), positions,
+                 cfg.rope_theta)
+        k = rope(qkv[..., qw:qw + kw].reshape(B, S, Hkv, Dh), positions,
+                 cfg.rope_theta)
+        v = qkv[..., qw + kw:].reshape(B, S, Hkv, Dh)
+        attn = _attention(q, k, v, 1.0 / math.sqrt(Dh))
+        xs = xs + gemm_rs(ctx, attn.reshape(T, Hq * Dh), p["wo"], axis=axis,
+                          cfg=_tile(T // nr, D))
+        h = rmsnorm(xs, p["mlp_norm"], cfg.norm_eps)
+        xs = xs + mlp_tp_overlap(ctx, h, p["w_gate"], p["w_up"], p["w_down"],
+                                 axis=axis)
+    return _head(params, xs.reshape(B, S, D), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -495,7 +576,8 @@ def decode_multistep_paged(params: dict, token, pos, cfg: LlamaConfig,
 
 
 __all__ = ["LlamaConfig", "init_params", "rmsnorm", "rope", "block_apply",
-           "forward", "init_kv_cache", "prefill", "decode_step",
+           "forward", "forward_tp_overlap", "mlp_tp_overlap",
+           "init_kv_cache", "prefill", "decode_step",
            "decode_step_sp", "generate", "init_page_pool",
            "decode_step_paged", "prefill_chunk_paged",
            "decode_multistep_paged"]

@@ -1,12 +1,21 @@
 from triton_dist_tpu_torch.ops.allgather import all_gather, all_gather_plain
+from triton_dist_tpu_torch.ops.allgather_gemm import (
+    AgGemmContext, ag_gemm, ag_gemm_ws, create_ag_gemm_context,
+    create_ag_gemm_workspace, tp_column_linear)
 from triton_dist_tpu_torch.ops.all_to_all import (ep_combine, ep_combine_plain,
                                                   ep_dispatch,
                                                   ep_dispatch_plain)
+from triton_dist_tpu_torch.ops.autodiff import ag_gemm_diff, gemm_rs_diff
 from triton_dist_tpu_torch.ops.flash_decode import (
     NEG_INF, SPLIT_KEYS, decode_combine, decode_combine_plain,
     gqa_decode_paged, gqa_decode_paged_plain, gqa_decode_partial,
     gqa_decode_partial_plain, ll_ag_merge, ll_merge, ll_merge_plain,
     paged_kv_write, sp_gqa_flash_decode)
+from triton_dist_tpu_torch.ops.gemm import (GemmConfig, matmul, matmul_plain,
+                                            slot_reduce, slot_reduce_plain)
+from triton_dist_tpu_torch.ops.gemm_reduce_scatter import (
+    GemmRsContext, create_gemm_rs_context, create_gemm_rs_workspace, gemm_rs,
+    gemm_rs_ws)
 from triton_dist_tpu_torch.ops.group_gemm import (
     align_tokens_by_expert, apply_grouped, expert_alignment, grouped_gemm,
     grouped_gemm_gated, grouped_gemm_gated_plain, grouped_gemm_plain,
@@ -15,8 +24,13 @@ from triton_dist_tpu_torch.ops.ring_attention import (
     ring_attention, ring_attention_bwd, ring_attention_bwd_plain,
     ring_attention_fwd, ring_attention_fwd_plain, zigzag_indices)
 
-__all__ = ["NEG_INF", "SPLIT_KEYS", "align_tokens_by_expert", "all_gather",
-           "all_gather_plain",
+__all__ = ["AgGemmContext", "GemmConfig", "GemmRsContext", "NEG_INF",
+           "SPLIT_KEYS", "ag_gemm", "ag_gemm_diff", "ag_gemm_ws",
+           "align_tokens_by_expert", "all_gather", "all_gather_plain",
+           "create_ag_gemm_context", "create_ag_gemm_workspace",
+           "create_gemm_rs_context", "create_gemm_rs_workspace", "gemm_rs",
+           "gemm_rs_diff", "gemm_rs_ws", "matmul", "matmul_plain",
+           "slot_reduce", "slot_reduce_plain", "tp_column_linear",
            "apply_grouped", "decode_combine", "decode_combine_plain",
            "ep_combine", "ep_combine_plain", "ep_dispatch",
            "ep_dispatch_plain", "expert_alignment",
