@@ -71,7 +71,32 @@ Phases, each printing its lines:
    (run beside phase 4), and at full depth in bf16 on 2 x 2048 tokens
    twice (bit-identical; launches, time by family, idle share, peak memory,
    the dense forward beside it); ``mlp_tp_overlap``'s f32 gradients against
-   the dense MLP's, and one bf16 forward plus backward at 4096 rows.
+   the dense MLP's, and one bf16 forward plus backward at 4096 rows;
+12. long-context serving at one rank on phase 9's weights (run inside
+   phase 9's lifetime): the per-page partials (``fd_page_partials``, B7)
+   against their plain version at a decode shape (8 rows over 2056 pages,
+   ragged lengths up to 32896) and a chunk shape in bf16 and f32 (neutral
+   entries exact, bitwise repeatable, a rank-1 slice of the pool giving the
+   rank-0 bits on its pages and the neutral entry off them), the fused n = 1
+   route (``fd_partials_fold``) bitwise equal to the fold of B7's slab and
+   within a row's rounding of its plain version, at S <= 256 and at the
+   long prompt's decode (8 rows) and last chunk, where it is timed beside
+   its bound, plain version and ``scaled_dot_product_attention``, and
+   ``flash_decode_dist`` against ``gqa_decode_paged``; one prompt of 16384 tokens
+   (Mixtral's window of 32768, cut to hold the phase's time) plus 128
+   new through ``ShardedServingEngine(long_context=True)`` twice
+   (bit-identical; TTFT, prefill s, decode ms per step, tok/s, peak memory,
+   launches), one decode dispatch at the prompt's length under the
+   profiler, and phase 9's first four requests through the long-context
+   and the plain engine (in bf16 the streams equal up to each one's first
+   divergence, which must be a near-tie of both engines' logits; in f32 at
+   full width, the depth cut to 2 layers, equal);
+13. the MoE tensor-parallel block at one rank on layer 0's experts at 8,
+   256 and 4096 tokens: ``ag_moe_group_gemm`` (B19), ``moe_reduce_rs``
+   (B20) and B20's grouped GEMM from bf16 into f32 against their plain
+   versions (padding rows, bitwise repeat), ``moe_mlp_tp_overlap`` against a
+   plain per-expert block written out in this script, each timed beside its
+   bound, plain version and ``torch._grouped_mm``, and the block's launches.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -1206,7 +1231,9 @@ def check_moe(device, card: str) -> dict:
     (seed 0): the grouped GEMMs against their plain versions on layer 0's
     experts, the MoE block against its plain path, a seeded trace through
     the one-rank ``ShardedServingEngine`` (served twice), then one decode
-    dispatch under the profiler. Frees the weights before it returns."""
+    dispatch under the profiler. Phases 12 (long-context serving) and 13
+    (the MoE-TP block) run on the same weights. Frees the weights before it
+    returns."""
     import torch
 
     from triton_dist_tpu_torch.models.moe import (MoEConfig, init_moe_params,
@@ -1244,10 +1271,50 @@ def check_moe(device, card: str) -> dict:
 
     profile = profile_dispatch(params, cfg.base, device, ffn=ffn,
                                distinct_tokens=True, label="moe ")
-    del params, blocks
+    del blocks
+    torch.cuda.empty_cache()
+
+    later = check_long_context_and_moe_tp(params, cfg, device, card)
+    del params
     torch.cuda.empty_cache()
     return {"ep_rows": ep_rows, "grouped": grouped, "block": block,
-            "engine": engine, "profile": profile}
+            "engine": engine, "profile": profile, **later}
+
+
+def check_long_context_and_moe_tp(params, cfg, device, card: str) -> dict:
+    """Phase 12 (long-context serving) and phase 13 (the MoE-TP block) on
+    phase 9's weights ``params`` (Mixtral-8x7B's widths, ``cfg``)."""
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import init_moe_params
+
+    t12 = time.perf_counter()
+    fd_kernels = check_fd_kernels(device)
+    torch.cuda.empty_cache()
+    long = check_long_engine(params, cfg, device, card)
+    torch.cuda.empty_cache()
+    # phase 9's first four requests through the long-context and the plain
+    # engine: on these bf16 weights equal up to near-ties, and in f32 at full
+    # width, depth cut to 2 layers, equal
+    trace4 = make_trace(cfg.base, N_REQUESTS, 0)[:4]
+    long["equal_bf16"] = check_engines_agree(params, cfg, device, trace4,
+                                             "bf16, 16 layers",
+                                             tol=MODEL_TOL["bfloat16"])
+    cfg32 = dataclasses.replace(cfg, base=dataclasses.replace(
+        cfg.base, n_layers=LONG_EQUAL_F32_LAYERS, dtype=torch.float32))
+    params32 = init_moe_params(cfg32, seed=2, device=device)
+    long["equal_f32"] = check_engines_agree(
+        params32, cfg32, device, trace4,
+        f"f32, {LONG_EQUAL_F32_LAYERS} layers")
+    del params32
+    torch.cuda.empty_cache()
+    long["seconds"] = time.perf_counter() - t12
+    log(f"phase 12 took {long['seconds']:.1f} s")
+    t13 = time.perf_counter()
+    moe_tp = check_moe_tp(params, cfg, device)
+    moe_tp["seconds"] = time.perf_counter() - t13
+    log(f"phase 13 took {moe_tp['seconds']:.1f} s")
+    return {"fd": fd_kernels, "long": long, "moe_tp": moe_tp}
 
 
 # ---------------------------------------------------------------------------
@@ -2121,6 +2188,992 @@ def check_tp_overlap(params, cfg, device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: long-context serving at one rank through the page partials
+# ---------------------------------------------------------------------------
+
+# one long prompt, then 128 new tokens. Mixtral-8x7B's published context
+# window (max_position_embeddings) is 32768 tokens; at 32768 phase 12 took
+# 97.6 s on the H100 (over its 90 s budget: two serves of 33 s), so the
+# prompt is cut to 16384 (a quarter of the attention work)
+LONG = {"prompt": 16384, "new": 128}
+# B7's decode shape: 8 rows over 2056 block-table columns (the long request's
+# 32768 + 128 tokens) at ragged lengths: empty, one key, a page edge, mid,
+# one past a page, past half, the prompt and the whole request
+FD_DECODE_KV = (0, 1, 16, 300, 4097, 16385, 32768, 32896)
+# B7's chunk shape: 256 rows of one sequence at staggered lengths (chunk
+# start 2304, the last 16 rows padded with length 0)
+FD_CHUNK = {"rows": 256, "start": 2304, "real": 240, "pages": 160}
+# the depth of the f32 model on which the long-context and plain engines'
+# token streams must agree (full width; 12.6 GB beside phase 9's weights)
+LONG_EQUAL_F32_LAYERS = 2
+# in bf16, a near-tie of a router's k-th and (k+1)-th expert: within a few
+# bf16 steps of the row's router logit scale (the two attentions' outputs,
+# and so the router's inputs, differ by up to FD_DIST_REL)
+ROUTER_TIE_TOL = 2 ** -5
+# the fused fold against the fold of B7's slab, bitwise, at S <= 256
+FD_FOLD_KV = (0, 1, 17, 256, 1000, 2049, 3333, 4096)
+# the partials' out against their plain version: B1's tolerances (bf16 p is
+# rounded at the same point, a rounding may fall the other way; f32 sums in
+# another order only); lse within LSE_ATOL
+FD_OUT_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# a whole row's attention against its plain version, relative to the row's
+# largest output (``_row_rel``): the fused fold against its plain version
+# (the same formulas, each page's sums in another order), and
+# flash_decode_dist against B1 (another order of the softmax, bf16 p rounded
+# against another maximum). bf16: one and two bf16 steps of the row's
+# largest output; f32: about four times the largest error seen on an H100
+FD_FOLD_REL = {"bfloat16": 2 ** -7, "float32": 4e-6}
+FD_DIST_REL = {"bfloat16": 2 ** -6, "float32": 4e-6}
+
+
+def _row_rel(a, b) -> float:
+    """The largest over rows of max |a - b| / max |b|, each row's own scale
+    (a row of zeros in ``b`` must be matched exactly)."""
+    d = (a.float() - b.float()).flatten(1).abs().amax(1)
+    scale = b.float().flatten(1).abs().amax(1)
+    return (d / scale.clamp(min=1e-30)).max().item()
+
+
+def _fd_inputs(dtype, device, kv_lens, S: int, P: int, seed: int,
+               shared: bool = False, dead: bool = False) -> dict:
+    """q [B, 32, 128], a pool of P pages, a block table [B, S] whose live
+    entries are pages of the pool (every row its own random pages, or with
+    ``shared`` one row of pages for all) and whose entries past them are
+    garbage ids; ``dead`` puts an id outside the pool among one row's live
+    pages."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B = len(kv_lens)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(dtype)
+
+    kv = torch.tensor(kv_lens, dtype=torch.int32, device=device)
+    rows = 1 if shared else B
+    bt = torch.stack([torch.randperm(P - 1, generator=gen, device=device)[:S]
+                      + 1 for _ in range(rows)]).to(torch.int32)
+    bt = bt.expand(B, S).contiguous()
+    for b in range(B):
+        live = min(S, -(-int(kv[b]) // PS))
+        bt[b, live:] = torch.randint(-10 ** 6, 10 ** 6, (S - live,),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)
+    if dead:
+        b = next(i for i in range(B) if -(-int(kv[i]) // PS) > 4)
+        bt[b, 3] = P + 5
+    return {"q": randn(B, HQ, D), "k": randn(P, HKV, PS, D),
+            "v": randn(P, HKV, PS, D), "bt": bt, "kv_len": kv,
+            "shared": shared}
+
+
+def fd_bound(case: dict, dtype_name: str, out_bytes: int) -> tuple[float, str]:
+    """Least time: q read once, each distinct live page's K and V read once
+    (however many rows walk it), ``out_bytes`` written, against
+    4 * Hq * D operations per (row, key)."""
+    q, kv_len, bt = case["q"], case["kv_len"], case["bt"]
+    P = case["k"].shape[0]
+    live = set()
+    for b in range(q.shape[0]):
+        n = min(bt.shape[1], -(-int(kv_len[b]) // PS))
+        live.update(p for p in bt[b, :n].tolist() if 0 <= p < P)
+    page_bytes = HKV * PS * D * q.element_size()
+    nbytes = q.numel() * q.element_size() + 2 * len(live) * page_bytes \
+        + out_bytes
+    ops = 4 * HQ * D * int(kv_len.long().clamp(max=bt.shape[1] * PS).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_pages_call(case: dict):
+    """The yardstick of the fused fold, timed only: scaled dot-product
+    attention with GQA over the same K/V gathered contiguous outside the
+    timed call, the lengths as a mask. A shared block table gives one
+    sequence of queries; separate ones a batch of single queries."""
+    import torch
+    import torch.nn.functional as F
+
+    q, kv_len, bt = case["q"], case["kv_len"], case["bt"]
+    B, S = bt.shape
+    P = case["k"].shape[0]
+    keys = torch.arange(S * PS, device=q.device)
+    if case["shared"]:
+        pages = bt[0].long().clamp(0, P - 1)
+        kc = case["k"][pages].permute(1, 0, 2, 3).reshape(1, HKV, S * PS, D)
+        vc = case["v"][pages].permute(1, 0, 2, 3).reshape(1, HKV, S * PS, D)
+        qc = q.transpose(0, 1)[None]
+        mask = (keys[None, :] < kv_len[:, None].long())[None, None]
+    else:
+        pages = bt.long().clamp(0, P - 1)
+        kc = case["k"][pages].permute(0, 2, 1, 3, 4).reshape(B, HKV, S * PS,
+                                                             D)
+        vc = case["v"][pages].permute(0, 2, 1, 3, 4).reshape(B, HKV, S * PS,
+                                                             D)
+        qc = q[:, :, None]
+        mask = (keys[None, :] < kv_len[:, None].long())[:, None, None]
+    return lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def check_fd_kernels(device, timed: bool = True, decode_kv=FD_DECODE_KV,
+                     chunk=FD_CHUNK, fold_kv=FD_FOLD_KV,
+                     seed: int = 12) -> dict:
+    """B7 (``fd_page_partials``) against its plain version at the decode
+    and chunk shapes in bf16 and f32: live entries within the tolerances,
+    the neutral entries (dead pages, pages past kv_len, the empty row) exact,
+    two launches bitwise equal; a rank-1 slice of the pool gives the neutral
+    entry exactly off its slice and the rank-0 slab's bits on it. The fused
+    n = 1 route (``fd_partials_fold``) bitwise equal to ``fd_fold_plain`` of
+    B7's slab, and within ``FD_FOLD_REL`` of its plain version;
+    ``flash_decode_dist`` at one rank within ``FD_DIST_REL`` of
+    ``gqa_decode_paged`` (B1) on the same pools. With ``timed``, the same
+    checks of the fused fold at the long prompt's decode (8 rows at
+    ``LONG["prompt"]`` keys) and last chunk in bf16, and B7 and the fused
+    fold beside their bounds, plain versions and (the fold) SDPA. Raises on
+    any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.shmem.context import initialize_distributed
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    long = LONG["prompt"]
+    S_dec = -(-max(decode_kv) // PS)
+    cs, cr, rows = chunk["start"], chunk["real"], chunk["rows"]
+    chunk_kv = tuple(range(cs + 1, cs + cr + 1)) + (0,) * (rows - cr)
+    records = {"fd_page_partials": [], "fd_partials_fold": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        cases = {
+            "decode": _fd_inputs(dtype, device, decode_kv, S_dec,
+                                 max(4096, S_dec + 8), seed, dead=True),
+            "chunk": _fd_inputs(dtype, device, chunk_kv, chunk["pages"],
+                                chunk["pages"] + 64, seed + 1, shared=True)}
+        for shape, c in cases.items():
+            args = (c["q"], c["k"], c["v"], c["bt"], c["kv_len"])
+            out, lse = fd.fd_page_partials(*args)
+            out2, lse2 = fd.fd_page_partials(*args)
+            ref_out, ref_lse = fd.fd_page_partials_plain(*args)
+            P = c["k"].shape[0]
+            cols = torch.arange(c["bt"].shape[1], device=device)
+            live = ((c["bt"] >= 0) & (c["bt"] < P)
+                    & (cols[None] * PS < c["kv_len"][:, None]))
+            err = (out - ref_out)[live].abs().max().item()
+            lse_err = (lse - ref_lse)[live].abs().max().item()
+            neutral = bool((out[~live] == 0).all()
+                           and (lse[~live] == fd.NEG_INF).all()
+                           and (ref_lse[~live] == fd.NEG_INF).all())
+            rec = {"kernel": "fd_page_partials", "dtype": name,
+                   "shape": shape,
+                   "case": f"{name} {shape} B={c['q'].shape[0]} "
+                           f"S={c['bt'].shape[1]} max_kv="
+                           f"{int(c['kv_len'].max())}",
+                   "live_entries": int(live.sum()),
+                   "neutral_entries": int((~live).sum()),
+                   "max_abs_err": err, "lse_max_abs_err": lse_err,
+                   "atol": FD_OUT_ATOL[name], "lse_atol": LSE_ATOL,
+                   "neutral_exact": neutral,
+                   "bitwise_repeat": bool(torch.equal(out, out2)
+                                          and torch.equal(lse, lse2))}
+            ok = (err <= FD_OUT_ATOL[name] and lse_err <= LSE_ATOL
+                  and neutral and rec["bitwise_repeat"])
+            if shape == "decode":
+                half = P // 2
+                o1, l1 = fd.fd_page_partials(c["q"], c["k"][half:],
+                                             c["v"][half:], c["bt"],
+                                             c["kv_len"], rank=1)
+                mine = live & (c["bt"] >= half)
+                rec["rank1_entries"] = int(mine.sum())
+                rec["rank1_exact"] = bool(
+                    (o1[~mine] == 0).all() and (l1[~mine] == fd.NEG_INF).all()
+                    and torch.equal(o1[mine], out[mine])
+                    and torch.equal(l1[mine], lse[mine]))
+                ok = ok and rec["rank1_exact"] and rec["rank1_entries"] > 0
+                del o1, l1
+            if timed:
+                rec["ms"] = perf_func(lambda: fd.fd_page_partials(*args))[1]
+                rec["kernel_device_ms"] = kernel_device_ms(
+                    lambda: fd.fd_page_partials(*args), "fd_page_partials")
+                rec["plain_ms"] = perf_func(
+                    lambda: fd.fd_page_partials_plain(*args), iters=3,
+                    warmup_iters=1)[1]
+                rec["bound_ms"], rec["bound_by"] = fd_bound(
+                    c, name, out.numel() * 4 + lse.numel() * 4)
+                rec["library_ms"] = None
+                rec["library_none_because"] = (
+                    "no single PyTorch call computes one softmax partial per "
+                    "block-table page")
+            log("kernel fd_page_partials", json.dumps(rec))
+            if not ok:
+                raise AssertionError(f"fd_page_partials disagrees with its "
+                                     f"plain version: {rec}")
+            records["fd_page_partials"].append(rec)
+            del out, out2, lse, lse2, ref_out, ref_lse, args
+        del cases, c
+
+        # the fused fold: bitwise the fold of B7's slab, at S <= 256
+        S_f = -(-max(fold_kv) // PS)
+        c = _fd_inputs(dtype, device, fold_kv, S_f, 4 * S_f, seed + 2)
+        args = (c["q"], c["k"], c["v"], c["bt"], c["kv_len"])
+        got = fd.fd_partials_fold(*args)
+        again = fd.fd_partials_fold(*args)
+        via_slab = fd.fd_fold_plain(*fd.fd_page_partials(*args), dtype)
+        plain = fd.fd_partials_fold_plain(*args)
+        err = (got.float() - plain.float()).abs().max().item()
+        rel = _row_rel(got, plain)
+        # flash_decode_dist at one rank (KV write + fused fold) against B1
+        gen = torch.Generator(device=device).manual_seed(seed + 3)
+        kn, vn = (torch.randn(len(fold_kv), HKV, D, generator=gen,
+                              device=device).to(dtype) for _ in range(2))
+        pos = (c["kv_len"] - 1).clamp(min=0)
+        kv_w = torch.where(c["kv_len"] > 0, pos + 1, c["kv_len"])
+        kp, vp = c["k"].clone(), c["v"].clone()
+        ctx = initialize_distributed(("sp",), device=device)
+        dist, _, _ = fd.flash_decode_dist(ctx, c["q"], kn, vn, kp, vp,
+                                          c["bt"], pos, kv_w, axis="sp",
+                                          active=c["kv_len"] > 0)
+        paged, _ = fd.gqa_decode_paged(c["q"], kp, vp, c["bt"], kv_w)
+        dist_err = (dist.float() - paged.float()).abs().max().item()
+        dist_rel = _row_rel(dist, paged)
+        rec = {"kernel": "fd_partials_fold", "dtype": name, "shape": "check",
+               "case": f"{name} check B={len(fold_kv)} S={S_f} "
+                       f"max_kv={max(fold_kv)}",
+               "bitwise_equals_fold_of_slab": bool(torch.equal(got,
+                                                               via_slab)),
+               "bitwise_repeat": bool(torch.equal(got, again)),
+               "max_abs_err": err, "row_rel_err": rel,
+               "row_rel_tol": FD_FOLD_REL[name],
+               "flash_decode_dist_vs_gqa_decode_paged": dist_err,
+               "flash_decode_dist_row_rel_err": dist_rel,
+               "flash_decode_dist_row_rel_tol": FD_DIST_REL[name]}
+        log("kernel fd_partials_fold", json.dumps(rec))
+        if not (rec["bitwise_equals_fold_of_slab"] and rec["bitwise_repeat"]
+                and rel <= FD_FOLD_REL[name]
+                and dist_rel <= FD_DIST_REL[name]):
+            raise AssertionError(f"fd_partials_fold fails its checks: {rec}")
+        records["fd_partials_fold"].append(rec)
+        del c, kp, vp, args, got, again, via_slab, plain, dist, paged
+
+        if not timed or dtype != torch.bfloat16:
+            continue
+        # the long prompt's shapes in the serving type: 8 rows decoding at
+        # `long` keys each, and the prompt's last chunk of 256 rows
+        S_l = -(-long // PS)
+        timed_cases = {
+            "decode": _fd_inputs(dtype, device, (long,) * 8, S_l,
+                                 8 * S_l + 1, seed + 4),
+            "chunk": _fd_inputs(dtype, device,
+                                tuple(range(long - 255, long + 1)), S_l,
+                                S_l + 1, seed + 5, shared=True)}
+        for shape, c in timed_cases.items():
+            args = (c["q"], c["k"], c["v"], c["bt"], c["kv_len"])
+            got = fd.fd_partials_fold(*args)
+            via_slab = fd.fd_fold_plain(*fd.fd_page_partials(*args), dtype)
+            rec = {"kernel": "fd_partials_fold", "dtype": name,
+                   "shape": shape,
+                   "case": f"{name} {shape} B={c['q'].shape[0]} "
+                           f"kv={int(c['kv_len'].min())}.."
+                           f"{int(c['kv_len'].max())}",
+                   "bitwise_equals_fold_of_slab": bool(torch.equal(
+                       got, via_slab)),
+                   "ms": perf_func(lambda: fd.fd_partials_fold(*args),
+                                   iters=5)[1]}
+            del via_slab
+            torch.cuda.empty_cache()
+            plain, rec["plain_ms"] = perf_func(
+                lambda: fd.fd_partials_fold_plain(*args), iters=1,
+                warmup_iters=0)
+            rec["max_abs_err"] = (got.float() - plain.float()).abs().max() \
+                .item()
+            rec["row_rel_err"] = _row_rel(got, plain)
+            rec["row_rel_tol"] = FD_FOLD_REL[name]
+            del plain
+            rec["library_ms"] = perf_func(sdpa_pages_call(c), iters=5)[1]
+            rec["bound_ms"], rec["bound_by"] = fd_bound(
+                c, name, got.numel() * got.element_size())
+            log("kernel fd_partials_fold", json.dumps(rec))
+            if not (rec["bitwise_equals_fold_of_slab"]
+                    and rec["row_rel_err"] <= FD_FOLD_REL[name]):
+                raise AssertionError(f"fd_partials_fold disagrees with the "
+                                     f"fold of B7's slab or its plain "
+                                     f"version: {rec}")
+            records["fd_partials_fold"].append(rec)
+            del c, got, args
+            torch.cuda.empty_cache()
+    return records
+
+
+def profile_long_dispatch(params, cfg, device, attn_io, ffn, kv: int,
+                          slots: int = 8, horizon: int = 4) -> dict:
+    """One decode dispatch of the long-context engine's shape: ``slots``
+    rows, the first at ``kv`` keys and the others parked on the scratch
+    page, every layer's attention through ``attn_io`` and FFN through
+    ``ffn``. Its median wall time over three plain runs, then one run under
+    ``torch.profiler``: device time by family, device ops, idle share."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+
+    n = -(-(kv + horizon) // PS)
+    pool = llama.init_page_pool(cfg, 1 + n, PS, device=device)
+    bt = torch.zeros(slots, n, dtype=torch.int32, device=device)
+    bt[0] = torch.arange(1, n + 1, dtype=torch.int32, device=device)
+    token = torch.ones(slots, dtype=torch.int32, device=device)
+    pos = torch.zeros(slots, dtype=torch.int32, device=device)
+    pos[0] = kv
+    limit = torch.zeros(slots, dtype=torch.int32, device=device)
+    limit[0] = horizon
+
+    def dispatch():
+        return llama.decode_multistep_paged(
+            params, token, pos, cfg, pool, bt, limit, horizon=horizon,
+            ffn=ffn, attn_io=attn_io)[0].cpu()
+
+    card = device.type == "cuda"
+    dispatch()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dispatch()
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[1]
+    fams, ops = device_time_by_family(
+        dispatch, card, (("attention", ("fd_partials_fold",)),
+                         ("grouped_gemm", ("grouped_gemm",)),
+                         ("ep_rows", ("ep_dispatch", "ep_combine"))))
+    busy = sum(fams.values())
+    rec = {"slots": slots, "live_rows": 1, "kv_len": kv, "horizon": horizon,
+           "wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1 - busy / wall if busy else None,
+           "device_s_by_family": fams,
+           "device_ops_per_step": ops / horizon}
+    log("profile long-context decode dispatch", json.dumps(rec))
+    del pool
+    return rec
+
+
+def check_long_engine(params, cfg, device, card: str, long=LONG,
+                      engine_kw=None) -> dict:
+    """Phase 12's engine: one seeded prompt of ``long["prompt"]`` tokens
+    with ``long["new"]`` new ones through ``ShardedServingEngine(
+    long_context=True)`` at mesh 1x1x1, twice (bit-identical streams;
+    the full budget generated; the fused fold and the MoE FFN's kernels
+    launched on every layer of every decode step and chunk, B1 and the slab
+    kernel never); TTFT, prefill s, decode ms per step, tok/s and peak
+    memory; one decode dispatch at the prompt's length under the profiler.
+    Raises on any failure."""
+    import numpy as np
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import moe_mlp_ep_overlap
+    from triton_dist_tpu_torch.ops import all_to_all as ea
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.serving import ShardedServingEngine
+    from triton_dist_tpu_torch.serving.sharded import (DECODE_BLOCK_M,
+                                                       serving_mesh)
+
+    base = cfg.base
+    total = long["prompt"] + long["new"]
+    kw = engine_kw or dict(ENGINE, pages_per_seq=-(-total // PS),
+                           num_pages=-(-total // PS) + 64)
+    rng = np.random.RandomState(3)
+    trace = [(0, [int(t) for t in rng.randint(1, base.vocab_size,
+                                               long["prompt"])],
+              long["new"])]
+    kernels = (fd.fd_partials_fold, ea.ep_dispatch, gg.grouped_gemm_gated,
+               gg.grouped_gemm, ea.ep_combine, fd.gqa_decode_paged,
+               fd.fd_page_partials)
+
+    def make():
+        return ShardedServingEngine(params, cfg, device=device,
+                                    long_context=True, **kw)
+
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    res, eng, wall, launches = serve(make, device, trace, kernels)
+    c, h = eng.metrics.counters, eng.metrics.hist
+    expect = base.n_layers * (eng.decode_horizon * c["dispatches"]
+                              + c["prefill_chunks"])
+    ttft = h["ttft_s"].percentile(50)
+    decode_s = wall - ttft
+    rec = {"card": card, "prompt_tokens": long["prompt"],
+           "new_tokens": long["new"], "layout": eng.alloc.layout,
+           "pages_per_seq": kw["pages_per_seq"],
+           "tokens_generated": c["tokens_generated"],
+           "dispatches": c["dispatches"],
+           "prefill_chunks": c["prefill_chunks"],
+           "launches": launches, "launches_expected": expect,
+           "wall_s": wall, "ttft_s": ttft,
+           "prefill_s": h["ttft_prefill_s"].percentile(50),
+           "decode_s": decode_s,
+           "decode_ms_per_step": decode_s / max(long["new"] - 1, 1) * 1e3,
+           "tok_per_s": c["tokens_generated"] / wall,
+           "decode_tok_per_s": (long["new"] - 1) / decode_s,
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                            if on_card else None)}
+    del eng
+    res2, eng2, wall2, launches2 = serve(make, device, trace, kernels)
+    rec["rerun_bit_identical"] = res2 == res
+    rec["rerun_wall_s"] = wall2
+    del eng2
+    log("long-context engine", json.dumps(rec))
+    path = ("fd_partials_fold", "ep_dispatch", "grouped_gemm_gated",
+            "grouped_gemm", "ep_combine")
+    ok = (len(res) == 1 and len(res[0]) == long["new"]
+          and rec["layout"] == "interleaved" and expect > 0
+          and all(launches[k] == expect for k in path)
+          and launches["gqa_decode_paged"] == 0
+          and launches["fd_page_partials"] == 0
+          and launches2 == launches and rec["rerun_bit_identical"])
+    if not ok:
+        raise AssertionError(f"the long-context engine failed its checks: "
+                             f"{rec}")
+
+    ctx = serving_mesh()
+
+    def attn_io(q, k, v, kp, vp, bt, pos, kv_len, active):
+        return fd.flash_decode_dist(ctx, q, k, v, kp, vp, bt, pos, kv_len,
+                                    axis="sp", active=active)
+
+    def ffn(x, p):
+        return moe_mlp_ep_overlap(x, p["w_router"], p["we_gate"], p["we_up"],
+                                  p["we_down"], cfg.topk,
+                                  block_m=DECODE_BLOCK_M)
+
+    profile = profile_long_dispatch(params, base, device, attn_io, ffn,
+                                    long["prompt"])
+    if on_card:
+        torch.cuda.empty_cache()
+
+    return {"engine": rec, "profile": profile}
+
+
+def teacher_forced(params, cfg, device, prompt, stream, upto: int,
+                   long_context: bool) -> dict:
+    """One request through the model functions that the engine calls, with
+    ``ENGINE``'s shapes: the prompt's chunks, then decode steps in
+    ``num_slots`` rows (the request in row 0, the others parked) fed
+    ``stream[:upto]``, with attention through ``flash_decode_dist`` when
+    ``long_context`` and through B1 otherwise. A row's bits do not depend on
+    the other rows, so this repeats the engine's computation of the
+    request. Returns the greedy ``tokens`` of positions 0..upto, ``routers``
+    (each MoE layer call's f32 router logits of the request's rows, in call
+    order) and ``logits`` (the LM head's, of the last position)."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.models.moe import moe_mlp_ep_overlap
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.serving.sharded import (CHUNK_BLOCK_M,
+                                                       DECODE_BLOCK_M,
+                                                       serving_mesh)
+
+    base = cfg.base
+    slots, chunk = ENGINE["num_slots"], ENGINE["prefill_chunk"]
+    routers, heads, rows = [], [], [0]
+
+    def ffn(block_m):
+        def f(h, p):             # the block's own router product, kept
+            routers.append((h.float() @ p["w_router"])[:rows[0]])
+            return moe_mlp_ep_overlap(h, p["w_router"], p["we_gate"],
+                                      p["we_up"], p["we_down"], cfg.topk,
+                                      block_m=block_m)
+        return f
+
+    def linear(h, w, name):       # the plain product; keeps the LM head's
+        y = h @ w
+        if name == "lm_head":
+            heads.append(y[0].float())
+        return y
+
+    attn_io = None
+    if long_context:
+        ctx = serving_mesh()
+
+        def attn_io(q, k, v, kp, vp, bt, pos, kv_len, active):
+            return fd.flash_decode_dist(ctx, q, k, v, kp, vp, bt, pos,
+                                        kv_len, axis="sp", active=active)
+
+    n_pages = -(-(len(prompt) + upto + 1) // PS)
+    pool = llama.init_page_pool(base, 1 + n_pages, PS, device=device)
+    row = torch.zeros(ENGINE["pages_per_seq"], dtype=torch.int32,
+                      device=device)
+    row[:n_pages] = torch.arange(1, 1 + n_pages, dtype=torch.int32,
+                                 device=device)
+    tokens = []
+    for start in range(0, len(prompt), chunk):
+        end = min(start + chunk, len(prompt))
+        toks = torch.zeros(chunk, dtype=torch.int32, device=device)
+        toks[:end - start] = torch.tensor(prompt[start:end],
+                                          dtype=torch.int32, device=device)
+        rows[0] = end - start
+        tok, pool = llama.prefill_chunk_paged(
+            params, toks, start, end, base, pool, row,
+            ffn=ffn(CHUNK_BLOCK_M), attn_io=attn_io, linear=linear)
+    tokens.append(int(tok))
+    bt = torch.zeros(slots, ENGINE["pages_per_seq"], dtype=torch.int32,
+                     device=device)
+    bt[0] = row
+    active = torch.zeros(slots, dtype=torch.bool, device=device)
+    active[0] = True
+    rows[0] = 1
+    for j in range(upto):
+        token = torch.zeros(slots, dtype=torch.int32, device=device)
+        pos = torch.zeros(slots, dtype=torch.int32, device=device)
+        token[0], pos[0] = stream[j], len(prompt) + j
+        tok, pool = llama.decode_step_paged(
+            params, token, pos, base, pool, bt, active=active, sample=True,
+            ffn=ffn(DECODE_BLOCK_M), attn_io=attn_io, linear=linear)
+        tokens.append(int(tok[0]))
+    del pool
+    return {"tokens": tokens, "routers": routers, "logits": heads[-1]}
+
+
+def _near_tie_gap(values, lo: int, tol: float) -> dict:
+    """How far the entry ranked ``lo`` (0-based) lies behind the one ranked
+    ``lo - 1``, and whether that is within ``tol`` of the row's scale."""
+    top = values.topk(lo + 1).values
+    gap = (top[lo - 1] - top[lo]).item()
+    scale = values.abs().max().item()
+    return {"gap": gap, "scale": scale, "near_tie": gap <= tol * scale}
+
+
+def explain_divergence(params, cfg, device, prompt, streams: dict, i: int,
+                       tol: float, router_tol: float) -> dict:
+    """Why the long-context and plain engines' streams of one request part
+    at token ``i``: both engines' computation of the request, repeated by
+    ``teacher_forced`` (which must give each engine's own tokens 0..i), is
+    walked in order to its first discrete choice that differs: an MoE
+    layer's top-k experts of some row, or else the greedy token ``i``. That
+    choice must be a near-tie in both engines: the experts' k-th and
+    (k+1)-th router logits within ``router_tol`` of the row's router logit
+    scale, or the two tokens' LM logits within ``tol`` of the logits' scale
+    (``check_model``'s criterion)."""
+    k = cfg.topk
+    tf = {lc: teacher_forced(params, cfg, device, prompt, streams[lc], i, lc)
+          for lc in (True, False)}
+    rec = {"index": i, "context_tokens": len(prompt) + i,
+           "token_long": streams[True][i], "token_plain": streams[False][i],
+           "reproduced": all(tf[lc]["tokens"] == streams[lc][:i + 1]
+                             for lc in (True, False)),
+           "router_calls": len(tf[True]["routers"])}
+    n_layers = cfg.base.n_layers
+    for e, (ra, rb) in enumerate(zip(tf[True]["routers"],
+                                     tf[False]["routers"])):
+        ids_a = ra.topk(k, -1).indices.sort(-1).values
+        ids_b = rb.topk(k, -1).indices.sort(-1).values
+        flipped = (ids_a != ids_b).any(-1).nonzero().flatten().tolist()
+        if not flipped:
+            continue
+        rec["first_flip"] = {
+            "kind": "experts", "call": e // n_layers, "layer": e % n_layers,
+            "rows": flipped,
+            "long": [_near_tie_gap(ra[r], k, router_tol) for r in flipped],
+            "plain": [_near_tie_gap(rb[r], k, router_tol) for r in flipped]}
+        break
+    else:
+        la, lb = tf[True]["logits"], tf[False]["logits"]
+        rec["first_flip"] = {"kind": "token"}
+        for name, lg in (("long", la), ("plain", lb)):
+            top = lg.max().item()
+            scale = lg.abs().max().item()
+            behind = max(top - lg[t].item() for t in (streams[True][i],
+                                                      streams[False][i]))
+            rec["first_flip"][name] = [{"gap": behind, "scale": scale,
+                                        "near_tie": behind <= tol * scale}]
+    flip = rec["first_flip"]
+    rec["near_tie"] = (rec["reproduced"] and len(tf[False]["routers"])
+                       == rec["router_calls"]
+                       and all(g["near_tie"] for g in flip["long"]
+                               + flip["plain"]))
+    return rec
+
+
+def check_engines_agree(params, cfg, device, trace, label: str,
+                        tol: float | None = None,
+                        router_tol: float = ROUTER_TIE_TOL) -> dict:
+    """``trace`` through ``ShardedServingEngine`` with and without
+    ``long_context`` (the fused page fold against B1's online softmax), in
+    a pool that holds the whole trace (no preemption). Every request must
+    finish. With ``tol`` None the token streams must be equal. The two
+    attentions sum in other orders; in bf16 a rounding may tip a near-tie
+    of the router's experts or of the greedy token, after which a stream
+    goes its own way: with ``tol``, each stream that differs must have its
+    first difference explained by ``explain_divergence`` as a near-tie.
+    Raises on any failure."""
+    from triton_dist_tpu_torch.serving import ShardedServingEngine
+
+    kw = dict(ENGINE, num_pages=1 + len(trace) * ENGINE["pages_per_seq"])
+    streams, preempted = {}, 0
+    for lc in (True, False):
+        eng = ShardedServingEngine(params, cfg, device=device,
+                                   long_context=lc, **kw)
+        streams[lc] = eng.run(max_steps=10_000, arrivals=trace)
+        preempted += eng.metrics.counters["preemptions"]
+        del eng
+    first = {rid: next(i for i, (a, b) in enumerate(zip(toks, streams[False]
+                                                         [rid])) if a != b)
+             for rid, toks in streams[True].items()
+             if toks != streams[False][rid]}
+    divergences = {} if tol is None else {
+        rid: explain_divergence(params, cfg, device, trace[rid][1],
+                                {lc: streams[lc][rid] for lc in (True, False)},
+                                i, tol, router_tol)
+        for rid, i in first.items()}
+    rec = {"model": label, "requests": len(trace),
+           "tokens": sum(len(t) for t in streams[True].values()),
+           "preemptions": preempted,
+           "streams_equal": streams[True] == streams[False],
+           "first_divergence_by_request": first, "tol": tol,
+           "router_tol": router_tol, "divergences": divergences}
+    log("long-context vs plain engine", json.dumps(rec))
+    ok = (preempted == 0 and all(len(streams[lc]) == len(trace)
+                                 for lc in (True, False))
+          and (rec["streams_equal"] if tol is None else
+               all(d["near_tie"] for d in divergences.values())))
+    if not ok:
+        raise AssertionError(f"the long-context and plain engines' token "
+                             f"streams differ: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the MoE tensor-parallel block at one rank
+# ---------------------------------------------------------------------------
+
+# tokens of the block at Mixtral-8x7B's widths: a decode step, a prefill
+# chunk and a long prefill; the aligned row block is the JAX default
+MOE_TP_TOKENS = (8, 256, 4096)
+MOE_TP_BLOCK_M = 128
+# the grouped GEMM from bf16 into f32 against its plain version: f32 sums
+# in another order only (relative to the output's scale)
+F32_OUT_TOL = 1e-4
+
+
+def moe_tp_reference(x, router_w, we_up, we_down, topk: int):
+    """The MoE-TP block written out plainly, sharing no code with the
+    port's: the f32 router, softmax and renormalised top-k; for each expert
+    its routed rows through silu(x @ Wu) in f32 cast to x's type, then @ Wd
+    in f32 (kept in f32); then the weighted sum over k in k order in f32,
+    cast once."""
+    import torch
+
+    T, D = x.shape
+    probs = torch.softmax(x.float() @ router_w, -1)
+    vals, ids = probs.topk(topk, -1)
+    vals = vals / vals.sum(-1, keepdim=True)
+    y = torch.zeros(T, topk, D, dtype=torch.float32, device=x.device)
+    for e in range(we_up.shape[0]):
+        t_idx, j_idx = (ids == e).nonzero(as_tuple=True)
+        if t_idx.numel() == 0:
+            continue
+        h = torch.nn.functional.silu(x[t_idx].float() @ we_up[e].float()) \
+            .to(x.dtype)
+        y[t_idx, j_idx] = h.float() @ we_down[e].float()
+    acc = y[:, 0] * vals[:, 0:1]
+    for j in range(1, topk):
+        acc = acc + y[:, j] * vals[:, j:j + 1]
+    return acc.to(x.dtype)
+
+
+def moe_rs_bound(ids, T: int, K: int, N: int, esize: int,
+                 dtype_name: str) -> tuple[float, str]:
+    """Least time of ``moe_reduce_rs``: the used experts' [K, N] weights and
+    the routed rows [*, K] read once, the T folded rows [T, N] written once,
+    against 2 * K * N operations per routed row."""
+    routed = ids[ids >= 0]
+    rows, used = int(routed.numel()), int(routed.unique().numel())
+    nbytes = (used * K * N + rows * K + T * N) * esize + 4 * ids.numel() \
+        + 4 * rows
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * rows * K * N / PEAK_OPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def grouped_mm_f32_call(x_rows, ids, w):
+    """The yardstick of the bf16-to-f32 grouped GEMM, timed only: one
+    ``torch._grouped_mm`` with an f32 output over the routed rows sorted by
+    expert. Returns (the call, None) or (None, why not)."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    xs = x_rows[torch.argsort(ids, stable=True)].contiguous()
+    offs = torch.bincount(ids, minlength=w.shape[0]).cumsum(0).to(torch.int32)
+    try:
+        def call():
+            return torch._grouped_mm(xs, w, offs=offs,
+                                     out_dtype=torch.float32)
+        call()
+        torch.cuda.synchronize()
+        return call, None
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, ("torch._grouped_mm into f32 refused: "
+                      + str(e).splitlines()[0][:160])
+
+
+def _route(x, router_w, topk: int):
+    """The block's routing: renormalised top-k weights and the pairs'
+    expert ids [T * topk] int32."""
+    import torch
+
+    probs = torch.softmax(x.float() @ router_w, -1)
+    vals, ids = probs.topk(topk, -1)
+    return vals / vals.sum(-1, keepdim=True), \
+        ids.reshape(-1).to(torch.int32)
+
+
+def check_moe_tp(params, cfg, device, timed: bool = True,
+                 tokens=MOE_TP_TOKENS, block_m: int = MOE_TP_BLOCK_M,
+                 seed: int = 13) -> dict:
+    """Phase 13 on layer 0's experts: at each token count, the block's
+    inputs routed top-2 (two pairs turned into -1 padding rows);
+    ``ag_moe_group_gemm`` (B19) and ``moe_reduce_rs`` (B20) against their
+    plain versions, bitwise repeatable, padding rows zero; the grouped GEMM
+    from bf16 into f32 (B20's slot) against its plain version;
+    ``moe_mlp_tp_overlap`` against ``moe_tp_reference``, bitwise
+    repeatable. Then the main path: the launch counts set to 0, the block
+    run once at each token count, the counts read. With ``timed``, each op
+    beside its bound, plain version and ``torch._grouped_mm``. Raises on any
+    failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import moe_mlp_tp_overlap
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import gemm as gm
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe as mo
+    from triton_dist_tpu_torch.shmem.context import initialize_distributed
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    p = {k: v[0] for k, v in params["blocks"].items()}
+    wr, wu, wd = p["w_router"], p["we_up"], p["we_down"]
+    E, Dm, F = wu.shape
+    topk = cfg.topk
+    ctx = initialize_distributed(("tp",), device=device)
+    dtype = cfg.base.dtype
+    name = str(dtype).split(".")[-1]
+    records = {"ag_moe_group_gemm": [], "moe_reduce_rs": [],
+               "grouped_gemm_bf16_f32": [], "block": []}
+    for T in tokens:
+        gen = torch.Generator(device=device).manual_seed(seed + T)
+        x = torch.randn(T, Dm, generator=gen, device=device,
+                        dtype=torch.float32).to(dtype)
+        tw, ids = _route(x, wr, topk)
+        ids_pad = ids.clone()
+        ids_pad[[1, ids.numel() - 2]] = -1
+        rep = x.repeat_interleave(topk, 0)
+        routed = ids_pad[ids_pad >= 0]
+        n_blocks = -(-ids.numel() // block_m) + E
+        h_ref = mo.ag_moe_group_gemm_plain(ctx, rep, ids_pad, wu,
+                                           block_m=block_m)
+        h = torch.nn.functional.silu(h_ref.float()).to(dtype)
+        bm_rs = min(block_m, -(-ids.numel() // 16) * 16)
+        cases = (
+            ("ag_moe_group_gemm",
+             lambda: mo.ag_moe_group_gemm(ctx, rep, ids_pad, wu,
+                                          block_m=block_m),
+             lambda: mo.ag_moe_group_gemm_plain(ctx, rep, ids_pad, wu,
+                                                block_m=block_m),
+             GG_TOL[name],
+             # the used experts' weights, the rows in and out, the ids
+             grouped_bound(ids_pad, Dm, F, 1, 2, n_blocks, name),
+             lambda: grouped_mm_call(rep[ids_pad >= 0], routed, wu)),
+            ("moe_reduce_rs",
+             lambda: mo.moe_reduce_rs(ctx, h, ids_pad, tw, wd,
+                                      block_m=block_m),
+             lambda: mo.moe_reduce_rs_plain(ctx, h, ids_pad, tw, wd,
+                                            block_m=block_m),
+             GG_TOL[name], moe_rs_bound(ids_pad, T, F, Dm, 2, name), None))
+        for kname, call, plain, tol, bound, lib in cases:
+            got, again, ref = call(), call(), plain()
+            rec = {"kernel": kname, "dtype": name, "tokens": T,
+                   "case": f"{name} T={T} top-{topk} E={E} D={Dm} F={F} "
+                           f"block_m={block_m} (2 padding rows)",
+                   **_kernel_vs_plain(got, again, ref), "tol": tol,
+                   "padding_rows_zero": (
+                       bool(not got[torch.tensor([1, ids.numel() - 2],
+                                                 device=device)].any())
+                       if kname == "ag_moe_group_gemm" else None)}
+            if timed:
+                rec["ms"] = perf_func(call)[1]
+                rec["plain_ms"] = perf_func(plain, iters=3)[1]
+                rec["bound_ms"], rec["bound_by"] = bound
+                if lib is not None:
+                    fn, why = lib()
+                    rec["library_ms"] = perf_func(fn)[1] if fn else None
+                    if why:
+                        rec["library_none_because"] = why
+                else:
+                    rec["library_ms"] = None
+                    rec["library_none_because"] = (
+                        "no single PyTorch call computes the grouped "
+                        "down-projection with the top-k fold")
+                    fn, why = grouped_mm_call(h[ids_pad >= 0], routed, wd)
+                    rec["grouped_mm_down_products_ms"] = (
+                        perf_func(fn)[1] if fn else why)
+            log(f"kernel {kname}", json.dumps(rec))
+            if not (rec["rel_err"] <= tol and rec["bitwise_repeat"]
+                    and rec["padding_rows_zero"] is not False):
+                raise AssertionError(f"{kname} disagrees with its plain "
+                                     f"version: {rec}")
+            records[kname].append(rec)
+
+        # B20's grouped GEMM into the f32 slot, on the block's aligned rows
+        g, valid, be, nb, _ = gg.expert_alignment(ids_pad, E, bm_rs)
+        xs = torch.where(valid[:, None], h[g.long()],
+                         torch.zeros((), dtype=dtype, device=device))
+        used = int(nb) * bm_rs
+
+        def f32_call():
+            return gg.grouped_gemm(xs, wd, be, block_m=bm_rs,
+                                   n_blocks_used=nb, masked=False,
+                                   out_dtype=torch.float32)
+
+        def f32_plain():
+            return gg.grouped_gemm_plain(xs, wd, be, bm_rs, nb,
+                                         out_dtype=torch.float32)
+
+        got, again, ref = f32_call(), f32_call(), f32_plain()
+        rec = {"kernel": "grouped_gemm_bf16_f32", "dtype": name, "tokens": T,
+               "case": f"bf16->f32 T={T} rows={routed.numel()} E={E} "
+                       f"K={F} N={Dm} block_m={bm_rs}",
+               "out_dtype": str(got.dtype).split(".")[-1],
+               **_kernel_vs_plain(got[:used], again[:used], ref[:used]),
+               "tol": F32_OUT_TOL}
+        if timed:
+            rec["ms"] = perf_func(f32_call)[1]
+            rec["plain_ms"] = perf_func(f32_plain, iters=3)[1]
+            nbytes = ((int(routed.unique().numel()) * F * Dm
+                       + routed.numel() * F) * 2 + routed.numel() * Dm * 4)
+            t_b = nbytes / HBM_BYTES_PER_S
+            t_o = 2 * routed.numel() * F * Dm / PEAK_OPS[name]
+            rec["bound_ms"] = max(t_b, t_o) * 1e3
+            rec["bound_by"] = "bytes" if t_b >= t_o else "operations"
+            fn, why = grouped_mm_f32_call(h[ids_pad >= 0], routed, wd)
+            rec["library_ms"] = perf_func(fn)[1] if fn else None
+            if why:
+                rec["library_none_because"] = why
+        log("kernel grouped_gemm_bf16_f32", json.dumps(rec))
+        if not (got.dtype == torch.float32 and rec["rel_err"] <= F32_OUT_TOL
+                and rec["bitwise_repeat"]):
+            raise AssertionError(f"the f32-out grouped GEMM disagrees with "
+                                 f"its plain version: {rec}")
+        records["grouped_gemm_bf16_f32"].append(rec)
+
+        # the block against the plain reference
+        out = moe_mlp_tp_overlap(ctx, x, wr, wu, wd, topk, block_m=block_m)
+        out2 = moe_mlp_tp_overlap(ctx, x, wr, wu, wd, topk, block_m=block_m)
+        ref = moe_tp_reference(x, wr, wu, wd, topk)
+        rec = {"tokens": T, "dtype": name, "block_m": block_m,
+               "rel_err": _rel(out, ref), "tol": GG_TOL[name],
+               "finite": bool(torch.isfinite(out).all()),
+               "bitwise_repeat": bool(torch.equal(out, out2))}
+        if timed:
+            rec["ms"] = perf_func(lambda: moe_mlp_tp_overlap(
+                ctx, x, wr, wu, wd, topk, block_m=block_m))[1]
+            rec["reference_ms"] = perf_func(lambda: moe_tp_reference(
+                x, wr, wu, wd, topk), iters=3)[1]
+        log("moe-tp block vs reference", json.dumps(rec))
+        if not (rec["finite"] and rec["rel_err"] <= rec["tol"]
+                and rec["bitwise_repeat"]):
+            raise AssertionError(f"moe_mlp_tp_overlap disagrees with its "
+                                 f"reference: {rec}")
+        records["block"].append(rec)
+        del h_ref, h, xs, got, again, ref, out, out2
+
+    # the main path: the block at each token count, counted
+    counted = (mo.ag_moe_group_gemm, mo.moe_reduce_rs, gg.grouped_gemm,
+               gm.slot_reduce, ag.all_gather)
+    inputs = []
+    for T in tokens:
+        gen = torch.Generator(device=device).manual_seed(seed + T)
+        inputs.append(torch.randn(T, Dm, generator=gen, device=device,
+                                  dtype=torch.float32).to(dtype))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    for k in counted:
+        k.launches = 0
+    gg.grouped_gemm.f32_out_launches = 0
+    for x in inputs:
+        moe_mlp_tp_overlap(ctx, x, wr, wu, wd, topk, block_m=block_m)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counted}
+    launches["grouped_gemm_bf16_f32"] = gg.grouped_gemm.f32_out_launches
+    n = len(tokens)
+    log("moe-tp main path launches", json.dumps(launches))
+    if device.type == "cuda" and not (
+            launches["ag_moe_group_gemm"] == launches["moe_reduce_rs"] == n
+            and launches["grouped_gemm_bf16_f32"] == n
+            and launches["grouped_gemm"] == 2 * n
+            and launches["slot_reduce"] == n
+            and launches["all_gather"] == n):
+        raise AssertionError(f"the MoE-TP block did not launch its kernels: "
+                             f"{launches}")
+    records["launches"] = launches
+    return records
+
+
+def long_moe_tp_kernels(later: dict) -> list[dict]:
+    """The ``kernels`` line's entries of phases 12 and 13, from the records
+    of ``check_long_context_and_moe_tp``."""
+    fdk, mtp = later["fd"], later["moe_tp"]
+    long_launches = later["long"]["engine"]["launches"]
+    fd_dist_source = "triton_dist_tpu_torch/csrc/flash_decode_dist.cu"
+    gg_source = "triton_dist_tpu_torch/csrc/group_gemm.cu"
+
+    def main_rec(records, **match):
+        return next(r for r in records
+                    if all(r.get(k) == v for k, v in match.items()))
+
+    return [{
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, **extra,
+        "max_abs_err": max(r["max_abs_err"] for r in cases),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "case")},
+        "cases": cases}
+        for name, source, replaces, launches, extra, main, cases in (
+            ("fd_page_partials", fd_dist_source,
+             "triton_dist_tpu/ops/flash_decode.py:810",
+             long_launches["fd_page_partials"],
+             {"on_main_path": False,
+              "note": "at one rank the slab kernel is off the path: the "
+                      "fused fold runs its page partial (the same __device__ "
+                      "function) with no slab; the slab kernel runs only in "
+                      "the checks"},
+             main_rec(fdk["fd_page_partials"], dtype="bfloat16",
+                      shape="decode"), fdk["fd_page_partials"]),
+            ("fd_partials_fold", fd_dist_source,
+             "triton_dist_tpu/ops/flash_decode.py:970",
+             long_launches["fd_partials_fold"], {},
+             main_rec(fdk["fd_partials_fold"], dtype="bfloat16",
+                      shape="decode"), fdk["fd_partials_fold"]),
+            ("ag_moe_group_gemm", gg_source,
+             "triton_dist_tpu/ops/moe.py:215",
+             mtp["launches"]["ag_moe_group_gemm"], {},
+             main_rec(mtp["ag_moe_group_gemm"], tokens=4096),
+             mtp["ag_moe_group_gemm"]),
+            ("moe_reduce_rs", gg_source + " + triton_dist_tpu_torch/csrc/"
+             "gemm.cu (slot reduction)", "triton_dist_tpu/ops/moe.py:405",
+             mtp["launches"]["moe_reduce_rs"], {},
+             main_rec(mtp["moe_reduce_rs"], tokens=4096),
+             mtp["moe_reduce_rs"]),
+            ("grouped_gemm_bf16_f32", gg_source,
+             "triton_dist_tpu/ops/moe.py:261",
+             mtp["launches"]["grouped_gemm_bf16_f32"], {},
+             main_rec(mtp["grouped_gemm_bf16_f32"], tokens=4096),
+             mtp["grouped_gemm_bf16_f32"]))]
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -2222,6 +3275,7 @@ def main() -> int:
                    ["launches"]["decode_combine"],
                    "ll_merge": decode_step_rec["launches"]["ll_merge"],
                    "all_gather": decode_step_rec["launches"]["all_gather"]}
+    slice6 = long_moe_tp_kernels(moe)
     ring_main = ring[0]               # bf16 S=4096 causal, the training shape
     ring_source = "triton_dist_tpu_torch/csrc/ring_attention.cu"
     log(json.dumps({"kernels": [{
@@ -2305,7 +3359,8 @@ def main() -> int:
             ("gemm_rs", "triton_dist_tpu/ops/gemm_reduce_scatter.py:343",
              tp["layers"]["gemm_rs"], [tp["layers"]["gemm_rs"]]),
             ("slot_reduce", "triton_dist_tpu/ops/gemm_reduce_scatter.py:88",
-             tp["layers"]["slot_reduce"], [tp["layers"]["slot_reduce"]]))]}))
+             tp["layers"]["slot_reduce"], [tp["layers"]["slot_reduce"]]))]
+        + slice6}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

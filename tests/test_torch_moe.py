@@ -253,7 +253,8 @@ def test_ffn_hook_needs_prefill_chunk(micro):
     {"ctx": serving_mesh(tp=2)}, {"ctx": serving_mesh(sp=2)},
     {"ctx": serving_mesh(ep=2)}, {"wire_dtype": "auto"},
     {"wire_dtype": torch.float8_e4m3fn}, {"overlap": "ep"},
-    {"long_context": True}, {"speculate": 4}, {"tp_impl": "ag_gemm"}],
+    {"long_context": True, "ctx": serving_mesh(sp=2)}, {"speculate": 4},
+    {"tp_impl": "ag_gemm"}],
     ids=["tp2", "sp2", "ep2", "wire-auto", "wire-fp8", "overlap",
          "long-context", "speculate", "tp-ag-gemm"])
 def test_multi_rank_options_raise(micro, kw):

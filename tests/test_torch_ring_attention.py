@@ -122,9 +122,11 @@ def test_more_than_one_rank_raises():
             return 2
 
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(3))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError,
+                       match='4 "shmem layer across ranks"'):
         tra.ring_attention_fwd(q, k, v, group=Ring())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError,
+                       match='9 "training and CP across ranks"'):
         tra.ring_attention(q, k, v, group=Ring())
     with pytest.raises(ValueError, match="layout"):
         tra.ring_attention_fwd(q, k, v, layout="striped")

@@ -157,9 +157,11 @@ def test_plans_needing_more_than_one_rank_raise():
     with pytest.raises(NotImplementedError, match="pipeline"):
         make_train_step(tcfg, dataclasses.replace(NO_CP, pp="pp"),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError,
+                       match='4 "shmem layer across ranks"'):
         make_train_step(tcfg, CP, device="cpu", mesh={"cp": 2, "dp": 1})
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError,
+                       match='item 7 "MoE / EP across ranks"'):
         make_train_step(MoEConfig.tiny(n_layers=2, num_experts=4), NO_CP,
                         device="cpu")
     with pytest.raises(ValueError, match="sp"):

@@ -8,7 +8,9 @@
 // be[i], and
 //   grouped_gemm:        out[i] = x[i] @ w[be[i]]
 //   grouped_gemm_gated:  out[i] = silu(x[i] @ wg[be[i]]) * (x[i] @ wu[be[i]])
-// with x [P, K], w/wg/wu [E, K, N], out [P, N] in x's type. Products are
+// with x [P, K], w/wg/wu [E, K, N], out [P, N] in x's type (grouped_gemm
+// also takes bf16 x and w into an f32 out: the f32 slot of moe_reduce_rs,
+// B20, whose emit_grouped_gemm writes the f32 workspace). Products are
 // summed in f32 and cast once; the gated kernel keeps both sums and applies
 // silu(g) * u in f32 before its single store (the TPU's _gated_math), so no
 // gate or up array reaches device memory. nb (device memory, optional)
@@ -105,13 +107,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Two neighbouring output values of one row, in the output's type.
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // Grid (P / TM, N / kTN); TM divides block_m. Warp w owns output columns
 // [32w, 32w + 32) of the block's 128, for all TM rows: TM/16 x 4 mma tiles.
-template <int TM, bool kGated>
+template <int TM, bool kGated, typename OutT>
 __global__ void __launch_bounds__(kThreads)
     grouped_gemm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
                              const bf16* __restrict__ wu, const int* __restrict__ be,
-                             const int* __restrict__ nb, bf16* __restrict__ out, int P,
+                             const int* __restrict__ nb, OutT* __restrict__ out, int P,
                              int K, int N, int block_m, int E) {
   constexpr int kW = kGated ? 2 : 1;
   constexpr int MT = TM / 16;
@@ -215,10 +225,8 @@ __global__ void __launch_bounds__(kThreads)
                       : acc[0][mt][nt][i];
       const int r = row0 + mt * 16 + g;
       const int c = col0 + warp * 32 + nt * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * N + c) =
-          __floats2bfloat162_rn(v[0], v[1]);
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(r + 8) * N + c) =
-          __floats2bfloat162_rn(v[2], v[3]);
+      store2(out + (size_t)r * N + c, v[0], v[1]);
+      store2(out + (size_t)(r + 8) * N + c, v[2], v[3]);
     }
 }
 
@@ -301,33 +309,35 @@ bool shapes_ok(int P, int K, int N, int block_m, int E, int tm) {
          P % block_m == 0 && K % kTK == 0 && N % kTN == 0 && N / kTN <= 65535;
 }
 
-template <int TM, bool kGated>
+template <int TM, bool kGated, typename OutT>
 int launch_bf16(const void* x, const void* wg, const void* wu, const void* be,
                 const void* nb, void* out, int P, int K, int N, int block_m, int E,
                 void* stream) {
   constexpr int kW = kGated ? 2 : 1;
   const size_t smem = (size_t)kStages * (TM * kLdX + kW * kTK * kLdW) * sizeof(bf16);
   const cudaError_t err = cudaFuncSetAttribute(
-      grouped_gemm_bf16_kernel<TM, kGated>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      grouped_gemm_bf16_kernel<TM, kGated, OutT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  grouped_gemm_bf16_kernel<TM, kGated>
+  grouped_gemm_bf16_kernel<TM, kGated, OutT>
       <<<dim3(P / TM, N / kTN), kThreads, smem, (cudaStream_t)stream>>>(
           static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
           static_cast<const bf16*>(wu), static_cast<const int*>(be),
-          static_cast<const int*>(nb), static_cast<bf16*>(out), P, K, N, block_m, E);
+          static_cast<const int*>(nb), static_cast<OutT*>(out), P, K, N, block_m, E);
   return (int)cudaGetLastError();
 }
 
 // 64-row tiles where block_m allows them (prefill chunks), else 16 (decode).
-template <bool kGated>
+template <bool kGated, typename OutT = bf16>
 int dispatch_bf16(const void* x, const void* wg, const void* wu, const void* be,
                   const void* nb, void* out, int P, int K, int N, int block_m, int E,
                   void* stream) {
   if (shapes_ok(P, K, N, block_m, E, 64))
-    return launch_bf16<64, kGated>(x, wg, wu, be, nb, out, P, K, N, block_m, E, stream);
+    return launch_bf16<64, kGated, OutT>(x, wg, wu, be, nb, out, P, K, N, block_m, E,
+                                         stream);
   if (shapes_ok(P, K, N, block_m, E, 16))
-    return launch_bf16<16, kGated>(x, wg, wu, be, nb, out, P, K, N, block_m, E, stream);
+    return launch_bf16<16, kGated, OutT>(x, wg, wu, be, nb, out, P, K, N, block_m, E,
+                                         stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -353,6 +363,14 @@ int tdt_grouped_gemm_bf16(const void* x, const void* w, const void* be, const vo
                           void* out, int P, int K, int N, int block_m, int E,
                           void* stream) {
   return dispatch_bf16<false>(x, w, nullptr, be, nb, out, P, K, N, block_m, E, stream);
+}
+
+// bf16 x and w into an f32 out (no rounding to bf16): the f32 slot of B20.
+int tdt_grouped_gemm_bf16_f32(const void* x, const void* w, const void* be, const void* nb,
+                              void* out, int P, int K, int N, int block_m, int E,
+                              void* stream) {
+  return dispatch_bf16<false, float>(x, w, nullptr, be, nb, out, P, K, N, block_m, E,
+                                     stream);
 }
 
 int tdt_grouped_gemm_f32(const void* x, const void* w, const void* be, const void* nb,

@@ -1,7 +1,8 @@
+from triton_dist_tpu_torch.layers.allgather_layer import AllGatherLayer
 from triton_dist_tpu_torch.layers.sp_flash_decode_layer import (
     PagedGQADecodeAttention, SpGQAFlashDecodeAttention)
 from triton_dist_tpu_torch.layers.tp_linear import (ColumnParallelLinear,
                                                     RowParallelLinear)
 
-__all__ = ["ColumnParallelLinear", "PagedGQADecodeAttention",
+__all__ = ["AllGatherLayer", "ColumnParallelLinear", "PagedGQADecodeAttention",
            "RowParallelLinear", "SpGQAFlashDecodeAttention"]

@@ -25,7 +25,8 @@ from triton_dist_tpu_torch.shmem.context import ShmemContext
 class SpGQAFlashDecodeAttention:
     """Sequence-parallel GQA decode attention (``sp_gqa_flash_decode``):
     this rank's split-KV partial, the partial all-gather and the lse merge.
-    One rank until the shmem layer is ported (ROADMAP A6)."""
+    One rank until the shmem layer is ported (ROADMAP.md Queue A, item 4
+    "shmem layer across ranks")."""
 
     ctx: ShmemContext
     num_q_heads: int

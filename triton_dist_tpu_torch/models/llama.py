@@ -181,11 +181,17 @@ def _layer(params: dict, i: int) -> dict:
     return {name: w[i] for name, w in params["blocks"].items()}
 
 
-def _head(params: dict, x, cfg: LlamaConfig):
+def _plain_linear(h, w, name):
+    return h @ w
+
+
+def _head(params: dict, x, cfg: LlamaConfig, linear=None):
     """Final norm and LM head: logits in the working type, then f32, the
-    same rounding point as the JAX model (argmax ties resolve alike)."""
+    same rounding point as the JAX model (argmax ties resolve alike).
+    ``linear(h, w, name)`` replaces the product, as in the paged model
+    functions."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float()
+    return (linear or _plain_linear)(x, params["lm_head"], "lm_head").float()
 
 
 # ---------------------------------------------------------------------------
@@ -413,7 +419,8 @@ def decode_step_sp(ctx, params: dict, token, pos, cfg: LlamaConfig,
     partial all-gather and the lse merge) over the mesh axis ``axis`` of
     ``ctx``. At one rank the shard is the whole cache and the merge of one
     partial keeps its bits, so the logits equal ``decode_step``'s bit for
-    bit. More ranks wait for the shmem layer (ROADMAP A6)."""
+    bit. More ranks wait for the shmem layer (ROADMAP.md Queue A, item 4
+    "shmem layer across ranks")."""
     def attend(q, ck, cv, kv_len):
         return sp_gqa_flash_decode(ctx, q, ck, cv, kv_len, axis=axis,
                                    ag_method=ag_method)
@@ -459,9 +466,45 @@ def init_page_pool(cfg: LlamaConfig, num_pages: int, page_size: int,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
+def _paged_attention(q, k, v, kp, vp, bt, pos, kv_len, active):
+    """The default KV-write and attention pair of the paged model
+    functions: ``paged_kv_write`` then ``gqa_decode_paged``."""
+    paged_kv_write(kp, vp, k, v, bt, pos, active=active)
+    return gqa_decode_paged(q, kp, vp, bt, kv_len)[0], kp, vp
+
+
+def _paged_layers(params: dict, x, positions, pos, kv_len, cfg: LlamaConfig,
+                  pages: dict, bt, active, ffn, attn_io, linear):
+    """The layer loop of the paged model functions over rows x [R, D]: each
+    layer's projections (``linear``), RoPE at ``positions``, the KV write
+    and attention (``attn_io``), and the FFN (``ffn``)."""
+    R = x.shape[0]
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lin = linear or _plain_linear
+    attend = attn_io or _paged_attention
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        q = rope(lin(h, p["wq"], "wq").view(R, 1, Hq, Dh), positions,
+                 cfg.rope_theta)[:, 0]                       # [R, Hq, Dh]
+        k = rope(lin(h, p["wk"], "wk").view(R, 1, Hkv, Dh), positions,
+                 cfg.rope_theta)[:, 0]                       # [R, Hkv, Dh]
+        v = lin(h, p["wv"], "wv").view(R, Hkv, Dh)
+        kp, vp = pages["k"][i], pages["v"][i]
+        attn, kp2, vp2 = attend(q, k, v, kp, vp, bt, pos, kv_len, active)
+        if kp2.data_ptr() != kp.data_ptr() or vp2.data_ptr() != vp.data_ptr():
+            raise ValueError("attn_io must update the layer's pools in place "
+                             "and return them")
+        x = x + lin(attn.reshape(R, Hq * Dh), p["wo"], "wo")
+        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        x = x + (_ffn if ffn is None else ffn)(h, p).to(x.dtype)
+    return x
+
+
 def decode_step_paged(params: dict, token, pos, cfg: LlamaConfig,
                       pages: dict, block_table, active=None,
-                      sample: bool = False, ffn=None):
+                      sample: bool = False, ffn=None, attn_io=None,
+                      linear=None):
     """One-token decode over the paged pool, every row at its own depth.
 
     ``token`` [B] and ``pos`` [B] int32 (per-row positions); ``block_table``
@@ -471,35 +514,30 @@ def decode_step_paged(params: dict, token, pos, cfg: LlamaConfig,
     block-table row at the scratch page 0. ``active`` [B] bool sends frozen
     rows' writes to the scratch page. ``ffn(h, p) -> [B, D]`` replaces the
     dense FFN of every layer (``p`` the layer's weights; MoE serving plugs
-    ``models.moe.moe_mlp_ep_overlap`` in here). Returns (logits [B, V] f32,
-    or with ``sample=True`` the greedy token [B] int32, and the pages)."""
-    B = token.shape[0]
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ``models.moe.moe_mlp_ep_overlap`` in here).
+
+    ``attn_io(q, k, v, kp, vp, bt, pos, kv_len, active) -> (attn, kp, vp)``
+    replaces the KV write and attention pair of every layer (the long-
+    context serving path plugs ``ops.flash_decode.flash_decode_dist`` in
+    here); it updates the layer's pools in place and returns them (the JAX
+    hook returns new pools). ``linear(h, w, name)`` replaces every dense
+    projection (wq/wk/wv/wo/lm_head). With no hook the bits are those of the
+    plain path. Returns (logits [B, V] f32, or with ``sample=True`` the
+    greedy token [B] int32, and the pages)."""
     x = params["embed"][token].to(cfg.dtype)                 # [B, D]
     positions = pos[:, None]                                 # [B, 1]
     kv_len = (pos + 1).to(torch.int32)
-    for i in range(cfg.n_layers):
-        p = _layer(params, i)
-        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        q = rope((h @ p["wq"]).view(B, 1, Hq, Dh), positions,
-                 cfg.rope_theta)[:, 0]                       # [B, Hq, Dh]
-        k = rope((h @ p["wk"]).view(B, 1, Hkv, Dh), positions,
-                 cfg.rope_theta)[:, 0]                       # [B, Hkv, Dh]
-        v = (h @ p["wv"]).view(B, Hkv, Dh)
-        kp, vp = pages["k"][i], pages["v"][i]
-        paged_kv_write(kp, vp, k, v, block_table, pos, active=active)
-        attn, _lse = gqa_decode_paged(q, kp, vp, block_table, kv_len)
-        x = x + attn.reshape(B, Hq * Dh) @ p["wo"]
-        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-        x = x + (_ffn if ffn is None else ffn)(h, p).to(x.dtype)
-    logits = _head(params, x, cfg)
+    x = _paged_layers(params, x, positions, pos, kv_len, cfg, pages,
+                      block_table, active, ffn, attn_io, linear)
+    logits = _head(params, x, cfg, linear)
     if sample:
         return logits.argmax(-1).to(torch.int32), pages
     return logits, pages
 
 
 def prefill_chunk_paged(params: dict, tokens, start: int, prompt_len: int,
-                        cfg: LlamaConfig, pages: dict, block_table, ffn=None):
+                        cfg: LlamaConfig, pages: dict, block_table, ffn=None,
+                        attn_io=None, linear=None):
     """Prefill one fixed-size chunk of a prompt straight into the page pool.
 
     ``tokens`` [C] int32 is chunk ``[start, start + C)`` of the prompt,
@@ -510,13 +548,14 @@ def prefill_chunk_paged(params: dict, tokens, start: int, prompt_len: int,
     ``kv_len = position + 1`` over every page filled so far, this chunk's
     included. All rows' writes of a layer land before that layer's attention
     reads (one stream, in order). Padded rows run with ``kv_len = 0``.
-    ``ffn`` replaces the dense FFN as in ``decode_step_paged``.
+    ``ffn``, ``attn_io`` and ``linear`` hook the FFN, the KV write and
+    attention pair and the projections as in ``decode_step_paged`` (the
+    chunk's rows are the batch rows; ``active`` is the padded-tail mask).
 
     Returns ``(tok, pages)``: ``tok`` is the 0-d int32 greedy token of the
     row at ``prompt_len - 1 - start`` (clamped into the chunk), meaningful
     for the chunk that holds the prompt's last token."""
     C = tokens.shape[0]
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = tokens.device
     idx = start + torch.arange(C, dtype=torch.int32, device=dev)
     valid = idx < prompt_len
@@ -525,35 +564,24 @@ def prefill_chunk_paged(params: dict, tokens, start: int, prompt_len: int,
     kv_len = torch.where(valid, idx + 1, zero)
     bt = block_table[None, :].expand(C, -1).contiguous()
     x = params["embed"][tokens].to(cfg.dtype)                # [C, D]
-    positions = pos[:, None]
-    for i in range(cfg.n_layers):
-        p = _layer(params, i)
-        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        q = rope((h @ p["wq"]).view(C, 1, Hq, Dh), positions,
-                 cfg.rope_theta)[:, 0]
-        k = rope((h @ p["wk"]).view(C, 1, Hkv, Dh), positions,
-                 cfg.rope_theta)[:, 0]
-        v = (h @ p["wv"]).view(C, Hkv, Dh)
-        kp, vp = pages["k"][i], pages["v"][i]
-        paged_kv_write(kp, vp, k, v, bt, pos, active=valid)
-        attn, _lse = gqa_decode_paged(q, kp, vp, bt, kv_len)
-        x = x + attn.reshape(C, Hq * Dh) @ p["wo"]
-        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-        x = x + (_ffn if ffn is None else ffn)(h, p).to(x.dtype)
+    x = _paged_layers(params, x, pos[:, None], pos, kv_len, cfg, pages, bt,
+                      valid, ffn, attn_io, linear)
     last = min(max(prompt_len - 1 - start, 0), C - 1)
-    logits = _head(params, x[last:last + 1], cfg)
+    logits = _head(params, x[last:last + 1], cfg, linear)
     return logits[0].argmax(-1).to(torch.int32), pages
 
 
 def decode_multistep_paged(params: dict, token, pos, cfg: LlamaConfig,
                            pages: dict, block_table, limit, horizon: int,
-                           eos_id: int | None = None, ffn=None):
+                           eos_id: int | None = None, ffn=None, attn_io=None,
+                           linear=None):
     """``horizon`` sampled decode steps in one call, with no host sync.
 
     ``limit`` [B] int32 is each row's step budget for this call (0 for parked
     rows). A row freezes once its step index reaches its limit or it has
     emitted ``eos_id``: its token and position stop advancing and its KV
-    writes go to the scratch page. ``ffn`` is ``decode_step_paged``'s.
+    writes go to the scratch page. ``ffn``, ``attn_io`` and ``linear`` are
+    ``decode_step_paged``'s.
     Returns ``(toks [horizon, B] int32,
     token [B], pos [B], pages)``, where ``toks[i, b]`` is row b's step-i
     token (valid while the row was live) and token/pos are the rows' states
@@ -566,7 +594,8 @@ def decode_multistep_paged(params: dict, token, pos, cfg: LlamaConfig,
         act = (i < limit) & ~stopped
         nxt, pages = decode_step_paged(params, token, pos, cfg, pages,
                                        block_table, active=act, sample=True,
-                                       ffn=ffn)
+                                       ffn=ffn, attn_io=attn_io,
+                                       linear=linear)
         token = torch.where(act, nxt, token)
         pos = torch.where(act, pos + 1, pos)
         if eos_id is not None:

@@ -8,9 +8,11 @@ capacity is drop-proof) and the block reduces to what ``moe_mlp_ep_overlap``
 here computes: router, top-k, the dispatch into expert-aligned rows and the
 combine back (``ops.all_to_all``, B21's one-rank form), and the grouped
 expert FFN over all experts between them (``ops.group_gemm``: B18 then
-B17). The wire across ranks (B21/B22 at n > 1), ``moe_mlp_tp_overlap`` and
-the GShard training path (``moe_mlp_gshard``, ``moe_forward``) wait for the
-shmem layer (ROADMAP A9).
+B17). Its tensor-parallel block ``moe_mlp_tp_overlap`` runs at one rank
+over the MoE-TP ops of ``ops.moe`` (B19, B20). The wire across ranks
+(B21/B22 at n > 1), the TP block over more ranks and the GShard training
+path (``moe_mlp_gshard``, ``moe_forward``) wait for the shmem layer
+(ROADMAP.md Queue A, item 7 "MoE / EP across ranks").
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from triton_dist_tpu_torch.ops.all_to_all import ep_combine, ep_dispatch
 from triton_dist_tpu_torch.ops.group_gemm import (expert_alignment,
                                                   grouped_gemm,
                                                   grouped_gemm_gated)
+from triton_dist_tpu_torch.ops.moe import ag_moe_group_gemm, moe_reduce_rs
 from triton_dist_tpu_torch.utils.env import default_device
 
 
@@ -125,4 +128,32 @@ def moe_mlp_ep_overlap(x2d, router_w, we_gate, we_up, we_down, topk: int,
     return ep_combine(y, pos, gate_vals)
 
 
-__all__ = ["MoEConfig", "init_moe_params", "moe_mlp_ep_overlap"]
+def moe_mlp_tp_overlap(ctx, x2d, router_w, we_up, we_down, topk: int,
+                       axis: str | None = None, block_m: int = 128):
+    """The MoE tensor-parallel inference block (the JAX
+    ``moe_mlp_tp_overlap``) at one rank: x2d [T, D] -> [T, D] in x2d's
+    type.
+
+    The router in f32 (``x2d.float() @ router_w``), softmax, top-k and the
+    renormalised top-k weights; one row per (token, k) pair, the rows of a
+    token adjacent; ``ag_moe_group_gemm`` (the token all-gather with the
+    grouped up-projection, we_up [E, D, F]); ``silu`` in f32, cast to x2d's
+    type; then ``moe_reduce_rs`` (the grouped down-projection, we_down
+    [E, F, D], into the f32 slot, its reduction and the top-k fold). The
+    second stage takes the replicated row-to-expert map, which the JAX
+    block all-gathers with XLA; at one rank it is the rows' own ids. This
+    block has no gate projection, unlike ``moe_mlp_ep_overlap``.
+    ``block_m`` is the aligned row block of both grouped GEMMs."""
+    probs = torch.softmax(x2d.float() @ router_w, -1)
+    gate_vals, gate_ids = probs.topk(topk, -1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+    rep = x2d.repeat_interleave(topk, 0)
+    ids = gate_ids.reshape(-1).to(torch.int32)
+    h = ag_moe_group_gemm(ctx, rep, ids, we_up, axis=axis, block_m=block_m)
+    h = torch.nn.functional.silu(h.float()).to(x2d.dtype)
+    return moe_reduce_rs(ctx, h, ids, gate_vals, we_down, axis=axis,
+                         block_m=block_m)
+
+
+__all__ = ["MoEConfig", "init_moe_params", "moe_mlp_ep_overlap",
+           "moe_mlp_tp_overlap"]

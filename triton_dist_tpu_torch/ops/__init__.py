@@ -7,7 +7,9 @@ from triton_dist_tpu_torch.ops.all_to_all import (ep_combine, ep_combine_plain,
                                                   ep_dispatch_plain)
 from triton_dist_tpu_torch.ops.autodiff import ag_gemm_diff, gemm_rs_diff
 from triton_dist_tpu_torch.ops.flash_decode import (
-    NEG_INF, SPLIT_KEYS, decode_combine, decode_combine_plain,
+    FD_EMPTY, NEG_INF, SPLIT_KEYS, decode_combine, decode_combine_plain,
+    fd_fold_plain, fd_page_partials, fd_page_partials_plain,
+    fd_partials_fold, fd_partials_fold_plain, flash_decode_dist,
     gqa_decode_paged, gqa_decode_paged_plain, gqa_decode_partial,
     gqa_decode_partial_plain, ll_ag_merge, ll_merge, ll_merge_plain,
     paged_kv_write, sp_gqa_flash_decode)
@@ -20,12 +22,13 @@ from triton_dist_tpu_torch.ops.group_gemm import (
     align_tokens_by_expert, apply_grouped, expert_alignment, grouped_gemm,
     grouped_gemm_gated, grouped_gemm_gated_plain, grouped_gemm_plain,
     moe_ffn_local, used_block_count)
+from triton_dist_tpu_torch.ops.moe import ag_moe_group_gemm, moe_reduce_rs
 from triton_dist_tpu_torch.ops.ring_attention import (
     ring_attention, ring_attention_bwd, ring_attention_bwd_plain,
     ring_attention_fwd, ring_attention_fwd_plain, zigzag_indices)
 
-__all__ = ["AgGemmContext", "GemmConfig", "GemmRsContext", "NEG_INF",
-           "SPLIT_KEYS", "ag_gemm", "ag_gemm_diff", "ag_gemm_ws",
+__all__ = ["AgGemmContext", "FD_EMPTY", "GemmConfig", "GemmRsContext",
+           "NEG_INF", "SPLIT_KEYS", "ag_gemm", "ag_moe_group_gemm", "ag_gemm_diff", "ag_gemm_ws",
            "align_tokens_by_expert", "all_gather", "all_gather_plain",
            "create_ag_gemm_context", "create_ag_gemm_workspace",
            "create_gemm_rs_context", "create_gemm_rs_workspace", "gemm_rs",
@@ -33,12 +36,15 @@ __all__ = ["AgGemmContext", "GemmConfig", "GemmRsContext", "NEG_INF",
            "slot_reduce", "slot_reduce_plain", "tp_column_linear",
            "apply_grouped", "decode_combine", "decode_combine_plain",
            "ep_combine", "ep_combine_plain", "ep_dispatch",
-           "ep_dispatch_plain", "expert_alignment",
+           "ep_dispatch_plain", "expert_alignment", "fd_fold_plain",
+           "fd_page_partials", "fd_page_partials_plain", "fd_partials_fold",
+           "fd_partials_fold_plain", "flash_decode_dist",
            "gqa_decode_paged", "gqa_decode_paged_plain",
            "gqa_decode_partial", "gqa_decode_partial_plain",
            "ll_ag_merge", "ll_merge", "ll_merge_plain", "grouped_gemm",
            "grouped_gemm_gated", "grouped_gemm_gated_plain",
-           "grouped_gemm_plain", "moe_ffn_local", "paged_kv_write",
+           "grouped_gemm_plain", "moe_ffn_local", "moe_reduce_rs",
+           "paged_kv_write",
            "sp_gqa_flash_decode",
            "used_block_count", "ring_attention", "ring_attention_bwd",
            "ring_attention_bwd_plain", "ring_attention_fwd",

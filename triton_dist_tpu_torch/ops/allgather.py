@@ -9,8 +9,9 @@ it receives. At one rank both are the copy of the shard into slot 0, which
 ``all_gather`` launches as a hand-written Hopper kernel
 (``csrc/allgather.cu``) on a CUDA tensor, and runs as its plain PyTorch
 version (``all_gather_plain``) on a CPU tensor. The puts across ranks wait
-for the shmem layer (ROADMAP A6, A7), and so do the low-latency, 2-D and
-broadcast forms (B10-B12).
+for the shmem layer and the collectives (ROADMAP.md Queue A, items 4
+"shmem layer across ranks" and 5 "collectives"), and so do the low-latency,
+2-D and broadcast forms (B10-B12).
 """
 
 from __future__ import annotations
@@ -48,12 +49,13 @@ def all_gather(ctx, x, axis: str | None = None, method: str = "auto"):
         raise NotImplementedError(
             f"all_gather: method {method!r} is not ported (one rank takes "
             f"{METHODS}; the low-latency and 2-D gathers wait for ROADMAP.md "
-            "Queue A, item 7)")
+            "Queue A, item 5 \"collectives\")")
     n = ctx.axis_size(axis)
     if n != 1:
         raise NotImplementedError(
             f"all_gather over {n} ranks is not ported yet: the puts across "
-            "ranks wait for the shmem layer (ROADMAP.md Queue A, items 6-7)")
+            "ranks wait for the shmem layer (ROADMAP.md Queue A, items 4 "
+            "\"shmem layer across ranks\" and 5 \"collectives\")")
     if x.device.type == "cpu":
         return all_gather_plain(x)
     if not x.is_contiguous() or x.data_ptr() % 16 or x.numel() == 0:

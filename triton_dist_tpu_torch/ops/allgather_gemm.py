@@ -10,7 +10,8 @@ returned unwritten, as the TPU kernel leaves it at n = 1.
 
 More ranks, tuple axes (the 2-tier ``ag_overlap_protocol_2d``) and
 slice-crossing axes (``_ag_gemm_dcn``) wait for the shmem layer and the
-collectives (ROADMAP.md Queue A, items 6 and 8) and raise
+collectives (ROADMAP.md Queue A, items 4 "shmem layer across ranks" and
+6 "TP overlap across ranks") and raise
 ``NotImplementedError``.
 """
 
@@ -43,12 +44,14 @@ def one_rank_axis(ctx, axis, op: str, multi: str) -> str:
         raise NotImplementedError(
             f"{op} over the axis tuple {axis} ({multi}) is not ported yet: it "
             "waits for the shmem layer and the collectives (ROADMAP.md Queue "
-            "A, items 6 and 8)")
+            "A, items 4 \"shmem layer across ranks\" and 6 \"TP overlap "
+            "across ranks\")")
     n = ctx.axis_size(axis)
     if n != 1:
         raise NotImplementedError(
             f"{op} over {n} ranks is not ported yet: the puts across ranks "
-            "wait for the shmem layer (ROADMAP.md Queue A, items 6 and 8)")
+            "wait for the shmem layer (ROADMAP.md Queue A, items 4 \"shmem "
+            "layer across ranks\" and 6 \"TP overlap across ranks\")")
     return axis
 
 
@@ -139,7 +142,7 @@ def tp_column_linear(ctx, h, w, axis: str = "tp", impl: str = "xla",
     if n != 1:
         raise NotImplementedError(
             f"tp_column_linear over {n} ranks (impl {impl!r}) is not ported "
-            "yet: ROADMAP.md Queue A, items 6 and 8")
+            "yet: ROADMAP.md Queue A, item 6 \"TP overlap across ranks\"")
     return h @ w
 
 

@@ -15,14 +15,22 @@ wrappers, each with its plain PyTorch version beside it:
   partials, ``csrc/flash_decode.cu``;
 - ``ll_merge``: the merge half of ``ll_ag_merge`` (``_ll_ag_merge_kernel``),
   the canonical-order running merge of gathered partials,
-  ``csrc/flash_decode.cu``.
+  ``csrc/flash_decode.cu``;
+- ``fd_page_partials`` (``_fd_page_partials`` / ``_fd_partial_kernel``): one
+  independent softmax partial per block-table page, and ``fd_partials_fold``,
+  the n = 1 route of ``flash_decode_dist``: the same per-page partials folded
+  in page order (``_fd_fold``) inside the kernel, with no slab in device
+  memory. ``csrc/flash_decode_dist.cu``.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises, and adds one to its ``launches`` count at
-each launch. ``ll_ag_merge`` and ``sp_gqa_flash_decode`` run at one rank:
-the fused partial all-gather of one shard is the shard itself, and the
-``push``/``ring`` gather is ``ops.allgather.all_gather``'s one-rank kernel.
-More ranks wait for the shmem layer (ROADMAP A6).
+each launch. ``ll_ag_merge``, ``sp_gqa_flash_decode`` and
+``flash_decode_dist`` run at one rank: the fused partial all-gather of one
+shard is the shard itself, the ``push``/``ring`` gather is
+``ops.allgather.all_gather``'s one-rank kernel, and the page fold has one
+rank's slab to fold. More ranks wait for the shmem layer (ROADMAP.md Queue
+A, item 4 "shmem layer across ranks") and the SP transports (item 8 "SP
+decode and sharded serving across ranks").
 
 The TPU kernels return lse lane-broadcast as ``[B, Hq, 128]``, a tiling
 artifact of the TPU (every DMA slice stays 128 lanes wide), and the SP wire
@@ -514,7 +522,9 @@ ll_merge.launches = 0
 def _multi_rank(what: str, n: int):
     raise NotImplementedError(
         f"{what} over {n} ranks is not ported yet: the partial all-gather "
-        "waits for the shmem layer (ROADMAP.md Queue A, item 6)")
+        "waits for the shmem layer (ROADMAP.md Queue A, item 4 \"shmem layer "
+        "across ranks\") and the SP transports (item 8 \"SP decode and "
+        "sharded serving across ranks\")")
 
 
 def ll_ag_merge(ctx, partial_outs, partial_lses, out_dtype, axis: str):
@@ -555,7 +565,7 @@ def sp_gqa_flash_decode(ctx, q, k_cache, v_cache, global_kv_lens,
         raise NotImplementedError(
             f"sp_gqa_flash_decode: ag_method {ag_method!r} is not ported "
             f"(one rank takes {AG_METHODS}; the 2-D all-gathers wait for "
-            "ROADMAP A7)")
+            "ROADMAP.md Queue A, item 5 \"collectives\")")
     if n != 1:
         _multi_rank("sp_gqa_flash_decode", n)
     S = k_cache.shape[2]
@@ -572,8 +582,268 @@ def sp_gqa_flash_decode(ctx, q, k_cache, v_cache, global_kv_lens,
                           g[..., D].contiguous())
 
 
-__all__ = ["AG_METHODS", "NEG_INF", "SPLIT_KEYS", "decode_combine",
-           "decode_combine_plain", "gqa_decode_paged",
+# ---------------------------------------------------------------------------
+# distributed flash-decode: per-page partials and their fixed-order fold
+# ---------------------------------------------------------------------------
+
+# "no entry" threshold of the page fold: a real lse never gets here
+FD_EMPTY = NEG_INF / 2
+
+_FDD_PARTIAL_SIG = [_P, _P, _P, _P, _P, _P, _P,      # q k v bt kv_len out lse
+                    _I, _I, _I, _I, _I, _I,          # B Hq Hkv D ps p_local
+                    _I, _I, ctypes.c_float, _P]      # S rank sm_scale stream
+_FDD_FOLD_SIG = [_P, _P, _P, _P, _P, _P,             # q k v bt kv_len out
+                 _I, _I, _I, _I, _I, _I, _I,         # B Hq Hkv D ps P S
+                 ctypes.c_float, _P]                 # sm_scale stream
+_FDD_PARTIAL_ENTRIES = {torch.float32: "tdt_fd_page_partials_f32",
+                        torch.bfloat16: "tdt_fd_page_partials_bf16"}
+_FDD_FOLD_ENTRIES = {torch.float32: "tdt_fd_partials_fold_f32",
+                     torch.bfloat16: "tdt_fd_partials_fold_bf16"}
+# block-table columns per step of the plain partials (bounds its memory)
+_PLAIN_PAGES = 64
+# query heads per kv head the kernels are instantiated for (head dim 128,
+# page size 16: the Llama and Mixtral presets)
+_FDD_GROUPS = (1, 2, 4, 8)
+
+
+def _fdd_lib():
+    sigs = {**{n: _FDD_PARTIAL_SIG for n in _FDD_PARTIAL_ENTRIES.values()},
+            **{n: _FDD_FOLD_SIG for n in _FDD_FOLD_ENTRIES.values()}}
+    return csrc.load("flash_decode_dist", sigs)
+
+
+def fd_page_partials_plain(q, k_pages, v_pages, block_table, kv_len,
+                           rank: int = 0, sm_scale: float | None = None):
+    """The plain PyTorch version of ``fd_page_partials``: the TPU kernel's
+    per-page arithmetic, vectorised over rows, pages and heads, a block of
+    block-table columns at a time."""
+    B, Hq, D = q.shape
+    p_local, Hkv, ps, _ = k_pages.shape
+    S = block_table.shape[1]
+    G = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    dev = q.device
+    kv = kv_len.to(dev, torch.int64)
+    qf = q.reshape(B, Hkv, G, D).float()
+    out = torch.empty(B, S, Hq, D, dtype=torch.float32, device=dev)
+    lse = torch.empty(B, S, Hq, dtype=torch.float32, device=dev)
+    offs = torch.arange(ps, device=dev)
+    for s0 in range(0, S, _PLAIN_PAGES):
+        s1 = min(S, s0 + _PLAIN_PAGES)
+        n = s1 - s0
+        loc = block_table[:, s0:s1].long() - rank * p_local      # [B, n]
+        cols = torch.arange(s0, s1, device=dev)
+        live = (loc >= 0) & (loc < p_local) & (cols[None] * ps < kv[:, None])
+        # a page that is not this rank's fetches an arbitrary page of the
+        # slice (the TPU index map clamps); the select below discards it
+        idx = loc.clamp(0, p_local - 1)
+        k = k_pages[idx].float()                         # [B, n, Hkv, ps, D]
+        v = v_pages[idx]
+        scores = torch.einsum("bhgd,bnhjd->bnhgj", qf, k) * scale
+        valid = (cols[:, None] * ps + offs)[None] < kv[:, None, None]
+        scores = torch.where(valid[:, :, None, None, :], scores,
+                             torch.full_like(scores, NEG_INF))
+        m = scores.amax(-1, keepdim=True)
+        p = torch.exp(scores - m)
+        l = p.sum(-1, keepdim=True)
+        pv = torch.einsum("bnhgj,bnhjd->bnhgd", p.to(v.dtype).float(),
+                          v.float())
+        l_safe = torch.where(l > 0, l, torch.ones_like(l))
+        keep = live[:, :, None, None, None] & (l > 0)
+        out[:, s0:s1] = torch.where(keep, pv / l_safe,
+                                    torch.zeros((), device=dev)) \
+            .reshape(B, n, Hq, D)
+        lse[:, s0:s1] = torch.where(keep, m + torch.log(l_safe),
+                                    torch.full_like(l, NEG_INF)) \
+            .reshape(B, n, Hq)
+    return out, lse
+
+
+def _fdd_checks(name: str, q, k_pages, v_pages, block_table, kv_len):
+    B, Hq, D = q.shape
+    _, Hkv, ps, Dk = k_pages.shape
+    _check_cuda(name, (q, k_pages, v_pages, block_table, kv_len))
+    if q.dtype not in _FDD_PARTIAL_ENTRIES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"{name}: q/k/v must share a type in "
+                        f"{list(_FDD_PARTIAL_ENTRIES)}, got {q.dtype}, "
+                        f"{k_pages.dtype}, {v_pages.dtype}")
+    if block_table.dtype != torch.int32 or kv_len.dtype != torch.int32:
+        raise TypeError(f"{name}: block_table and kv_len must be int32")
+    if (Dk != D or v_pages.shape != k_pages.shape or Hq % Hkv
+            or Hq // Hkv not in _FDD_GROUPS or D != 128 or ps != 16
+            or block_table.dim() != 2 or block_table.shape[0] != B
+            or kv_len.shape != (B,) or B < 1 or block_table.shape[1] < 1
+            or B > 65535):
+        raise ValueError(
+            f"{name}: unsupported shapes q {tuple(q.shape)}, pages "
+            f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, block_table "
+            f"{tuple(block_table.shape)}, kv_len {tuple(kv_len.shape)} (the "
+            f"kernel is built for head dim 128, page size 16 and "
+            f"{_FDD_GROUPS} query heads per kv head)")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{name}: page pools must be 16-byte aligned")
+
+
+def fd_page_partials(q, k_pages, v_pages, block_table, kv_len, rank: int = 0,
+                     sm_scale: float | None = None):
+    """One independent softmax partial per (row, block-table page): the slab
+    the distributed flash-decode folds.
+
+    q [B, Hq, D]; k_pages / v_pages [p_local, Hkv, page_size, D], this
+    rank's slice of the pool; block_table [B, S] int32 GLOBAL page ids, rank
+    ``rank`` owning ids ``[rank * p_local, (rank + 1) * p_local)``; kv_len
+    [B] int32. Returns ``(out [B, S, Hq, D] f32, lse [B, S, Hq] f32)``:
+    for a live page of this rank, the partial's ``pv / l`` and
+    ``m + log(l)``; for a page that is not this rank's or lies wholly past
+    kv_len, the neutral entry (0, NEG_INF). The TPU kernel broadcasts lse
+    over 128 lanes (a tiling artifact); one lse per head is its
+    ``lse[..., 0]``.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel
+    (bf16 or f32, head dim 128, page size 16, 1, 2, 4 or 8 query heads per
+    kv head) or raises; each launch adds one to
+    ``fd_page_partials.launches``."""
+    rank = int(rank)
+    if q.device.type == "cpu":
+        return fd_page_partials_plain(q, k_pages, v_pages, block_table,
+                                      kv_len, rank, sm_scale)
+    _fdd_checks("fd_page_partials", q, k_pages, v_pages, block_table, kv_len)
+    B, Hq, D = q.shape
+    p_local, Hkv, ps, _ = k_pages.shape
+    S = block_table.shape[1]
+    if S > 65535:
+        raise ValueError(f"fd_page_partials: {S} block-table columns; the "
+                         "kernel takes at most 65535")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty(B, S, Hq, D, dtype=torch.float32, device=q.device)
+    lse = torch.empty(B, S, Hq, dtype=torch.float32, device=q.device)
+    lib = _fdd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with csrc.current_on(q.device):
+        rc = getattr(lib, _FDD_PARTIAL_ENTRIES[q.dtype])(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, Hq, Hkv, D, ps, p_local, S, rank, scale,
+            stream)
+    csrc.check(lib, rc, "fd_page_partials")
+    fd_page_partials.launches += 1
+    return out, lse
+
+
+fd_page_partials.launches = 0
+
+
+def fd_fold_plain(out, lse, out_dtype):
+    """The fixed-order page fold (``_fd_fold``) of a partials slab: out
+    [B, S, Hq, D] f32 and lse [B, S, Hq] f32 folded over S in order, each
+    product and sum rounded on its own. An entry with ``lse <= FD_EMPTY`` is
+    an exact no-op: the carry passes through a select untouched, never
+    ``acc * 1 + 0``. Returns ``acc / denom`` (denom 1 where it is 0) in
+    ``out_dtype``, [B, Hq, D]."""
+    B, S, Hq, D = out.shape
+    dev = out.device
+    acc = torch.zeros(B, Hq, D, dtype=torch.float32, device=dev)
+    m = torch.full((B, Hq, 1), NEG_INF, dtype=torch.float32, device=dev)
+    denom = torch.zeros(B, Hq, 1, dtype=torch.float32, device=dev)
+    for s in range(S):
+        xo = out[:, s].float()
+        xl = lse[:, s, :, None].float()
+        empty = xl <= FD_EMPTY
+        new_m = torch.maximum(m, xl)
+        scale = torch.exp(m - new_m)
+        w = torch.exp(xl - new_m)
+        acc = torch.where(empty, acc, acc * scale + xo * w)
+        m = torch.where(empty, m, new_m)
+        denom = torch.where(empty, denom, denom * scale + w)
+    safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+    return (acc / safe).to(out_dtype)
+
+
+def fd_partials_fold_plain(q, k_pages, v_pages, block_table, kv_len,
+                           out_dtype=None, sm_scale: float | None = None):
+    """The plain PyTorch version of ``fd_partials_fold``: the fold of the
+    plain partials."""
+    return fd_fold_plain(*fd_page_partials_plain(
+        q, k_pages, v_pages, block_table, kv_len, 0, sm_scale),
+        out_dtype or q.dtype)
+
+
+def fd_partials_fold(q, k_pages, v_pages, block_table, kv_len,
+                     out_dtype=None, sm_scale: float | None = None):
+    """The n = 1 route of the distributed flash-decode: every page's partial
+    (``fd_page_partials`` at rank 0 over the whole pool) folded in
+    block-table order (``fd_fold_plain``), fused in one kernel that writes
+    no slab. Its bits equal ``fd_fold_plain`` of the kernel's slab: each
+    page's partial comes from the same device function, the fold rounds each
+    product and sum on its own, and the pages past a row's last live page
+    are neutral entries, which the kernel skips.
+
+    q [B, Hq, D]; k_pages / v_pages [P, Hkv, page_size, D]; block_table
+    [B, S] int32; kv_len [B] int32. Returns [B, Hq, D] in ``out_dtype``
+    (q's type by default). A CPU tensor runs the plain version. A CUDA
+    tensor launches the kernel (as ``fd_page_partials`` takes, output in
+    q's type) or raises; each launch adds one to
+    ``fd_partials_fold.launches``."""
+    out_dtype = out_dtype or q.dtype
+    if q.device.type == "cpu":
+        return fd_partials_fold_plain(q, k_pages, v_pages, block_table,
+                                      kv_len, out_dtype, sm_scale)
+    _fdd_checks("fd_partials_fold", q, k_pages, v_pages, block_table, kv_len)
+    if out_dtype != q.dtype:
+        raise TypeError(f"fd_partials_fold: the kernel writes q's type "
+                        f"{q.dtype}, not {out_dtype}")
+    B, Hq, D = q.shape
+    P, Hkv, ps, _ = k_pages.shape
+    S = block_table.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty(B, Hq, D, dtype=out_dtype, device=q.device)
+    lib = _fdd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with csrc.current_on(q.device):
+        rc = getattr(lib, _FDD_FOLD_ENTRIES[q.dtype])(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+            B, Hq, Hkv, D, ps, P, S, scale, stream)
+    csrc.check(lib, rc, "fd_partials_fold")
+    fd_partials_fold.launches += 1
+    return out
+
+
+fd_partials_fold.launches = 0
+
+
+def flash_decode_dist(ctx, q, k_new, v_new, k_pages, v_pages, block_table,
+                      pos, kv_len, axis: str = "sp", active=None):
+    """Distributed flash-decode over a page pool sharded on ``axis``, at one
+    rank: ``paged_kv_write`` of the new (k, v) rows (``active`` parks frozen
+    rows' writes on the scratch page), then ``fd_partials_fold`` over the
+    pool. q [B, Hq, D]; k/v_new [B, Hkv, D]; k/v_pages [P, Hkv, page_size,
+    D]; block_table [B, S] device rows; pos / kv_len [B] int32. Returns
+    ``(attn [B, Hq, D] in q's type, k_pages, v_pages)``, the pools updated
+    in place.
+
+    The fold visits pages in block-table order and a page's partial is a
+    pure function of the row and the page, so the result does not depend on
+    the pool's layout. More ranks (each rank's slab put to its peers, then
+    the page-major, rank-minor fold: B8) raise ``NotImplementedError``."""
+    n = ctx.axis_size(axis)
+    if n != 1:
+        raise NotImplementedError(
+            f"flash_decode_dist over {n} ranks is not ported yet: the slab "
+            "exchange and its fold (B8, _fd_fold_kernel) wait for ROADMAP.md "
+            "Queue A, item 8 \"SP decode and sharded serving across ranks\"")
+    paged_kv_write(k_pages, v_pages, k_new, v_new, block_table, pos,
+                   active=active)
+    attn = fd_partials_fold(q, k_pages, v_pages, block_table, kv_len,
+                            q.dtype)
+    return attn, k_pages, v_pages
+
+
+__all__ = ["AG_METHODS", "FD_EMPTY", "NEG_INF", "SPLIT_KEYS",
+           "decode_combine", "decode_combine_plain", "fd_fold_plain",
+           "fd_page_partials", "fd_page_partials_plain", "fd_partials_fold",
+           "fd_partials_fold_plain", "flash_decode_dist", "gqa_decode_paged",
            "gqa_decode_paged_plain", "gqa_decode_partial",
            "gqa_decode_partial_plain", "ll_ag_merge", "ll_merge",
            "ll_merge_plain", "paged_kv_write", "sp_gqa_flash_decode",

@@ -14,7 +14,8 @@ the send stage is untouched, as the TPU kernel leaves them at n = 1.
 
 More ranks, tuple axes (the 2-tier ``_gemm_rs_2d``) and slice-crossing
 axes (``_gemm_rs_xla``) wait for the shmem layer and the collectives
-(ROADMAP.md Queue A, items 6 and 8) and raise ``NotImplementedError``.
+(ROADMAP.md Queue A, items 4 "shmem layer across ranks" and 6 "TP overlap
+across ranks") and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

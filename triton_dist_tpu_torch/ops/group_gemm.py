@@ -39,11 +39,13 @@ _I = ctypes.c_int
 # x, w (or wg, wu), be, nb, out, P, K, N, block_m, E, stream
 _GEMM = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _GATED = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# (gated, input type, output type) -> C entry
 _ENTRIES = {
-    (False, torch.bfloat16): "tdt_grouped_gemm_bf16",
-    (False, torch.float32): "tdt_grouped_gemm_f32",
-    (True, torch.bfloat16): "tdt_grouped_gemm_gated_bf16",
-    (True, torch.float32): "tdt_grouped_gemm_gated_f32",
+    (False, torch.bfloat16, torch.bfloat16): "tdt_grouped_gemm_bf16",
+    (False, torch.bfloat16, torch.float32): "tdt_grouped_gemm_bf16_f32",
+    (False, torch.float32, torch.float32): "tdt_grouped_gemm_f32",
+    (True, torch.bfloat16, torch.bfloat16): "tdt_grouped_gemm_gated_bf16",
+    (True, torch.float32, torch.float32): "tdt_grouped_gemm_gated_f32",
 }
 TILE_N = 128     # output columns per kernel block
 TILE_K = 32      # contraction depth per kernel stage
@@ -52,7 +54,8 @@ MIN_BLOCK_M = 16
 
 def _later(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue B, B17/B18)")
+        f"{what} is not ported yet (ROADMAP.md Queue B, B17/B18 options; "
+        "Queue A, item 7 \"MoE / EP across ranks\")")
 
 
 # ---------------------------------------------------------------------------
@@ -143,13 +146,14 @@ def _bound(n_blocks_used, n_blocks: int) -> int:
 
 
 def grouped_gemm_plain(tokens, weights, block_expert, block_m: int = 128,
-                       n_blocks_used=None):
+                       n_blocks_used=None, out_dtype=None):
     """The plain PyTorch version of ``grouped_gemm``: one f32 product per
-    used row block, cast to the tokens' type; rows past the bound are
-    zero."""
+    used row block, cast to ``out_dtype`` (the tokens' type by default);
+    rows past the bound are zero."""
     P = tokens.shape[0]
     E, _, N = weights.shape
-    out = torch.zeros(P, N, dtype=tokens.dtype, device=tokens.device)
+    out = torch.zeros(P, N, dtype=out_dtype or tokens.dtype,
+                      device=tokens.device)
     nb = _bound(n_blocks_used, P // block_m)
     for i, e in enumerate(block_expert[:nb].clamp(0, E - 1).tolist()):
         rows = slice(i * block_m, (i + 1) * block_m)
@@ -174,20 +178,20 @@ def grouped_gemm_gated_plain(tokens, w_gate, w_up, block_expert,
     return out
 
 
-_entries: dict = {}     # (gated, dtype) -> C entry, once the library loads
+_entries: dict = {}     # _ENTRIES' keys -> C entry, once the library loads
 
 
-def _entry(gated: bool, dtype):
+def _entry(key):
     if not _entries:
         lib = csrc.load("group_gemm", {fn: (_GATED if g else _GEMM)
-                                       for (g, _), fn in _ENTRIES.items()})
-        _entries.update({key: getattr(lib, fn)
-                         for key, fn in _ENTRIES.items()}, lib=lib)
-    return _entries[(gated, dtype)]
+                                       for (g, _, _), fn in _ENTRIES.items()})
+        _entries.update({k: getattr(lib, fn)
+                         for k, fn in _ENTRIES.items()}, lib=lib)
+    return _entries[key]
 
 
 def _launch(name: str, tokens, weights: tuple, block_expert, block_m: int,
-            n_blocks_used, masked: bool):
+            n_blocks_used, masked: bool, out_dtype=None):
     """Check what the kernel needs to stay in bounds (types, one device,
     shapes, contiguity, alignment), allocate the output and launch one
     grouped kernel on the current stream; raises on what it does not
@@ -201,16 +205,19 @@ def _launch(name: str, tokens, weights: tuple, block_expert, block_m: int,
                                      device=dev)
     bounded = n_blocks_used is not None
     gated = len(weights) == 2
+    key = (gated, dt, out_dtype or dt)
     tensors = (tokens, *weights, block_expert) + (
         (n_blocks_used,) if bounded else ())
-    if ((gated, dt) not in _ENTRIES
+    if (key not in _ENTRIES
             or any(w.dtype != dt for w in weights)
             or block_expert.dtype != torch.int32
             or (bounded and (n_blocks_used.dtype != torch.int32
                              or n_blocks_used.numel() != 1))):
         raise TypeError(f"{name}: tokens and weights must share bf16 or f32 "
-                        f"and block_expert, n_blocks_used be int32 (one "
-                        f"bound), got {[t.dtype for t in tensors]}")
+                        f"(output in their type, or f32 from bf16 for the "
+                        f"plain grouped GEMM) and block_expert, "
+                        f"n_blocks_used be int32 (one bound), got "
+                        f"{[t.dtype for t in tensors]} -> {out_dtype}")
     if (K2 != K or any(w.shape != weights[0].shape for w in weights)
             or block_m % MIN_BLOCK_M or P % block_m or P == 0
             or block_expert.shape != (P // block_m,)
@@ -226,8 +233,8 @@ def _launch(name: str, tokens, weights: tuple, block_expert, block_m: int,
         raise ValueError(f"{name}: inputs must be on one device, contiguous "
                          f"and (tokens, weights) 16-byte aligned")
     out = (torch.zeros if masked and bounded else torch.empty)(
-        P, N, dtype=dt, device=dev)
-    fn = _entry(gated, dt)
+        P, N, dtype=key[2], device=dev)
+    fn = _entry(key)
     with csrc.current_on(dev):
         rc = fn(tokens.data_ptr(), *(w.data_ptr() for w in weights),
                 block_expert.data_ptr(),
@@ -239,31 +246,37 @@ def _launch(name: str, tokens, weights: tuple, block_expert, block_m: int,
 
 def grouped_gemm(tokens, weights, block_expert, block_m: int = 128,
                  n_blocks_used=None, row_scale=None, masked: bool = True,
-                 block_k: int | None = None):
+                 block_k: int | None = None, out_dtype=None):
     """``out[rows i] = tokens[rows i] @ weights[block_expert[i]]`` for each
     row block i (rows ``i * block_m`` to ``(i + 1) * block_m``).
 
     tokens [P, H] (expert-aligned rows), weights [E, H, N], block_expert
     [P // block_m] int32; ``n_blocks_used`` (0-d or [1] int32 tensor, or an
-    int) bounds the row blocks at run time. Out [P, N] in the tokens' type.
+    int) bounds the row blocks at run time. Out [P, N] in ``out_dtype``:
+    the tokens' type by default, or f32 from bf16 tokens (the sums are not
+    rounded to bf16; ``ops.moe.moe_reduce_rs``'s f32 slot).
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernel
     (bf16 or f32, ``block_m % 16 == 0``, ``H % 32 == 0``, ``N % 128 == 0``)
-    or raises; each launch adds one to ``grouped_gemm.launches``."""
+    or raises; each launch adds one to ``grouped_gemm.launches``, and a
+    bf16-to-f32 launch also to ``grouped_gemm.f32_out_launches``."""
     if row_scale is not None:
         _later("row_scale")
     if block_k is not None:
         _later("block_k")
     if tokens.device.type == "cpu":
         return grouped_gemm_plain(tokens, weights, block_expert, block_m,
-                                  n_blocks_used)
+                                  n_blocks_used, out_dtype)
     out = _launch("grouped_gemm", tokens, (weights,), block_expert, block_m,
-                  n_blocks_used, masked)
+                  n_blocks_used, masked, out_dtype)
     grouped_gemm.launches += 1
+    if out.dtype != tokens.dtype:
+        grouped_gemm.f32_out_launches += 1
     return out
 
 
 grouped_gemm.launches = 0
+grouped_gemm.f32_out_launches = 0
 
 
 def grouped_gemm_gated(tokens, w_gate, w_up, block_expert,

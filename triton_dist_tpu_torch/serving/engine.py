@@ -27,10 +27,14 @@ tokens a function of (params, prompt) alone, so a preempted and restarted
 request regenerates exactly the tokens it lost, and a contended run equals
 an uncontended one request by request.
 
+Ledger ids and device rows: the allocator hands out page ids; the device
+pool is indexed by rows (``KVPagePool.device_row``, the identity under the
+default "blocked" layout). Every id that goes to the device goes through
+``_device_rows``; the ledger never sees rows.
+
 Left for later slices: the journal and checkpoints, the prefix cache, SLO
 policies and chunk budgets, bounded queues and TTLs, speculation, the AOT
-artifact, fault injection, the sigcheck lint and the ``attn_io``/``linear``
-hooks.
+artifact, fault injection and the sigcheck lint.
 """
 
 from __future__ import annotations
@@ -68,9 +72,13 @@ class ServingEngine:
     chunk per step; ``prefill_buckets`` is then unused). ``ffn(h, p)``
     replaces every layer's dense FFN in the decode dispatch and, unless
     ``ffn_chunk`` is given, in the prefill chunks (the MoE engine,
-    ``serving.sharded``); a hooked engine needs ``prefill_chunk``, since the
-    bucketed inline prefill takes no hook. The params and the pool live on
-    ``device``, ``cuda`` unless the caller asks for the CPU.
+    ``serving.sharded``). ``attn_io`` and ``linear`` hook every layer's KV
+    write and attention pair and its projections in both programs
+    (``models.llama.decode_step_paged``). A hooked engine needs
+    ``prefill_chunk``, since the bucketed inline prefill takes no hook. A
+    subclass may set ``_pool_sp_ranks`` and ``_pool_layout`` before calling
+    this constructor; they shape the ledger's device layout. The params and
+    the pool live on ``device``, ``cuda`` unless the caller asks for the CPU.
     """
 
     def __init__(self, params: dict, cfg: LlamaConfig, num_slots: int = 4,
@@ -79,12 +87,14 @@ class ServingEngine:
                  prefill_buckets="pow2", eos_id: int | None = None,
                  prefill_chunk: int | None = None,
                  stall_deadline_steps: int = 256, ffn=None, ffn_chunk=None,
-                 device="cuda"):
+                 attn_io=None, linear=None, device="cuda"):
         assert decode_horizon >= 1
-        hooked = ffn is not None or ffn_chunk is not None
+        hooked = any(h is not None for h in (ffn, ffn_chunk, attn_io,
+                                             linear))
         if hooked and prefill_chunk is None:
-            raise ValueError("an ffn hook needs prefill_chunk set: the "
-                             "bucketed inline prefill takes no hook")
+            raise ValueError("an ffn, attn_io or linear hook needs "
+                             "prefill_chunk set: the bucketed inline prefill "
+                             "takes no hook")
         assert prefill_chunk is None or prefill_chunk >= 1
         assert stall_deadline_steps >= 1
         self.device = default_device(device)
@@ -102,15 +112,20 @@ class ServingEngine:
         self.prefill_chunk = prefill_chunk
         self.ffn = ffn
         self.ffn_chunk = ffn_chunk or ffn
+        self.attn_io = attn_io
+        self.linear = linear
         self._stall_steps = stall_deadline_steps
         if prefill_buckets is not None and prefill_buckets != "pow2":
             prefill_buckets = tuple(sorted(int(b) for b in prefill_buckets))
             assert prefill_buckets, "bucket list must be non-empty"
         self.prefill_buckets = prefill_buckets
 
-        self.pool = init_page_pool(cfg, num_pages + 1, page_size,
+        self.alloc = KVPagePool(num_pages + 1, page_size, reserved=1,
+                                sp_ranks=getattr(self, "_pool_sp_ranks", 1),
+                                layout=getattr(self, "_pool_layout",
+                                               "blocked"))
+        self.pool = init_page_pool(cfg, self.alloc.device_pages, page_size,
                                    device=self.device)
-        self.alloc = KVPagePool(num_pages + 1, page_size, reserved=1)
         self.sched = ContinuousBatchingScheduler(num_slots)
         self._next_rid = 0
         self._steps = 0
@@ -133,9 +148,15 @@ class ServingEngine:
         self._pos_dev = self._upload(self._pos)
         self._bt_dev = self._upload(self._bt)
 
-    def _bt_row(self, rid) -> np.ndarray:
-        return np.asarray(self.alloc.block_table_row(rid, self.pages_per_seq),
+    def _device_rows(self, ids) -> np.ndarray:
+        """Ledger page ids as rows of the device pool."""
+        return np.asarray([self.alloc.device_row(int(p)) for p in ids],
                           np.int32)
+
+    def _bt_row(self, rid) -> np.ndarray:
+        """The request's block-table row, in device rows."""
+        return self._device_rows(
+            self.alloc.block_table_row(rid, self.pages_per_seq))
 
     # -- request intake ---------------------------------------------------
     def submit(self, prompt, max_new_tokens: int) -> int:
@@ -230,7 +251,7 @@ class ServingEngine:
                                 cache, length=length)
         # only the prompt's pages are handed off; the padded rows of the
         # last page are overwritten by decode before any read reaches them
-        bt_row = self._upload(np.asarray([pages], np.int32))
+        bt_row = self._upload(self._device_rows(pages)[None])
         cache_to_pages(cache["k"], self.pool["k"], bt_row)
         cache_to_pages(cache["v"], self.pool["v"], bt_row)
         tok0 = int(logits[0].argmax())
@@ -277,7 +298,8 @@ class ServingEngine:
         t0 = time.perf_counter()
         tok_dev, self.pool = prefill_chunk_paged(
             self.params, self._upload(toks), start, end, self.cfg, self.pool,
-            self._upload(row), ffn=self.ffn_chunk)
+            self._upload(row), ffn=self.ffn_chunk, attn_io=self.attn_io,
+            linear=self.linear)
         # one int32 download: it fences the chunk for the stall timing and,
         # on the last chunk, is the first token
         tok0 = int(tok_dev)
@@ -400,7 +422,8 @@ class ServingEngine:
                                    self._pos_dev, self.cfg, self.pool,
                                    self._bt_dev, self._upload(limits),
                                    horizon=self.decode_horizon,
-                                   eos_id=self.eos_id, ffn=self.ffn)
+                                   eos_id=self.eos_id, ffn=self.ffn,
+                                   attn_io=self.attn_io, linear=self.linear)
         slab = toks.cpu().numpy()          # [horizon, B]; waits for the card
         t_done = time.perf_counter()
 

@@ -7,10 +7,12 @@ Counterpart of ``triton_dist_tpu/serving/kv_pool.py``:
 - **host accounting**: ``KVPagePool``, the reference's ledger for one
   device — a LIFO free list over page ids with per-sequence ownership,
   allocate-on-decode growth and free-on-finish. Pure Python and
-  deterministic: replaying a trace allocates the same pages. The prefix-
-  cache refcounts, the SP layout, the digest and snapshots, and the
-  migration and lending checks of the reference ledger belong to later
-  slices and are not here.
+  deterministic: replaying a trace allocates the same pages. It carries the
+  reference's SP device layout (``sp_ranks``, ``layout``, ``device_row``,
+  ``page_shard``): the map from ledger ids to rows of the device pool, and
+  its ``digest``. The prefix-cache refcounts, snapshots, and the migration
+  and lending checks of the reference ledger belong to later slices and are
+  not here.
 - **device memory**: ``models.llama.init_page_pool`` tensors. Nothing in the
   ledger looks at their values. ``cache_to_pages`` / ``pages_to_cache``
   move whole pages between the head-major contiguous ``init_kv_cache``
@@ -49,13 +51,34 @@ class KVPagePool:
     - alloc is all-or-nothing: a request for ``n`` pages either returns
       ``n`` ids or ``None`` and changes nothing.
     The free list is LIFO, so allocation order is deterministic.
+
+    ``sp_ranks`` is the size of the SP axis the device pool is split over on
+    its page dim; the device pool holds ``device_pages`` rows, the page count
+    padded up to a multiple of ``sp_ranks`` (the padding rows are never
+    handed out). ``layout`` maps ledger ids to device rows:
+
+    - ``"blocked"`` (default): row == id, consecutive ids on one SP shard;
+    - ``"interleaved"``: row ``(id % sp_ranks) * (device_pages / sp_ranks)
+      + id // sp_ranks``, consecutive ids round-robin over the SP shards, so
+      one long sequence's pages spread evenly (the long-context serving
+      mode).
+
+    Either way the map is a bijection over ``[0, device_pages)`` with row 0
+    fixed, and pure device layout: allocation decisions never see it.
     """
 
-    def __init__(self, num_pages: int, page_size: int, reserved: int = 0):
+    def __init__(self, num_pages: int, page_size: int, reserved: int = 0,
+                 sp_ranks: int = 1, layout: str = "blocked"):
         assert num_pages > reserved >= 0
+        assert sp_ranks >= 1
+        assert layout in ("blocked", "interleaved"), (
+            f"layout must be 'blocked' or 'interleaved', got {layout!r}")
         self.num_pages = num_pages
         self.page_size = page_size
         self.reserved = reserved
+        self.sp_ranks = sp_ranks
+        self.layout = layout
+        self.device_pages = num_pages + (-num_pages) % sp_ranks
         # LIFO: lowest ids on top, so a fresh pool allocates reserved, 1, 2…
         self._free = list(range(num_pages - 1, reserved - 1, -1))
         self._owned: dict[object, list[int]] = {}
@@ -75,6 +98,28 @@ class KVPagePool:
 
     def pages_of(self, seq_id) -> list[int]:
         return list(self._owned.get(seq_id, ()))
+
+    def device_row(self, page_id: int) -> int:
+        """The row of the device pool that holds ledger page ``page_id``:
+        the id itself under ``"blocked"``, the round-robin bijection under
+        ``"interleaved"``. Every id that goes to the device (block-table
+        entries, host-side pool gathers and scatters) goes through here."""
+        if not 0 <= page_id < self.device_pages:
+            raise PageLedgerError(
+                f"page {page_id} outside the device range "
+                f"[0, {self.device_pages})")
+        if self.layout == "blocked":
+            return page_id
+        return ((page_id % self.sp_ranks)
+                * (self.device_pages // self.sp_ranks)
+                + page_id // self.sp_ranks)
+
+    def page_shard(self, page_id: int) -> int:
+        """The SP rank whose shard of the device pool (an even split of the
+        padded page dim) holds ``page_id``. Layout introspection only: no
+        allocation decision may depend on it."""
+        return self.device_row(page_id) \
+            // (self.device_pages // self.sp_ranks)
 
     # -- allocation -------------------------------------------------------
     def alloc(self, seq_id, n_pages: int) -> list[int] | None:
@@ -157,6 +202,22 @@ class KVPagePool:
                 f"page conservation violated: {len(free)} free + "
                 f"{len(owner)} owned != {self.num_pages - self.reserved} "
                 "non-reserved pages")
+
+    def digest(self) -> int:
+        """Order-sensitive 32-bit FNV-1a digest of the ledger, the
+        reference's fold over this ledger's state: the geometry, the free
+        list in order, the ownership map in insertion order, then the
+        prefix-cache state, which here is one reference per owned page and
+        nothing cached. ``sp_ranks`` and ``layout`` never enter it: they are
+        device layout, not allocation decisions. Two ledgers that made the
+        same decisions digest alike, under either layout."""
+        h = _fnv1a(0x811C9DC5, self.num_pages, self.page_size, self.reserved)
+        h = _fnv1a(h, len(self._free), *self._free)
+        for sid, pages in self._owned.items():
+            h = _fnv1a(h, hash(sid) & 0xFFFFFFFF, len(pages), *pages)
+        for p in sorted(p for pages in self._owned.values() for p in pages):
+            h = _fnv1a(h, p, 1)
+        return _fnv1a(_fnv1a(h, 0), 0)     # no cached, no cacheable pages
 
     def block_table_row(self, seq_id, pages_per_seq: int,
                         fill: int = 0) -> list[int]:

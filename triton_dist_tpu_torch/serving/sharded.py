@@ -11,10 +11,23 @@ kernels. That is the engine this module
 builds: ``ServingEngine`` with the MoE ``ffn`` hooks. The JAX package uses
 the same 1×1×1 engine as the golden of every mesh size.
 
-Mesh axes above 1, a quantised a2a wire, the overlap schedules,
-long-context attention and speculation raise ``NotImplementedError``: they
-wait for the shmem layer and the kernels behind it (ROADMAP A6, A9, A11).
-The replicated-decision digest has nothing to compare at one rank.
+``long_context=True`` swaps the attention leg for
+``ops.flash_decode.flash_decode_dist`` (per-page partials folded in page
+order, ``csrc/flash_decode_dist.cu``) over an ``"interleaved"`` pool layout,
+as the JAX engine does. At one rank the layout is the identity and the fold
+has one rank's pages: the attention is the plain engine's, summed in another
+order. The JAX engine's modeled attention split (``fd_attn_split_us``) is
+not ported: it is priced with the TPU's wire fit, and the split across ranks
+waits for ROADMAP.md Queue A, item 8 "SP decode and sharded serving across
+ranks", where it is to be priced from an H100 measurement.
+
+Mesh axes above 1, a quantised a2a wire, the overlap schedules and
+speculation raise ``NotImplementedError``: they wait for the shmem layer and
+the kernels behind it (ROADMAP.md Queue A, items 4 "shmem layer across
+ranks", 7 "MoE / EP across ranks" and 8 "SP decode and sharded serving
+across ranks"; speculation is item 10, "the rest of the single-device
+serving tier"). The replicated-decision digest has nothing to compare at one
+rank.
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 
 from triton_dist_tpu_torch.models.moe import MoEConfig, moe_mlp_ep_overlap
+from triton_dist_tpu_torch.ops.flash_decode import flash_decode_dist
 from triton_dist_tpu_torch.serving.engine import ServingEngine
 
 MESH_AXES = ("tp", "sp", "ep")
@@ -50,10 +64,14 @@ def serving_mesh(tp: int = 1, sp: int = 1, ep: int = 1) -> ServingMesh:
     return ServingMesh(tp, sp, ep)
 
 
-def _later(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it waits for the shmem layer and its "
-        "kernels (ROADMAP.md Queue A, items 6, 9 and 11)")
+def _later(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue A, "
+                              f"{item}")
+
+
+_SHMEM = 'item 4 "shmem layer across ranks"'
+_MOE = 'item 7 "MoE / EP across ranks"'
+_SP = 'item 8 "SP decode and sharded serving across ranks"'
 
 
 class ShardedServingEngine(ServingEngine):
@@ -67,6 +85,9 @@ class ShardedServingEngine(ServingEngine):
     ``DECODE_BLOCK_M`` and prefill chunks ``CHUNK_BLOCK_M`` (a row's result
     does not depend on it). ``wire_dtype`` defaults to None here, the only
     value one rank takes (the JAX default "auto" picks a wire for the a2a).
+    ``long_context=True`` serves the attention through
+    ``flash_decode_dist`` over an interleaved pool layout (see the module
+    docstring); the projections stay plain products (``tp_impl="xla"``).
     """
 
     def __init__(self, params: dict, cfg: MoEConfig, ctx=None,
@@ -82,22 +103,31 @@ class ShardedServingEngine(ServingEngine):
         wide = {ax: ctx.axis_size(ax) for ax in MESH_AXES
                 if ctx.axis_size(ax) > 1}
         if wide:
-            _later(f"serving on mesh axes {wide}")
+            _later(f"serving on mesh axes {wide}", _SHMEM)
         if wire_dtype is not None:
-            _later(f"the a2a wire dtype {wire_dtype!r} (B21)")
+            _later(f"the a2a wire dtype {wire_dtype!r} (B21)", _MOE)
         if overlap != "off":
-            _later(f"overlap={overlap!r} (B22, B6)")
-        if long_context:
-            _later("long_context (B7, B8)")
+            _later(f"overlap={overlap!r} (B22, B6)", f"{_MOE} and {_SP}")
         if speculate not in (None, 0, "off"):
-            _later("speculate")
+            _later("speculate", 'item 10 "the rest of the single-device '
+                   'serving tier"')
         if tp_impl != "xla":
-            _later(f"tp_impl={tp_impl!r} (B15)")
+            _later(f"tp_impl={tp_impl!r} (B15)",
+                   'item 6 "TP overlap across ranks"')
         if prefill_chunk is None:
             raise ValueError("sharded serving requires prefill_chunk: the "
                              "bucketed inline prefill takes no hook")
         self.ctx = ctx
         self.moe_cfg = cfg
+        self.long_context = long_context
+        attn_io = None
+        if long_context:
+            self._pool_layout = "interleaved"
+
+            def attn_io(q, k, v, kp, vp, bt, pos, kv_len, active):
+                return flash_decode_dist(ctx, q, k, v, kp, vp, bt, pos,
+                                         kv_len, axis="sp", active=active)
+        self._pool_sp_ranks = ctx.axis_size("sp")
 
         def moe_ffn(block_m: int):
             def ffn(h, p):
@@ -114,7 +144,7 @@ class ShardedServingEngine(ServingEngine):
                          stall_deadline_steps=stall_deadline_steps,
                          ffn=moe_ffn(moe_block_m or DECODE_BLOCK_M),
                          ffn_chunk=moe_ffn(moe_block_m or CHUNK_BLOCK_M),
-                         device=device)
+                         attn_io=attn_io, device=device)
 
 
 __all__ = ["MESH_AXES", "ServingMesh", "ShardedServingEngine",

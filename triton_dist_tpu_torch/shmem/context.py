@@ -6,7 +6,8 @@ The JAX context wraps a ``jax.sharding.Mesh`` whose symmetric buffers and
 ``shard_map`` launch the collective kernels. On one card every axis has
 size 1, the collectives are identities, and the context only carries the
 axis names and the device. An axis of size above 1 raises: the symmetric
-tensors, the process group and the transports are ROADMAP A6.
+tensors, the process group and the transports are ROADMAP.md Queue A,
+item 4 "shmem layer across ranks".
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ def _multi_rank(mesh_shape) -> None:
         f"a mesh of shape {tuple(mesh_shape)} spans more than one rank; the "
         "port runs one rank until the shmem layer (symmetric tensors, the "
         "process group and its transports) is ported: ROADMAP.md Queue A, "
-        "item 6")
+        "item 4 \"shmem layer across ranks\"")
 
 
 @dataclasses.dataclass(frozen=True)
