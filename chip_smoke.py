@@ -97,6 +97,27 @@ Phases, each printing its lines:
    versions (padding rows, bitwise repeat), ``moe_mlp_tp_overlap`` against a
    plain per-expert block written out in this script, each timed beside its
    bound, plain version and ``torch._grouped_mm``, and the block's launches.
+14. the shmem layer across ranks, every rank of a mesh on the one card
+   (inside phase 5's lifetime, on its 32-layer bf16 params): tutorial 01's
+   ring ping and the barrier (``barrier_all_op``, B14) at 2 and 4 ranks
+   (exact, bitwise repeat), a ping whose rank 1 never signals raising
+   within 2 s; the push and ring ``all_gather`` (B9) of AG-GEMM's input
+   (4096 x 4096 bf16) and the ring ``reduce_scatter`` (B13) of GEMM-RS's
+   f32 partial (4096 x 4096 on every rank; bf16 too at 4 ranks) at 2 and 4
+   ranks against their plain versions (bit for bit, repeated with fresh
+   data), the fused gather and merge (``ll_ag_merge``, B5) at the SP decode's
+   shapes (every replica bitwise ``ll_merge`` of the stacked partials);
+   then the main path, launches counted: G-long (one prompt of 7936 in 8192
+   slots) at 2 and 4 ranks and G-batch (8 of 1024 in 4096) at 4 ranks, 32
+   greedy ``decode_step_sp`` steps of each method (fused, push, ring) over
+   the prefilled cache sharded on S (replicas bitwise equal, push and ring
+   bit for bit, a bitwise rerun, the tokens of ``decode_step`` up to each
+   row's first near-tie), and the collectives once each at TP widths; one
+   SP decode step under the profiler at 1 and 4 ranks. Beside phase 4 (f32,
+   full width, depth 4), ``decode_step_sp`` at 2 and 4 ranks, every method,
+   fed one rank's tokens, must give ``decode_step``'s logits within 1e-5
+   of their scale. A time at n > 1 is
+   the kernels and their protocol on one card's SMs and HBM, not NVLink.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -3175,6 +3196,821 @@ def long_moe_tp_kernels(later: dict) -> list[dict]:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 14: the shmem layer across ranks on one card, the collectives at TP
+# widths, and sequence-parallel decode of Llama-3-8B at 2 and 4 ranks
+# ---------------------------------------------------------------------------
+
+# ranks of the meshes: every rank of a mesh runs on the one card (one
+# launch per collective call covers them all), so a time at n > 1 is the
+# kernels and their protocol on shared SMs and one HBM, not an NVLink time
+SP_RANKS = (2, 4)
+# tutorial 01's ring ping: each rank's block of [8, 128] f32
+PING_BLOCK = (8, 128)
+# a ping whose rank 1 never signals must raise within this many seconds
+HANG_LIMIT_S = 2.0
+# the collectives at TP widths of Llama-3-8B at 4096 tokens: AG-GEMM's
+# gathered input [M, K] bf16, and GEMM-RS's f32 partial [M, N] on every rank
+TP_AG = (4096, 4096)
+TP_RS = (4096, 4096)
+# calls with fresh data through one context (signal pads reused)
+FRESH_CALLS = 5
+# SP decode on phase 5's params: G-long (one prompt of 7936 tokens in 8192
+# slots) at 2 and 4 ranks, G-batch (8 prompts of 1024 in 4096) at 4
+# (each rank count with the methods it runs: G-long's push and ring run at 4
+# ranks only, as their gather at 2 ranks is held bit for bit against the
+# plain one at this wire shape in check_collectives)
+SP_DECODE = {"G-long": dict(B=1, prompt=7936, max_seq=8192,
+                            ranks={2: ("fused",), 4: SP_METHODS}),
+             "G-batch": dict(B=8, prompt=1024, max_seq=4096,
+                             ranks={4: SP_METHODS})}
+SP_STEPS = 32
+# steps whose replicas are compared in every layer (the compare adds two
+# small device ops a layer, so the later steps run without it)
+SP_REPLICA_STEPS = 8
+# a run's greedy tokens equal n = 1's up to the first step whose top-2
+# logit gap is under this share of the logit scale (max |logit|): the SP
+# merge rounds in another order than one rank's combine
+NEAR_TIE = 2 ** -6
+# step 0 of a bf16 SP run reads the same cache and token as n = 1's: its
+# logits within this share of n = 1's logit scale (max |diff| / max |ref|).
+# The control, one rank's shard zeroed in every layer, must fall outside
+# it. On an H100 sound runs read 4.1-4.6% and the controls 87-131%
+SP_STEP0_TOL = 0.2
+# the SP decode's gather wire, (out || lse) f32 [n, B, HQ, D + 1], at
+# G-long's and G-batch's rows
+SP_WIRE_ROWS = (1, 8)
+
+
+# the f32 check of the SP step (full width, depth 4, beside phase 4): fed
+# one rank's greedy tokens, the logits within this share of one rank's
+# logit scale at every step (the SP merge sums in another order only). 128
+# slots put the prompt on ranks 0-1 of 4 and the new tokens on rank 2
+SP_F32 = dict(B=2, prompt=64, steps=8, max_seq=128)
+SP_F32_TOL = 1e-5
+
+
+def collective_bound(read_bytes: int, write_bytes: int) -> tuple[float, str]:
+    """Least time of a collective on one card: every rank's input read once
+    and every rank's output written once, all through the one HBM."""
+    return (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _mesh(n: int, device):
+    from triton_dist_tpu_torch.shmem import initialize_distributed
+
+    return initialize_distributed(("x",), (n,), device=device)
+
+
+def check_shmem(device, timed: bool = True, ranks=SP_RANKS) -> dict:
+    """The t01 ring ping (``shmem.ring_ping``) and the barrier (B14,
+    ``barrier_all_op``) at each of ``ranks`` against their plain versions,
+    exact and bitwise repeatable, timed; then the hang check: a ping whose
+    rank 1 never signals must raise ``ShmemError`` within
+    ``HANG_LIMIT_S``, and the next ping must be right again."""
+    import torch
+
+    from triton_dist_tpu_torch.ops.common import (barrier_all_op,
+                                                  barrier_all_plain)
+    from triton_dist_tpu_torch.shmem import (SPIN_BUDGET_S, ShmemError,
+                                             check_errors, ring_ping,
+                                             ring_ping_plain)
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    recs = {"ring_ping": [], "barrier_all_op": []}
+    for n in ranks:
+        ctx = _mesh(n, device)
+        blocks = (torch.arange(n, dtype=torch.float32, device=device)
+                  [:, None, None] * torch.ones(PING_BLOCK, device=device))
+        got, got2 = ring_ping(ctx, blocks), ring_ping(ctx, blocks)
+        check_errors(ctx)
+        want = ring_ping_plain(blocks)
+        rec = {"case": f"float32 n={n} block {list(PING_BLOCK)}",
+               "exact": bool(torch.equal(got, want)),
+               "bitwise_repeat": bool(torch.equal(got, got2)),
+               "max_abs_err": (got - want).abs().max().item()}
+        if timed:
+            call = lambda: ring_ping(ctx, blocks)  # noqa: E731
+            rec["ms"] = perf_func(call)[1]
+            rec["kernel_device_ms"] = kernel_device_ms(call,
+                                                       "ring_ping_kernel")
+        log("shmem ring_ping", json.dumps(rec))
+        if not (rec["exact"] and rec["bitwise_repeat"]):
+            raise AssertionError(f"ring_ping failed: {rec}")
+        recs["ring_ping"].append(rec)
+
+        barrier = barrier_all_op(ctx)
+        b1, b2 = barrier(), barrier()
+        check_errors(ctx)
+        want = barrier_all_plain(n, device)
+        rec = {"kernel": "barrier_all_op", "case": f"int32 n={n}",
+               "exact": bool(torch.equal(b1, want)),
+               "bitwise_repeat": bool(torch.equal(b1, b2)),
+               "max_abs_err": (b1 - want).abs().max().item()}
+        if timed:
+            rec["ms"] = perf_func(barrier)[1]
+            rec["kernel_device_ms"] = kernel_device_ms(barrier,
+                                                       "barrier_all_kernel")
+            rec["plain_ms"] = perf_func(
+                lambda: barrier_all_plain(n, device))[1]
+            # each rank adds to n - 1 peers' words and reads its own; the
+            # output's n words
+            rec["bound_ms"], rec["bound_by"] = collective_bound(
+                n * 4, n * (n - 1) * 4 + n * 4)
+            rec["library_ms"] = None
+            rec["library_none_because"] = (
+                "no PyTorch call is a barrier between the ranks of one "
+                "launch")
+        log("kernel barrier_all_op", json.dumps(rec))
+        if not (rec["exact"] and rec["bitwise_repeat"]):
+            raise AssertionError(f"barrier_all_op failed: {rec}")
+        recs["barrier_all_op"].append(rec)
+
+    ctx = _mesh(2, device)
+    blocks = torch.arange(2, dtype=torch.float32, device=device)[:, None] \
+        * torch.ones(2, 128, device=device)
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        ring_ping(ctx, blocks, silent_rank=1)
+        check_errors(ctx)
+    except ShmemError as e:
+        raised = str(e)
+    seconds = time.perf_counter() - t0
+    after = ring_ping(ctx, blocks)
+    check_errors(ctx)
+    rec = {"case": "n=2, rank 1 never signals", "raised": raised,
+           "seconds": seconds, "limit_s": HANG_LIMIT_S,
+           "budget_s": SPIN_BUDGET_S,
+           "next_call_exact": bool(torch.equal(after,
+                                               ring_ping_plain(blocks)))}
+    log("shmem hang check", json.dumps(rec))
+    if not (raised and seconds < HANG_LIMIT_S and rec["next_call_exact"]):
+        raise AssertionError(f"the missing signal did not raise in time: "
+                             f"{rec}")
+    recs["hang"] = rec
+    return recs
+
+
+def check_collectives(device, timed: bool = True, ranks=SP_RANKS,
+                      ag_shape=TP_AG, rs_shape=TP_RS, seed: int = 14) -> dict:
+    """B9 across ranks (``all_gather``, push and ring, on AG-GEMM's bf16
+    input and on the SP decode's f32 wire at ``SP_WIRE_ROWS``) and B13
+    (``reduce_scatter``, ring, on GEMM-RS's f32 partial, and in bf16) at
+    each of ``ranks`` against their plain versions: every
+    replica the concatenation of the shards and the scatter the plain
+    ring's sums, bit for bit; a bitwise repeat and ``FRESH_CALLS`` calls
+    with fresh data through one context; timed beside the bound, the plain
+    version and one PyTorch call of the same function (``Tensor.repeat``,
+    ``torch.sum`` over the ranks)."""
+    import torch
+
+    from triton_dist_tpu_torch.ops.allgather import (all_gather,
+                                                     all_gather_plain)
+    from triton_dist_tpu_torch.ops.flash_decode import NEG_INF
+    from triton_dist_tpu_torch.ops.reduce_scatter import (
+        reduce_scatter, reduce_scatter_plain)
+    from triton_dist_tpu_torch.shmem import check_errors
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    recs = {"all_gather": [], "reduce_scatter": []}
+    for n in ranks:
+        ctx = _mesh(n, device)
+        M, K = ag_shape
+        x = randn(M, K, dtype=torch.bfloat16)
+        for method in ("push", "ring"):
+            def call(x=x, method=method):
+                return all_gather(ctx, x, method=method)
+
+            got, got2 = call(), call()
+            check_errors(ctx)
+            ref = all_gather_plain(x, n)
+            fresh = []
+            for _ in range(FRESH_CALLS):
+                xi = randn(M, K, dtype=torch.bfloat16)
+                fresh.append(bool(torch.equal(call(xi), all_gather_plain(
+                    xi, n))))
+            check_errors(ctx)
+            rec = {"kernel": "all_gather",
+                   "case": f"bfloat16 {method} n={n} [{M}, {K}]",
+                   "exact": bool(torch.equal(got, ref)),
+                   "replicas_are_the_shards": all(torch.equal(got[r], x)
+                                                  for r in range(n)),
+                   "bitwise_repeat": bool(torch.equal(got, got2)),
+                   "fresh_calls_exact": all(fresh),
+                   "max_abs_err": (got.float() - ref.float()).abs().max()
+                   .item()}
+            if timed:
+                rec["ms"] = perf_func(call)[1]
+                rec["kernel_device_ms"] = kernel_device_ms(
+                    call, f"ag_{method}_kernel")
+                rec["plain_ms"] = perf_func(
+                    lambda: all_gather_plain(x, n))[1]
+                rec["library_ms"] = perf_func(lambda: x.repeat(n, 1, 1))[1]
+                rec["library_call"] = "Tensor.repeat"
+                nbytes = x.numel() * x.element_size()
+                rec["bound_ms"], rec["bound_by"] = collective_bound(
+                    nbytes, n * nbytes)
+            log("kernel all_gather", json.dumps(rec))
+            if not (rec["exact"] and rec["replicas_are_the_shards"]
+                    and rec["bitwise_repeat"] and rec["fresh_calls_exact"]):
+                raise AssertionError(f"all_gather failed: {rec}")
+            recs["all_gather"].append(rec)
+            del got, got2, ref
+
+        for B in SP_WIRE_ROWS:
+            wire = randn(n, B, HQ, D + 1)
+            wire[n - 1, 0, :, D] = NEG_INF            # an empty shard's lse
+            for method in ("push", "ring"):
+                def call(x=wire, method=method):
+                    return all_gather(ctx, x, method=method)
+
+                got, got2 = call(), call()
+                check_errors(ctx)
+                ref = all_gather_plain(wire, n)
+                fresh = []
+                for _ in range(FRESH_CALLS):
+                    xi = randn(n, B, HQ, D + 1)
+                    fresh.append(bool(torch.equal(call(xi), all_gather_plain(
+                        xi, n))))
+                check_errors(ctx)
+                rec = {"kernel": "all_gather",
+                       "case": f"float32 {method} n={n} SP wire "
+                               f"[{n}, {B}, {HQ}, {D + 1}]",
+                       "exact": bool(torch.equal(got, ref)),
+                       "replicas_are_the_shards": all(
+                           torch.equal(got[r], wire) for r in range(n)),
+                       "bitwise_repeat": bool(torch.equal(got, got2)),
+                       "fresh_calls_exact": all(fresh),
+                       "max_abs_err": (got - ref).abs().max().item()}
+                if timed:
+                    rec["ms"] = perf_func(call)[1]
+                log("kernel all_gather", json.dumps(rec))
+                if not (rec["exact"] and rec["replicas_are_the_shards"]
+                        and rec["bitwise_repeat"]
+                        and rec["fresh_calls_exact"]):
+                    raise AssertionError(f"all_gather failed: {rec}")
+                recs["all_gather"].append(rec)
+
+        Mr, N = rs_shape
+        for dtype in ((torch.float32, torch.bfloat16) if n == max(ranks)
+                      else (torch.float32,)):
+            name = str(dtype).split(".")[-1]
+            xr = randn(n * Mr, N, dtype=dtype)
+
+            def rs(xr=xr):
+                return reduce_scatter(ctx, xr)
+
+            got, got2 = rs(), rs()
+            check_errors(ctx)
+            ref = reduce_scatter_plain(xr, n)
+            fresh = []
+            for _ in range(FRESH_CALLS if dtype == torch.float32 else 1):
+                xi = randn(n * Mr, N, dtype=dtype)
+                fresh.append(bool(torch.equal(rs(xi),
+                                              reduce_scatter_plain(xi, n))))
+            check_errors(ctx)
+            rec = {"kernel": "reduce_scatter",
+                   "case": f"{name} ring n={n} [{Mr}, {N}] a rank",
+                   "exact": bool(torch.equal(got, ref)),
+                   "bitwise_repeat": bool(torch.equal(got, got2)),
+                   "fresh_calls_exact": all(fresh),
+                   "max_abs_err": (got.float() - ref.float()).abs().max()
+                   .item()}
+            if timed:
+                rec["ms"] = perf_func(rs)[1]
+                rec["kernel_device_ms"] = kernel_device_ms(rs,
+                                                           "rs_ring_kernel")
+                rec["plain_ms"] = perf_func(
+                    lambda: reduce_scatter_plain(xr, n))[1]
+                rec["library_ms"] = perf_func(
+                    lambda: torch.sum(xr.view(n, Mr, N), 0))[1]
+                rec["library_call"] = "torch.sum over the ranks"
+                rec["bound_ms"], rec["bound_by"] = collective_bound(
+                    xr.numel() * xr.element_size(),
+                    Mr * N * xr.element_size())
+            log("kernel reduce_scatter", json.dumps(rec))
+            if not (rec["exact"] and rec["bitwise_repeat"]
+                    and rec["fresh_calls_exact"]):
+                raise AssertionError(f"reduce_scatter failed: {rec}")
+            recs["reduce_scatter"].append(rec)
+            del xr, got, got2, ref
+    return recs
+
+
+def check_ll_ag_merge(device, timed: bool = True, ranks=SP_RANKS,
+                      rows=(("G-batch", 8), ("G-long", 1)),
+                      seed: int = 15) -> list[dict]:
+    """B5 across ranks (``ll_ag_merge``) on the SP decode's partials (B rows
+    of 32 heads, D 128, f32; rank n - 1's shard empty for row 0, (0,
+    NEG_INF) as B3 gives it): every replica bitwise equal to ``ll_merge``
+    over the stacked partials, within ``OUT_ATOL`` of the plain version,
+    bitwise repeatable; bf16 and f32 outputs, timed beside the bound (the n
+    partials read once, the n replicas written once) and the plain
+    version."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.shmem import check_errors
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    records = []
+    for label, B in rows:
+        for n in ranks:
+            ctx = _mesh(n, device)
+            outs = torch.randn((n, B, HQ, D), generator=gen, device=device)
+            lses = torch.randn((n, B, HQ), generator=gen, device=device) * 3
+            outs[n - 1, 0] = 0.0
+            lses[n - 1, 0] = fd.NEG_INF
+            for out_dtype in (torch.bfloat16, torch.float32):
+                name = str(out_dtype).split(".")[-1]
+
+                def call():
+                    return fd.ll_ag_merge(ctx, outs, lses, out_dtype, "x")
+
+                got, got2 = call(), call()
+                check_errors(ctx)
+                merged = fd.ll_merge(outs, lses, out_dtype)
+                ref = fd.ll_merge_plain(outs, lses, out_dtype)
+                rec = {"kernel": "ll_ag_merge",
+                       "case": f"float32 -> {name} {label} n={n} rows={B}x"
+                               f"{HQ} D={D}",
+                       "replicas_equal_ll_merge": all(
+                           torch.equal(got[r], merged) for r in range(n)),
+                       "rel_err": _rel(got[0], ref), "atol": OUT_ATOL[name],
+                       "bitwise_repeat": bool(torch.equal(got, got2)),
+                       "max_abs_err": (got[0].float() - ref.float()).abs()
+                       .max().item()}
+                if timed:
+                    rec["ms"] = perf_func(call)[1]
+                    rec["kernel_device_ms"] = kernel_device_ms(
+                        call, "ll_ag_merge_kernel")
+                    rec["plain_ms"] = perf_func(
+                        lambda: fd.ll_ag_merge_plain(outs, lses,
+                                                     out_dtype))[1]
+                    rec["bound_ms"], rec["bound_by"] = collective_bound(
+                        (outs.numel() + lses.numel()) * 4,
+                        n * merged.numel() * merged.element_size())
+                    rec["library_ms"] = None
+                    rec["library_none_because"] = (
+                        "no single PyTorch call gathers partials across "
+                        "ranks and merges them by their lse")
+                log("kernel ll_ag_merge", json.dumps(rec))
+                if not (rec["replicas_equal_ll_merge"]
+                        and rec["rel_err"] <= rec["atol"]
+                        and rec["bitwise_repeat"]):
+                    raise AssertionError(f"ll_ag_merge failed: {rec}")
+                records.append(rec)
+    return records
+
+
+def _greedy(params, cfg, cache, token, pos0: int, steps: int, ctx=None,
+            method: str | None = None) -> dict:
+    """``steps`` greedy steps from ``token`` at ``pos0``: ``decode_step``
+    without ``ctx``, else ``decode_step_sp`` with ``method`` (every layer's
+    replicas compared in the first ``SP_REPLICA_STEPS``). Returns the
+    tokens [B, steps], each step's logits, the seconds between device
+    synchronisations and whether the replicas agreed; raises ``ShmemError``
+    if a spin of the run ran out."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    toks, logits_all, checks = [], [], []
+    sync = torch.cuda.synchronize if token.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if ctx is None:
+            logits, cache = llama.decode_step(params, token, pos0 + i, cfg,
+                                              cache)
+        else:
+            logits, cache = llama.decode_step_sp(
+                ctx, params, token, pos0 + i, cfg, cache, ag_method=method,
+                replica_checks=checks if i < SP_REPLICA_STEPS else None)
+        token = logits.argmax(-1).to(torch.int32)
+        toks.append(token)
+        logits_all.append(logits)
+    sync()
+    seconds = time.perf_counter() - t0
+    if ctx is not None:
+        check_errors(ctx)
+    return {"tokens": torch.stack(toks, 1), "logits": logits_all,
+            "seconds": seconds,
+            "replicas_equal": (bool(torch.stack(checks).all())
+                               if checks else None)}
+
+
+def _near_tie_steps(logits_all) -> list[int]:
+    """Per row, the first step whose top-2 logit gap is under ``NEAR_TIE``
+    of the row's max |logit| (the step count when none is)."""
+    import torch
+
+    gaps = torch.stack([l.topk(2, -1).values for l in logits_all], 1)
+    scale = torch.stack([l.abs().amax(-1) for l in logits_all], 1)
+    near = (gaps[..., 0] - gaps[..., 1]) < NEAR_TIE * scale     # [B, steps]
+    steps = near.shape[1]
+    return [int(row.nonzero()[0]) if row.any() else steps
+            for row in near.cpu()]
+
+
+def check_sp_decode_f32(params, cfg, device, B: int = SP_F32["B"],
+                        prompt_len: int = SP_F32["prompt"],
+                        steps: int = SP_F32["steps"],
+                        max_seq: int = SP_F32["max_seq"],
+                        seed: int = 17) -> dict:
+    """``decode_step_sp`` at 2 and 4 ranks (every method) against
+    ``decode_step`` in f32: after a ``prefill`` of seeded prompts, each step
+    feeds both one rank's greedy token; the SP logits must lie within
+    ``SP_F32_TOL`` of one rank's logit scale, every replica equal rank 0's
+    bit for bit, and push equal ring bit for bit. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompts = torch.randint(1, cfg.vocab_size, (B, prompt_len),
+                            generator=gen, device=device)
+    cache = llama.init_kv_cache(cfg, B, max_seq, device=device)
+    logits, cache = llama.prefill(params, prompts, cfg, cache)
+    sharded = {(n, m): llama.shard_kv_cache(cache, n)
+               for n in SP_RANKS for m in SP_METHODS}
+    token = logits.argmax(-1).to(torch.int32)
+    worst, replicas_ok, push_ring = {}, True, True
+    for i in range(steps):
+        pos = prompt_len + i
+        ref, cache = llama.decode_step(params, token, pos, cfg, cache)
+        scale = ref.abs().max()
+        for n in SP_RANKS:
+            ctx = _mesh(n, device)
+            got = {}
+            for m in SP_METHODS:
+                checks = []
+                got[m], sharded[(n, m)] = llama.decode_step_sp(
+                    ctx, params, token, pos, cfg, sharded[(n, m)],
+                    ag_method=m, replica_checks=checks)
+                replicas_ok &= bool(torch.stack(checks).all())
+                key = f"n={n} {m}"
+                worst[key] = max(worst.get(key, 0.0),
+                                 ((got[m] - ref).abs().max() / scale).item())
+            push_ring &= bool(torch.equal(got["push"], got["ring"]))
+            check_errors(ctx)
+        token = ref.argmax(-1).to(torch.int32)
+    rec = {"dtype": str(cfg.dtype), "layers": cfg.n_layers, "B": B,
+           "prompt": prompt_len, "steps": steps,
+           "max_rel_logit_diff": worst, "tol": SP_F32_TOL,
+           "replicas_equal": replicas_ok, "push_equals_ring": push_ring}
+    log("sp decode f32", json.dumps(rec))
+    if not (replicas_ok and push_ring
+            and all(v <= SP_F32_TOL for v in worst.values())):
+        raise AssertionError(f"SP decode in f32 disagrees with one rank: "
+                             f"{rec}")
+    return rec
+
+
+def _first_divergence(tokens, ref) -> list[int]:
+    """Per row, the first step whose token differs from ``ref``'s (the
+    step count when none does)."""
+    diff = (tokens != ref).cpu()
+    return [int(row.nonzero()[0]) if row.any() else diff.shape[1]
+            for row in diff]
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp(min=1e-30)).item()
+
+
+def run_sp_decode(params, cfg, device, card: str, specs=SP_DECODE,
+                  steps: int = SP_STEPS, seed: int = 16) -> dict:
+    """SP decode on the bf16 params: for each of ``specs``, ``prefill`` of
+    seeded prompts into a contiguous cache, ``steps`` greedy
+    ``decode_step``s at one rank, then the cache sharded over each rank
+    count (``shard_kv_cache``) and ``steps`` greedy ``decode_step_sp``s of
+    each of its methods (the first spec's largest rank count's fused run
+    twice). Then the gate's control: the last rank holding prompt keys has
+    its shard zeroed in every layer, and one step is taken. Raises unless
+    every replica agreed, push and ring gave the same logits bit for bit,
+    the rerun was bitwise, every run's tokens equal one rank's up to each
+    row's first near-tie, every run's step 0 lies within ``SP_STEP0_TOL``
+    of one rank's and the control's does not."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    out = {}
+    for name, spec in specs.items():
+        B, prompt, max_seq = spec["B"], spec["prompt"], spec["max_seq"]
+        gen = torch.Generator(device=device).manual_seed(seed)
+        prompts = torch.randint(1, cfg.vocab_size, (B, prompt),
+                                generator=gen, device=device)
+        cache = llama.init_kv_cache(cfg, B, max_seq, device=device)
+        t0 = time.perf_counter()
+        logits, cache = llama.prefill(params, prompts, cfg, cache)
+        first = logits.argmax(-1).to(torch.int32).cpu().to(device)
+        prefill_s = time.perf_counter() - t0
+        del logits
+        sharded = {n: llama.shard_kv_cache(cache, n) for n in spec["ranks"]}
+        one = _greedy(params, cfg, cache, first, prompt, steps)
+        del cache
+        clear = _near_tie_steps(one["logits"])
+        rec = {"run": name, "card": card, "B": B, "prompt": prompt,
+               "max_seq": max_seq, "steps": steps, "prefill_s": prefill_s,
+               "compared_until": clear, "step0_tol": SP_STEP0_TOL,
+               "n1": {"decode_ms_per_step": one["seconds"] / steps * 1e3},
+               "ranks": {}}
+        ok = True
+        for n, sc in sharded.items():
+            ctx = _mesh(n, device)
+            methods = spec["ranks"][n]
+            runs = {m: _greedy(params, cfg, sc, first, prompt, steps, ctx, m)
+                    for m in methods}
+            rerun = None
+            if name == next(iter(specs)) and n == max(spec["ranks"]):
+                rerun = _greedy(params, cfg, sc, first, prompt, steps, ctx,
+                                "fused")
+            r = {m: {"decode_ms_per_step": runs[m]["seconds"] / steps * 1e3,
+                     "replicas_equal": runs[m]["replicas_equal"],
+                     # step 0 reads the same cache and token as n = 1's
+                     "step0_logit_rel_diff": _rel(runs[m]["logits"][0],
+                                                  one["logits"][0]),
+                     "step0_logit_rel_l2": _rel_l2(runs[m]["logits"][0],
+                                                   one["logits"][0]),
+                     "first_divergence": _first_divergence(
+                         runs[m]["tokens"], one["tokens"]),
+                     "tokens_equal_n1_until_near_tie": all(
+                         torch.equal(runs[m]["tokens"][b, :clear[b]],
+                                     one["tokens"][b, :clear[b]])
+                         for b in range(B)),
+                     "tokens_equal_n1_all": bool(torch.equal(
+                         runs[m]["tokens"], one["tokens"]))}
+                 for m in methods}
+            if "push" in runs and "ring" in runs:
+                r["push_equals_ring"] = all(
+                    torch.equal(a, b) for a, b in zip(runs["push"]["logits"],
+                                                      runs["ring"]["logits"]))
+            if rerun is not None:
+                r["rerun_bitwise"] = all(
+                    torch.equal(a, b) for a, b in zip(runs["fused"]["logits"],
+                                                      rerun["logits"]))
+            del runs, rerun
+            zeroed = (prompt - 1) // (max_seq // n)
+            sc["k"][:, zeroed].zero_()
+            sc["v"][:, zeroed].zero_()
+            ctl = llama.decode_step_sp(ctx, params, first, prompt, cfg, sc)[0]
+            check_errors(ctx)
+            r["control"] = {"zeroed_rank": zeroed,
+                            "step0_logit_rel_diff": _rel(ctl,
+                                                         one["logits"][0]),
+                            "step0_logit_rel_l2": _rel_l2(ctl,
+                                                          one["logits"][0])}
+            ok &= (r.get("push_equals_ring", True)
+                   and r.get("rerun_bitwise", True)
+                   and r["control"]["step0_logit_rel_diff"] > SP_STEP0_TOL
+                   and all(r[m]["replicas_equal"]
+                           and r[m]["tokens_equal_n1_until_near_tie"]
+                           and r[m]["step0_logit_rel_diff"] <= SP_STEP0_TOL
+                           for m in methods))
+            rec["ranks"][n] = r
+        rec["first_tokens"] = one["tokens"][:, :8].tolist()
+        log(f"sp decode {name}", json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"sp decode {name} failed its checks: {rec}")
+        out[name] = rec
+        del sharded, one
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def host_call_us(fn, calls: int = 200) -> float:
+    """The host's microseconds to enqueue one call of ``fn`` (``calls``
+    calls between two synchronisations, the clock read before the second):
+    the launch overhead a step pays per call when the card is not the
+    limit."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def sp_host_costs(cfg, device, cache, n: int, B: int, kv: int) -> dict:
+    """The host's cost of each piece of one layer's SP attention at n ranks
+    (layer 0 of ``cache``), beside one rank's split-KV call and one torch
+    op."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    ctx = _mesh(n, device)
+    q = torch.randn((B, HQ, D), device=device).to(cfg.dtype)
+    ck, cv = cache["k"][0], cache["v"][0]
+    lens = torch.full((B,), kv, dtype=torch.int32, device=device)
+    rows = (n * B,) + tuple(ck.shape[2:])
+    local = fd.sp_local_lens(lens, n, ck.shape[3]).reshape(n * B)
+    outs = torch.randn((n, B, HQ, D), device=device)
+    lses = torch.randn((n, B, HQ), device=device)
+    pieces = {
+        "sp_gqa_flash_decode fused": lambda: fd.sp_gqa_flash_decode(
+            ctx, q, ck, cv, lens),
+        "sp_local_lens": lambda: fd.sp_local_lens(lens, n, ck.shape[3]),
+        "q.repeat": lambda: q.repeat(n, 1, 1),
+        "gqa_decode_partial over n shards": lambda: fd.gqa_decode_partial(
+            q.repeat(n, 1, 1), ck.reshape(rows), cv.reshape(rows), local),
+        "ll_ag_merge": lambda: fd.ll_ag_merge(ctx, outs, lses, cfg.dtype,
+                                              "x"),
+        "one torch op (lens + 1)": lambda: lens + 1}
+    return {k: host_call_us(f) for k, f in pieces.items()}
+
+
+def profile_sp_step(params, cfg, device, B: int = 1, S: int = 8192,
+                    kv: int = 7936 + SP_STEPS, ns=(1, 4)) -> dict:
+    """One decode step at G-long's last position (B rows at ``kv`` keys),
+    at one rank (``decode_step``) and SP at each of ``ns`` (fused): the
+    median wall of three runs, then one under ``torch.profiler`` for the
+    device time by family (B3's partial, its combine, the fused merge, the
+    gathers, GEMMs, the rest) and the idle share; at n > 1 also the host's
+    cost of each piece of a layer's SP attention (``sp_host_costs``)."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    token = torch.ones(B, dtype=torch.int32, device=device)
+    recs = {}
+    for n in ns:
+        cache = llama.init_kv_cache(cfg, B, S, device=device)
+        if n > 1:
+            cache = llama.shard_kv_cache(cache, n)
+        ctx = _mesh(n, device) if n > 1 else None
+
+        def step():
+            if ctx is None:
+                lg = llama.decode_step(params, token, kv - 1, cfg, cache)[0]
+            else:
+                lg = llama.decode_step_sp(ctx, params, token, kv - 1, cfg,
+                                          cache)[0]
+            return lg.argmax(-1).cpu()
+
+        step()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[1]
+        fams, ops = device_time_by_family(
+            step, True, (("decode_partial", ("decode_partial_kernel",)),
+                         ("decode_combine", ("combine_kernel",)),
+                         ("ll_ag_merge", ("ll_ag_merge_kernel",)),
+                         ("merge", ("merge_kernel",))))
+        busy = sum(fams.values())
+        recs[n] = {"rows": B, "kv_len": kv, "max_seq": S, "wall_s": wall,
+                   "device_busy_s": busy,
+                   "device_idle_share": 1 - busy / wall if busy else None,
+                   "device_s_by_family": fams, "device_ops": ops}
+        if ctx is not None:
+            recs[n]["host_us_per_call"] = sp_host_costs(cfg, device, cache,
+                                                        n, B, kv)
+            check_errors(ctx)
+        log(f"profile sp decode step n={n}", json.dumps(recs[n]))
+        del cache
+    return recs
+
+
+def tp_collectives_path(device, ranks=SP_RANKS, ag_shape=TP_AG,
+                        rs_shape=TP_RS) -> None:
+    """The collectives once each through their entry points at TP widths:
+    the gathers (push and ring), the scatter and the barrier at each of
+    ``ranks``."""
+    import torch
+
+    from triton_dist_tpu_torch.ops.allgather import all_gather
+    from triton_dist_tpu_torch.ops.common import barrier_all_op
+    from triton_dist_tpu_torch.ops.reduce_scatter import reduce_scatter
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    for n in ranks:
+        ctx = _mesh(n, device)
+        x = torch.ones(ag_shape, dtype=torch.bfloat16, device=device)
+        for method in ("push", "ring"):
+            all_gather(ctx, x, method=method)
+        reduce_scatter(ctx, torch.ones((n * rs_shape[0], rs_shape[1]),
+                                       device=device))
+        barrier_all_op(ctx)()
+        check_errors(ctx)
+
+
+def check_sp_and_collectives(params, cfg, device, card: str) -> dict:
+    """Phase 14 on the 32-layer bf16 params: the shmem layer, the
+    collectives and B5 against their plain versions; then the main path
+    with the launch counts set to 0 just before it and read just after: SP
+    decode at 2 and 4 ranks, and the collectives once each at TP widths;
+    then one SP decode step under the profiler."""
+    import importlib
+
+    import torch
+
+    from triton_dist_tpu_torch.ops import allgather, common, flash_decode
+
+    rs = importlib.import_module("triton_dist_tpu_torch.ops.reduce_scatter")
+
+    t0 = time.perf_counter()
+    shmem = check_shmem(device)
+    coll = check_collectives(device)
+    merge = check_ll_ag_merge(device)
+    torch.cuda.empty_cache()
+    log(f"phase 14 checks took {time.perf_counter() - t0:.1f} s")
+    kernels = (flash_decode.ll_ag_merge, allgather.all_gather,
+               rs.reduce_scatter, common.barrier_all_op)
+    for k in kernels:
+        k.launches = 0
+    decode = run_sp_decode(params, cfg, device, card)
+    tp_collectives_path(device)
+    launches = {k.__name__: k.launches for k in kernels}
+    # every (spec, rank count): its runs of SP_STEPS and one control step
+    # (fused); one fused rerun; the collectives once at each rank count
+    meshes = [ms for spec in SP_DECODE.values()
+              for ms in spec["ranks"].values()]
+    fused = (sum("fused" in ms for ms in meshes) + 1) * SP_STEPS + len(meshes)
+    gathers = sum(("push" in ms) + ("ring" in ms) for ms in meshes) * SP_STEPS
+    expect = {"ll_ag_merge": fused * cfg.n_layers,
+              "all_gather": gathers * cfg.n_layers + 2 * len(SP_RANKS),
+              "reduce_scatter": len(SP_RANKS),
+              "barrier_all_op": len(SP_RANKS)}
+    log("phase 14 launches", json.dumps({"launches": launches,
+                                         "expected": expect}))
+    if launches != expect:
+        raise AssertionError(f"phase 14 launches {launches} != {expect}")
+    profile = profile_sp_step(params, cfg, device)
+    seconds = time.perf_counter() - t0
+    log(f"phase 14 took {seconds:.1f} s")
+    return {"shmem": shmem, "collectives": coll, "ll_ag_merge": merge,
+            "decode": decode, "profile": profile, "launches": launches,
+            "seconds": seconds}
+
+
+def sp_kernels(sp: dict, gather_cases: list, gather_launches: int) -> list:
+    """The ``kernels`` line's entries of phase 14: B14, B9 (its one-rank
+    cases of phase 10 and its cases across ranks; launches of both
+    phases), B5's fused transport and B13. The main case of each is its
+    largest mesh (4 ranks) at the path's shape."""
+    coll, launches = sp["collectives"], sp["launches"]
+
+    def main_rec(records, prefix):
+        return next(r for r in records if r["case"].startswith(prefix))
+
+    entries = []
+    for name, source, replaces, cases, main, n_launches in (
+            ("barrier_all_op", "shmem.cu", "triton_dist_tpu/ops/common.py:112",
+             sp["shmem"]["barrier_all_op"],
+             main_rec(sp["shmem"]["barrier_all_op"], "int32 n=4"),
+             launches["barrier_all_op"]),
+            ("all_gather", "allgather.cu",
+             "triton_dist_tpu/ops/allgather.py:262",
+             gather_cases + coll["all_gather"],
+             main_rec(coll["all_gather"], "bfloat16 push n=4"),
+             gather_launches + launches["all_gather"]),
+            ("ll_ag_merge", "flash_decode.cu",
+             "triton_dist_tpu/ops/flash_decode.py:431", sp["ll_ag_merge"],
+             main_rec(sp["ll_ag_merge"], "float32 -> bfloat16 G-batch n=4"),
+             launches["ll_ag_merge"]),
+            ("reduce_scatter", "reduce_scatter.cu",
+             "triton_dist_tpu/ops/reduce_scatter.py:85",
+             coll["reduce_scatter"],
+             main_rec(coll["reduce_scatter"], "float32 ring n=4"),
+             launches["reduce_scatter"])):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"triton_dist_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": n_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            **{k: main.get(k) for k in ("ms", "kernel_device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "case")},
+            "ranks_note": "n > 1 ranks share the one card: times are the "
+                          "kernels and their protocol on shared SMs and one "
+                          "HBM, not NVLink transfers",
+            "cases": cases})
+    return entries
+
+
 def main() -> int:
     try:
         import torch
@@ -3219,6 +4055,7 @@ def main() -> int:
     params32 = init_params(cfg32, seed=1, device=device)
     check_model(params32, cfg32, device)
     decode_step_rec = check_decode_step(params32, cfg32, device)
+    check_sp_decode_f32(params32, cfg32, device)
     check_tp_forward_f32(params32, cfg32, device)
     del params32
     torch.cuda.empty_cache()
@@ -3238,6 +4075,7 @@ def main() -> int:
     profile_dispatch(params, cfg, device)
     generation = check_generation(params, cfg, device, card)
     tp = check_tp_overlap(params, cfg, device, card)
+    sp = check_sp_and_collectives(params, cfg, device, card)
     del params                        # the trainer needs the card's memory
     torch.cuda.empty_cache()
 
@@ -3267,14 +4105,14 @@ def main() -> int:
                "decode_combine": next(r for r in dec["decode_combine"]
                                       if r["case"].startswith("float32 R=8")),
                "ll_merge": next(r for r in dec["ll_merge"]
-                                if r["case"].startswith("float32 R=1")),
-               "all_gather": dec["all_gather"][0]}
+                                if r["case"].startswith("float32 R=1"))}
     fd_launches = {"gqa_decode_partial": generation["batch"]["runs"][0]
                    ["launches"]["gqa_decode_partial"],
                    "decode_combine": generation["batch"]["runs"][0]
                    ["launches"]["decode_combine"],
-                   "ll_merge": decode_step_rec["launches"]["ll_merge"],
-                   "all_gather": decode_step_rec["launches"]["all_gather"]}
+                   "ll_merge": decode_step_rec["launches"]["ll_merge"]}
+    slice7 = sp_kernels(sp, dec["all_gather"],
+                        decode_step_rec["launches"]["all_gather"])
     slice6 = long_moe_tp_kernels(moe)
     ring_main = ring[0]               # bf16 S=4096 causal, the training shape
     ring_source = "triton_dist_tpu_torch/csrc/ring_attention.cu"
@@ -3337,11 +4175,8 @@ def main() -> int:
              "triton_dist_tpu/ops/flash_decode.py:150"),
             ("decode_combine", "decode_combine", fd_source,
              "triton_dist_tpu/ops/flash_decode.py:319"),
-            ("ll_ag_merge", "ll_merge", fd_source,
-             "triton_dist_tpu/ops/flash_decode.py:431"),
-            ("all_gather", "all_gather",
-             "triton_dist_tpu_torch/csrc/allgather.cu",
-             "triton_dist_tpu/ops/allgather.py:262"))] + [{
+            ("ll_merge", "ll_merge", fd_source,
+             "triton_dist_tpu/ops/flash_decode.py:431"))] + [{
         "name": name, "route": "cuda",
         "source": "triton_dist_tpu_torch/csrc/gemm.cu", "replaces": replaces,
         "launches": tp["forward"]["runs"][0]["launches"][name],
@@ -3360,7 +4195,7 @@ def main() -> int:
              tp["layers"]["gemm_rs"], [tp["layers"]["gemm_rs"]]),
             ("slot_reduce", "triton_dist_tpu/ops/gemm_reduce_scatter.py:88",
              tp["layers"]["slot_reduce"], [tp["layers"]["slot_reduce"]]))]
-        + slice6}))
+        + slice6 + slice7}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,225 @@
+"""The port's collectives across ranks against the JAX package on the same
+numpy inputs: the push and ring ``all_gather`` (B9) and the ring
+``reduce_scatter`` (B13) at 4 ranks, and the ops outside this slice, which
+still refuse more than one rank.
+
+On the CPU each wrapper runs its plain PyTorch version (copies; the ring's
+sums in its order and rounding); the JAX side runs its Pallas kernels in
+interpret mode on a 4-device mesh of the conftest's virtual CPU devices.
+The CUDA kernels are held against the plain versions on the card by
+``chip_smoke.py``. Tolerances: the gathers are copies, bitwise; the f32
+scatter adds the same values in the same order, bitwise; the bf16 scatter
+rounds to bf16 at every hop in both, and is bitwise on these inputs (one
+bf16 ulp is allowed: XLA and PyTorch may round a bf16 sum through f32 at
+other points).
+"""
+
+import dataclasses
+import functools
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from triton_dist_tpu.ops import allgather as jag
+from triton_dist_tpu.shmem.context import \
+    initialize_distributed as j_initialize_distributed
+from triton_dist_tpu_torch.layers import AllGatherLayer
+from triton_dist_tpu_torch.models.convert import tensor_from_numpy
+from triton_dist_tpu_torch.ops import allgather as tag
+from triton_dist_tpu_torch.shmem import initialize_distributed
+
+# both ops packages export a function named reduce_scatter, which shadows
+# the module of the same name on attribute access
+jrs = importlib.import_module("triton_dist_tpu.ops.reduce_scatter")
+trs = importlib.import_module("triton_dist_tpu_torch.ops.reduce_scatter")
+
+pytestmark = pytest.mark.port
+
+N, M, W = 4, 16, 128          # ranks, rows a shard, row width
+
+
+def _t(a):
+    return tensor_from_numpy(np.asarray(a), "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _jctx():
+    return j_initialize_distributed(axis_names=("x",), mesh_shape=(N,))
+
+
+def _shards(dtype: str, seed: int, rows: int = N * M):
+    x = np.random.RandomState(seed).randn(rows, W).astype(np.float32)
+    if dtype == "bfloat16":
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16))
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_all_gather(method: str, dtype: str):
+    """JAX's gather of ``_shards`` at 4 ranks: each device's replica."""
+    ctx = _jctx()
+    y = jax.jit(lambda v: jag.all_gather(ctx, v, axis="x", method=method))(
+        ctx.shard(jnp.asarray(_shards(dtype, 0)), P("x")))
+    return [np.asarray(s.data) for s in y.addressable_shards]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("method", ["push", "ring"])
+def test_all_gather_replicas_match_jax_bitwise(method, dtype):
+    replicas = _jax_all_gather(method, dtype)
+    assert len(replicas) == N
+    ctx = initialize_distributed(("x",), (N,), device="cpu")
+    x = _t(_shards(dtype, 0))
+    launches = tag.all_gather.launches
+    got = tag.all_gather(ctx, x, method=method)
+    assert tag.all_gather.launches == launches       # CPU: the plain version
+    assert got.shape == (N, N * M, W) and got.dtype == x.dtype
+    for r in range(N):
+        assert np.array_equal(got[r].float().numpy(),
+                              replicas[r].astype(np.float32))
+
+
+def test_all_gather_repeated_calls_with_fresh_data():
+    """Five calls through one context, fresh shards each (the JAX package's
+    repeated-call check), and ``auto`` picks push at four ranks."""
+    ctx = initialize_distributed(("x",), (N,), device="cpu")
+    for it in range(5):
+        x = _t(_shards("float32", 10 + it))
+        for method in ("push", "ring", "auto"):
+            got = tag.all_gather(ctx, x, method=method)
+            assert all(torch.equal(got[r], x) for r in range(N))
+    assert tag.auto_method(ctx, x, "x") == "push"
+    ctx8 = initialize_distributed(("x",), (8,), device="cpu")
+    big = torch.zeros(8 * 64 * 1024, dtype=torch.float32)   # 256 KiB a rank
+    assert tag.auto_method(ctx8, big, "x") == "push"
+    assert tag.auto_method(ctx8, torch.zeros(2 * big.numel()), "x") == "ring"
+
+
+@pytest.mark.parametrize("method", ["push", "ring", "auto"])
+def test_all_gather_layer_across_ranks(method):
+    ctx = initialize_distributed(("x",), (N,), device="cpu")
+    layer = AllGatherLayer(ctx, "x")
+    fn = layer if method == "auto" else getattr(layer, f"forward_{method}")
+    x = _t(_shards("float32", 3))
+    assert torch.equal(fn(x), tag.all_gather(ctx, x, method=method))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reduce_scatter(dtype: str):
+    ctx = _jctx()
+    y = jax.jit(lambda v: jrs.reduce_scatter(ctx, v, axis="x",
+                                             method="ring"))(
+        ctx.shard(jnp.asarray(_shards(dtype, 1, rows=N * N * M)), P("x")))
+    return np.asarray(y)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduce_scatter_ring_matches_jax(dtype):
+    """f32: bitwise. bf16: bitwise on these inputs (asserted), and within
+    one bf16 ulp of the value in any case."""
+    want = _jax_reduce_scatter(dtype).astype(np.float32)
+    ctx = initialize_distributed(("x",), (N,), device="cpu")
+    x = _t(_shards(dtype, 1, rows=N * N * M))
+    got = trs.reduce_scatter(ctx, x, method="ring")
+    assert got.shape == (N * M, W) and got.dtype == x.dtype
+    got = got.float().numpy()
+    if dtype == "bfloat16":
+        ulp = np.abs(want) * 2.0 ** -7 + 1e-30
+        assert (np.abs(got - want) <= ulp).all()
+    np.testing.assert_array_equal(got, want)
+    # the order matters in bf16: the plain ring rounds at every hop, unlike
+    # a sum in f32 rounded once
+    plain = trs.reduce_scatter_plain(x, N)
+    assert torch.equal(trs.reduce_scatter(ctx, x), plain)
+
+
+def test_reduce_scatter_at_one_rank_is_the_contribution():
+    ctx = initialize_distributed(("x",), device="cpu")
+    x = _t(_shards("float32", 2))
+    assert torch.equal(trs.reduce_scatter(ctx, x), x)
+
+
+def _raising_calls():
+    """(name, call, what the message names) of every op outside this slice,
+    on a 2- or 4-rank context."""
+    from triton_dist_tpu_torch.models import llama as tl
+    from triton_dist_tpu_torch.models.moe import MoEConfig, init_moe_params
+    from triton_dist_tpu_torch.ops import allgather_gemm as tagg
+    from triton_dist_tpu_torch.ops import flash_decode as tfd
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as tgrs
+    from triton_dist_tpu_torch.ops import moe as tmoe
+    from triton_dist_tpu_torch.ops.common import barrier_all_op
+    from triton_dist_tpu_torch.parallel.train import (ParallelPlan,
+                                                      make_train_step)
+    from triton_dist_tpu_torch.serving.sharded import (ShardedServingEngine,
+                                                       serving_mesh)
+
+    ctx = initialize_distributed(("x",), (N,), device="cpu")
+    ctx2d = initialize_distributed(("a", "b"), (2, 2), device="cpu")
+    a, b = torch.zeros(8, 8), torch.zeros(8, 8)
+    tp6 = 'item 6 "TP overlap across ranks"'
+    moe7 = 'item 7 "MoE / EP across ranks"'
+    sp8 = 'item 8 "SP decode and sharded serving across ranks"'
+    coll5 = 'item 5 "collectives"'
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(n_layers=1),
+                              dtype=torch.float32)
+    mcfg = MoEConfig.tiny(n_layers=1, num_experts=4)
+    ids = torch.zeros(8, dtype=torch.int32)
+    q = torch.zeros(2, 4, 32)
+    return [
+        ("ag_gemm", lambda: tagg.ag_gemm(ctx, a, b), tp6),
+        ("ag_gemm_ws", lambda: tagg.create_ag_gemm_workspace(ctx, 2, 8), tp6),
+        ("gemm_rs", lambda: tgrs.gemm_rs(ctx, a, b), tp6),
+        ("gemm_rs_ws", lambda: tgrs.create_gemm_rs_workspace(ctx, 2, 8), tp6),
+        ("tp_column_linear", lambda: tagg.tp_column_linear(ctx, a, b,
+                                                           axis="x"), tp6),
+        ("mlp_tp_overlap", lambda: tl.mlp_tp_overlap(ctx, a, a, a, a), tp6),
+        ("ag_moe_group_gemm", lambda: tmoe.ag_moe_group_gemm(
+            ctx, a, ids, torch.zeros(4, 8, 8)), moe7),
+        ("moe_reduce_rs", lambda: tmoe.moe_reduce_rs(
+            ctx, a, ids, torch.ones(4, 2), torch.zeros(4, 8, 8)), moe7),
+        ("flash_decode_dist", lambda: tfd.flash_decode_dist(
+            ctx, q, None, None, None, None, None, None, None, axis="x"), sp8),
+        ("train plan", lambda: make_train_step(cfg, ParallelPlan(cp="cp"),
+                                               device="cpu",
+                                               mesh={"cp": 2}),
+         'item 9 "training and CP across ranks"'),
+        ("sharded engine", lambda: ShardedServingEngine(
+            init_moe_params(mcfg, seed=0, device="cpu"), mcfg,
+            ctx=serving_mesh(sp=2), prefill_chunk=16, device="cpu"), sp8),
+        ("all_gather ring_2d", lambda: tag.all_gather(ctx, a,
+                                                      method="ring_2d"),
+         coll5),
+        ("all_gather push_2d", lambda: AllGatherLayer(ctx).forward_push_2d(
+            a), coll5),
+        ("all_gather ll", lambda: tag.all_gather(ctx, a, method="ll"), coll5),
+        ("broadcast", lambda: tag.all_gather(ctx, a, method="broadcast"),
+         coll5),
+        ("all_gather inside a 2-D mesh", lambda: tag.all_gather(
+            ctx2d, a, axis="b"), coll5),
+        ("reduce_scatter ring_2d", lambda: trs.reduce_scatter(
+            ctx2d, a, method="ring_2d"), coll5),
+        ("reduce_scatter xla", lambda: trs.reduce_scatter(ctx, a,
+                                                          method="xla"),
+         coll5),
+        ("reduce_scatter over two axes", lambda: trs.reduce_scatter(
+            ctx2d, a, axis=("a", "b")), coll5),
+        ("barrier inside a 2-D mesh", lambda: barrier_all_op(ctx2d, "a"),
+         coll5),
+    ]
+
+
+@pytest.mark.parametrize("case", range(20))
+def test_ops_outside_the_slice_refuse_more_ranks(case):
+    """Each op this slice does not port still raises at more than one rank,
+    naming the ROADMAP item it waits for."""
+    calls = _raising_calls()
+    assert len(calls) == 20
+    name, call, item = calls[case]
+    with pytest.raises(NotImplementedError, match=item.replace('"', '.')):
+        call()

@@ -319,13 +319,191 @@ def test_one_rank_context_and_its_limits():
     assert ctx.axis_names == ("sp", "tp") and ctx.num_ranks == 1
     assert ctx.axis_size("sp") == ctx.axis_size(("sp", "tp")) == 1
     assert ctx.device == torch.device("cpu")
+    # more ranks share the one device since the shmem layer came
     for shape in ((4,), (1, 2)):
-        with pytest.raises(NotImplementedError,
-                           match='item 4 "shmem layer across ranks"'):
-            initialize_distributed(("x", "y")[:len(shape)], shape,
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ShmemContext(("x",), (2,), torch.device("cpu"))
+        wide = initialize_distributed(("x", "y")[:len(shape)], shape,
+                                      device="cpu")
+        assert wide.num_ranks == int(np.prod(shape))
+    assert ShmemContext(("x",), (2,), torch.device("cpu")).num_ranks == 2
     with pytest.raises(ValueError, match="expected 1 partial"):
         tfd.ll_ag_merge(ctx, torch.zeros(2, 1, HQ, D), torch.zeros(2, 1, HQ),
                         torch.float32, "sp")
+
+
+# ---------------------------------------------------------------------------
+# across ranks: every rank on one device, the JAX side on a 4-device mesh
+# ---------------------------------------------------------------------------
+
+N_SP = 4
+
+
+def _shard_s(a, n):
+    """[B, Hkv, S, D] -> the port's rank-major [n, B, Hkv, S / n, D]."""
+    b, h, s, d = a.shape
+    return a.reshape(b, h, n, s // n, d).permute(2, 0, 1, 3, 4).contiguous()
+
+
+def test_ll_ag_merge_across_ranks_matches_jax():
+    """The fused gather and merge at 4 ranks, one rank's segment empty for
+    one row: every replica is ``ll_merge`` of the stacked partials, within
+    1e-6 of JAX's ``ll_ag_merge`` (the same running merge)."""
+    rng = np.random.RandomState(7)
+    outs = rng.randn(N_SP, B, HQ, D).astype(np.float32)
+    lses = (rng.randn(N_SP, B, HQ) * 3).astype(np.float32)
+    outs[2, 1] = 0.0
+    lses[2, 1] = tfd.NEG_INF
+    jctx = _jax_ctx4()
+    packed = np.concatenate(
+        [outs, np.broadcast_to(lses[..., None], lses.shape + (128,))], -1)
+    want = np.asarray(jax.jit(lambda pk: jfd.ll_ag_merge(
+        jctx, pk, D, jnp.float32, "x"))(jctx.shard(jnp.asarray(packed),
+                                                   P("x"))))
+    ctx = initialize_distributed(("x",), (N_SP,), device="cpu")
+    got = tfd.ll_ag_merge(ctx, _t(outs), _t(lses), torch.float32, "x")
+    assert got.shape == (N_SP, B, HQ, D)
+    merged = tfd.ll_merge(_t(outs), _t(lses))
+    for r in range(N_SP):
+        assert torch.equal(got[r], merged)
+    np.testing.assert_allclose(got[0].numpy(), want, atol=1e-6, rtol=1e-6)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sp_decode(ag_method: str, dtype: str):
+    (q, k, v), _, _ = _decode_case(dtype)
+    ctx = _jax_ctx4()
+    return np.asarray(jax.jit(lambda *a: jfd.sp_gqa_flash_decode(
+        ctx, *a, ag_method=ag_method))(
+        jnp.asarray(q), ctx.shard(jnp.asarray(k), P(None, None, "x")),
+        ctx.shard(jnp.asarray(v), P(None, None, "x")),
+        jnp.asarray(KV_LEN)), np.float32)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-6),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("ag_method", ["fused", "push", "ring"])
+def test_sp_gqa_flash_decode_four_ranks_matches_jax(ag_method, dtype, atol):
+    """S = 192 over 4 ranks (48 keys each) with kv_len (192, 0, 77): row 1
+    is empty on every rank and row 2 on ranks 2 and 3, whose (0, NEG_INF)
+    partials every merge takes as an exact no-op. f32 within 1e-6 of
+    JAX's, bf16 within 2e-2; every replica bitwise equal."""
+    want = _jax_sp_decode(ag_method, dtype)
+    (q, k, v), _, _ = _decode_case(dtype)
+    ctx = initialize_distributed(("x",), (N_SP,), device="cpu")
+    kt, vt = _shard_s(_t(k), N_SP), _shard_s(_t(v), N_SP)
+    reps = tfd.sp_gqa_flash_decode(ctx, _t(q), kt, vt, _t(KV_LEN),
+                                   ag_method=ag_method, replicas=True)
+    assert reps.shape == (N_SP, B, HQ, D) and reps.dtype == _t(q).dtype
+    assert all(torch.equal(reps[r], reps[0]) for r in range(N_SP))
+    np.testing.assert_allclose(reps[0].float().numpy(), want, atol=atol,
+                               rtol=0 if dtype == "bfloat16" else 1e-6)
+    assert not reps[0, 1].float().any()
+    # push and ring gather the same wire and merge it the same way
+    if ag_method == "ring":
+        push = tfd.sp_gqa_flash_decode(ctx, _t(q), kt, vt, _t(KV_LEN),
+                                       ag_method="push")
+        assert torch.equal(push, reps[0])
+    # the layer, with its batch padded to max_batch, gives the same rows
+    layer = SpGQAFlashDecodeAttention(ctx, HQ, HKV, D, ag_method=ag_method,
+                                      max_batch=B)
+    assert torch.equal(layer(_t(q)[:2], kt, vt, _t(KV_LEN)[:2]),
+                       reps[0][:2])
+
+
+# the reference's SP decode test's model (tests/test_decode.py:111-112)
+SP_CFG = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=2,
+              n_kv_heads=2, d_ff=256, max_seq_len=4 * 32)
+SP_B, SP_STEPS = 4, 3
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_decode_step_sp():
+    """JAX ``decode_step_sp`` over a 4-way sharded cache, 3 steps, each
+    fed the argmax of the last: (params, tokens fed, logits)."""
+    from jax.sharding import NamedSharding
+
+    ctx = _jax_ctx4()
+    cfg = jl.LlamaConfig(**SP_CFG)
+    params = jl.init_params(jax.random.key(0), cfg)
+    cache = jl.init_kv_cache(cfg, SP_B, cfg.max_seq_len)
+    spec = P(None, None, None, "x", None)
+    cache = {n: jax.device_put(a, NamedSharding(ctx.mesh, spec))
+             for n, a in cache.items()}
+    step = jax.jit(lambda p, t, pos, c: jl.decode_step_sp(
+        ctx, p, t, pos, cfg, c, axis="x"))
+    token = np.random.RandomState(8).randint(
+        0, cfg.vocab_size, SP_B).astype(np.int32)
+    fed, logits = [], []
+    for pos in range(SP_STEPS):
+        fed.append(token)
+        lg, cache = step(params, jnp.asarray(token), pos, cache)
+        logits.append(np.asarray(lg))
+        token = logits[-1].argmax(-1).astype(np.int32)
+    return jax.tree.map(np.asarray, params), fed, logits
+
+
+def test_decode_step_sp_four_ranks_matches_jax():
+    """The port's SP step at 4 ranks against JAX's on the reference test's
+    model in bf16, fed the same tokens: logits within 1e-2, as JAX's own
+    test holds its SP step against its one-device step."""
+    jparams, fed, want = _jax_decode_step_sp()
+    cfg = tl.LlamaConfig(**SP_CFG)
+    params = params_from_jax(jparams, device="cpu", dtype=cfg.dtype)
+    ctx = initialize_distributed(("x",), (N_SP,), device="cpu")
+    cache = tl.shard_kv_cache(
+        tl.init_kv_cache(cfg, SP_B, cfg.max_seq_len, device="cpu"), N_SP)
+    assert cache["k"].shape == (2, N_SP, SP_B, 2, 32, 128)
+    for pos in range(SP_STEPS):
+        checks = []
+        got, cache = tl.decode_step_sp(ctx, params, _t(fed[pos]), pos, cfg,
+                                       cache, replica_checks=checks)
+        np.testing.assert_allclose(got.numpy(), want[pos], rtol=1e-2,
+                                   atol=1e-2)
+        assert len(checks) == cfg.n_layers and all(bool(c) for c in checks)
+
+
+def _unshard_kv_cache(cache: dict) -> dict:
+    """The inverse of ``shard_kv_cache``: ``[L, n, B, Hkv, S / n, D]`` back
+    to ``[L, B, Hkv, S, D]``."""
+    def unshard(t):
+        L, n, B, H, s, D = t.shape
+        return t.permute(0, 2, 3, 1, 4, 5).reshape(L, B, H, n * s, D)
+    return {name: unshard(t) for name, t in cache.items()}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_decode_step_sp_across_ranks_matches_one_rank(n):
+    """Within the port, in f32: after a prefill, the SP step at n ranks
+    (every method) gives one rank's logits within 1e-5 of their scale,
+    every replica bitwise equal, push and ring bit for bit; the sharded
+    cache holds one rank's rows."""
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(n_layers=2),
+                              dtype=torch.float32)
+    params = tl.init_params(cfg, seed=6, device="cpu")
+    prompt = _t(_prompt())
+    cache = tl.init_kv_cache(cfg, PROMPT_B, MAX_SEQ, device="cpu")
+    logits, cache = tl.prefill(params, prompt, cfg, cache)
+    first = logits.argmax(-1).to(torch.int32)
+    sharded = {m: tl.shard_kv_cache(cache, n) for m in tfd.AG_METHODS}
+    assert torch.equal(_unshard_kv_cache(sharded["fused"])["k"],
+                       cache["k"])
+    toks = {m: first for m in tfd.AG_METHODS}
+    token = first
+    for i in range(3):
+        pos = PROMPT_LEN + i
+        ref, cache = tl.decode_step(params, token, pos, cfg, cache)
+        scale = ref.abs().max()
+        got = {}
+        for m in tfd.AG_METHODS:
+            checks = []
+            got[m], sharded[m] = tl.decode_step_sp(
+                ctx := initialize_distributed(("x",), (n,), device="cpu"),
+                params, toks[m], pos, cfg, sharded[m], ag_method=m,
+                replica_checks=checks)
+            assert ctx.num_ranks == n and all(bool(c) for c in checks)
+            assert (got[m] - ref).abs().max() <= 1e-5 * scale
+        assert torch.equal(got["push"], got["ring"])
+        token = ref.argmax(-1).to(torch.int32)
+        toks = {m: token for m in tfd.AG_METHODS}
+    for m in tfd.AG_METHODS:
+        assert torch.allclose(_unshard_kv_cache(sharded[m])["k"],
+                              cache["k"], atol=1e-5)

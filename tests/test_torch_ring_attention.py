@@ -123,7 +123,7 @@ def test_more_than_one_rank_raises():
 
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(3))
     with pytest.raises(NotImplementedError,
-                       match='4 "shmem layer across ranks"'):
+                       match='9 "training and CP across ranks"'):
         tra.ring_attention_fwd(q, k, v, group=Ring())
     with pytest.raises(NotImplementedError,
                        match='9 "training and CP across ranks"'):

@@ -158,7 +158,7 @@ def test_plans_needing_more_than_one_rank_raise():
         make_train_step(tcfg, dataclasses.replace(NO_CP, pp="pp"),
                         device="cpu")
     with pytest.raises(NotImplementedError,
-                       match='4 "shmem layer across ranks"'):
+                       match='9 "training and CP across ranks"'):
         make_train_step(tcfg, CP, device="cpu", mesh={"cp": 2, "dp": 1})
     with pytest.raises(NotImplementedError,
                        match='item 7 "MoE / EP across ranks"'):

@@ -4,7 +4,8 @@ Each ``<name>.cu`` beside this file is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, and loaded with
 ``ctypes``. Nothing is built when the package is imported: the first CUDA
 launch of a kernel builds its library, under ``_build/`` (ignored by git),
-named by the hash of its source, so an edited source is rebuilt and a
+named by the hash of its source and of every header it includes from this
+directory (``shmem.cuh``), so an edited source or header is rebuilt and a
 finished build is reused. ``build()`` compiles several sources in parallel,
 one ``nvcc`` process each.
 """
@@ -15,6 +16,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -23,7 +25,8 @@ from pathlib import Path
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "_build"
 SOURCES = ("flash_decode_paged", "flash_decode", "ring_attention", "group_gemm",
-           "all_to_all", "allgather", "gemm", "flash_decode_dist")
+           "all_to_all", "allgather", "gemm", "flash_decode_dist", "shmem",
+           "reduce_scatter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -42,10 +45,36 @@ def _nvcc() -> str:
                        "or under CUDA_HOME")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_headers(path: Path) -> list[Path]:
+    """The headers of this directory that ``path`` includes, directly or
+    through another of them, each once, in the order first met."""
+    seen: list[Path] = []
+    todo = [path]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            header = _DIR / name.decode()
+            if header.exists() and header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
+def source_digest(name: str) -> str:
+    """The hash that names ``<name>.cu``'s library: the source, every local
+    header it includes, and the compiler flags."""
+    source = _DIR / f"{name}.cu"
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((_DIR / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    return BUILD_DIR / f"lib{name}_{source_digest(name)[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, dict]:

@@ -1,25 +1,33 @@
-// The push/ring all-gather in its one-rank form, written by hand for Hopper
-// (sm_90a).
+// The push and ring all-gathers, written by hand for Hopper (sm_90a): the
+// one-rank copy, and the puts across ranks that share one card.
 //
 // Replaces the TPU kernel B9, _ag_call (the pallas_call at
-// triton_dist_tpu/ops/allgather.py:262; _ag_push_kernel, _ag_ring_kernel),
-// as the sequence-parallel decode runs it on one rank. There, each rank's
-// shard [m, ...] lands in its slot of the gathered [n * m, ...]: the push
-// kernel copies its own shard into slot `me` and puts it to every peer, the
-// ring copies it and forwards the slots it receives. At n = 1 both are the
-// copy of the shard into slot 0, which is what this kernel does:
-//   out[slot * nbytes + i] = shard[i]   for i in [0, nbytes)
+// triton_dist_tpu/ops/allgather.py:262): _ag_push_kernel (:38-68), where
+// every rank puts its shard [m, ...] into slot `me` of every peer's
+// gathered [n * m, ...] and waits for n - 1 deliveries, and _ag_ring_kernel
+// (:71-96), where each rank forwards the newest segment to its right
+// neighbour, n - 1 hops, each segment landing in its final slot. Both start
+// with the entry barrier (barrier_all, shmem.cuh), as the JAX kernels do:
+// signals persist between calls, and the barrier keeps a fast rank's next
+// call from meeting a slow rank's current one once ranks are processes.
+// At one rank both are the copy of the shard into slot 0 (tdt_ag_copy).
 //
-// What bounds it on this card: bytes, each read once and written once; at
-// the decode step's wire (a few hundred KB) it is over before the launch
-// overhead is.
+// What bounds them on this card: bytes. The push reads each shard once and
+// writes it n times (every replica's slot); the ring reads and writes each
+// segment once a hop. On one card every rank's traffic shares one HBM.
 //
-// What the design does about it: a grid-stride loop of 16-byte vectors over
-// the body, so every sector moves whole, and the last nbytes % 16 bytes one
-// by one in the first block.
+// What the design does about it: one launch covers every rank (grid
+// (lanes, n), the rank on y). Each shard is cut into `lanes` chunks of
+// 16-byte multiples, and the blocks at one lane form an independent
+// collective over their chunk: their own barrier word and delivery flags,
+// so no block waits for another lane. The push reads a 16-byte vector once
+// and stores it to all n replicas; the ring's hop is a block-cooperative
+// copy read through L2. Delivery is signalled once per (lane, segment)
+// after the block's stores, and consumed by the receiver's wait.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "shmem.cuh"
+
+using namespace tdt_shmem;
 
 namespace {
 
@@ -34,6 +42,105 @@ __global__ void __launch_bounds__(kThreads)
   for (long long v = (long long)blockIdx.x * kThreads + threadIdx.x; v < vecs; v += stride)
     dst[v] = src[v];
   if (blockIdx.x == 0 && threadIdx.x < tail) dst_tail[threadIdx.x] = src_tail[threadIdx.x];
+}
+
+// this block's chunk [b0, b1) of a shard of nbytes
+__device__ __forceinline__ void lane_range(long long nbytes, long long per, long long* b0,
+                                           long long* b1) {
+  *b0 = (long long)blockIdx.x * per;
+  *b1 = *b0 + per < nbytes ? *b0 + per : nbytes;
+}
+
+// Pad words: [0, lanes) the entry barrier; [lanes + s * lanes + c] the
+// delivery of segment s's chunk c.
+__device__ __forceinline__ int flag_word(int seg, int lane) {
+  return gridDim.x + seg * gridDim.x + lane;
+}
+
+// grid (lanes, n). in: each rank's shard (nbytes); out: each rank's
+// replica (n * nbytes).
+__global__ void __launch_bounds__(kThreads)
+    ag_push_kernel(PeerTable in, PeerTable out, long long nbytes, long long per, PeerTable pads,
+                   Launch L) {
+  const int me = my_pe();
+  const int n = n_pes();
+  const int lane = blockIdx.x;
+  if (!barrier_all_block(pads, lane, L)) return;
+  long long b0, b1;
+  lane_range(nbytes, per, &b0, &b1);
+  const unsigned char* src = symm_at<const unsigned char>(in, me);
+  const size_t slot = (size_t)me * nbytes;
+  if (nbytes % 16 == 0) {
+    // one 16-byte load, n stores: my slot of every replica
+    for (long long i = b0 / 16 + threadIdx.x; i < b1 / 16; i += kThreads) {
+      const uint4 v = __ldcg(reinterpret_cast<const uint4*>(src) + i);
+      for (int p = 0; p < n; ++p)
+        reinterpret_cast<uint4*>(symm_at<unsigned char>(out, p) + slot)[i] = v;
+    }
+  } else {
+    for (long long i = b0 + threadIdx.x; i < b1; i += kThreads) {
+      const unsigned char v = __ldcg(src + i);
+      for (int p = 0; p < n; ++p) symm_at<unsigned char>(out, p)[slot + i] = v;
+    }
+  }
+  __syncthreads();
+  int ok = 1;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    for (int p = 0; p < n; ++p)
+      if (p != me) signal_op(symm_at<int>(pads, p) + flag_word(me, lane), 1);
+    for (int s = 0; s < n && ok; ++s)
+      if (s != me)
+        ok = signal_wait_until(symm_at<int>(pads, me) + flag_word(s, lane), 1, true, L,
+                               flag_word(s, lane));
+  }
+  if (!__syncthreads_and(ok)) return;
+  quiet();
+}
+
+// grid (lanes, n): my shard into my own slot, then n - 1 hops to the right,
+// each forwarding the segment that arrived last.
+__global__ void __launch_bounds__(kThreads)
+    ag_ring_kernel(PeerTable in, PeerTable out, long long nbytes, long long per, PeerTable pads,
+                   Launch L) {
+  const int me = my_pe();
+  const int n = n_pes();
+  const int lane = blockIdx.x;
+  if (!barrier_all_block(pads, lane, L)) return;
+  long long b0, b1;
+  lane_range(nbytes, per, &b0, &b1);
+  const long long len = b1 > b0 ? b1 - b0 : 0;
+  const int right = pe_at(me + 1);
+  unsigned char* mine = symm_at<unsigned char>(out, me);
+  unsigned char* next = symm_at<unsigned char>(out, right);
+  putmem_block(mine + (size_t)me * nbytes + b0, symm_at<const unsigned char>(in, me) + b0, len);
+  for (int s = 0; s < n - 1; ++s) {
+    const int seg = pe_at(me - s);  // the newest segment I hold
+    // hop 0 forwards my shard from its source; later hops what arrived
+    const unsigned char* from = s == 0 ? symm_at<const unsigned char>(in, me) + b0
+                                       : mine + (size_t)seg * nbytes + b0;
+    putmem_signal_block(next + (size_t)seg * nbytes + b0, from, len,
+                        symm_at<int>(pads, right) + flag_word(seg, lane), 1);
+    const int prev = pe_at(me - s - 1);
+    if (!wait_block(symm_at<int>(pads, me) + flag_word(prev, lane), 1, true, L,
+                    flag_word(prev, lane)))
+      return;
+  }
+  quiet();
+}
+
+template <typename K>
+int launch_gather(K kernel, int kernel_id, const void* const* in, const void* const* out,
+                  long long nbytes, int lanes, const void* const* pads, int n, void* claim,
+                  void* report, unsigned long long budget_ns, void* stream) {
+  if (n < 2 || n > kMaxPes || nbytes <= 0 || lanes < 1) return (int)cudaErrorInvalidValue;
+  lanes = resident_lanes(kernel, kThreads, lanes, n);
+  if (lanes < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const long long per = ((nbytes + lanes - 1) / lanes + 15) / 16 * 16;
+  return launch_cooperative(kernel, dim3(lanes, n), dim3(kThreads), 0, stream,
+                            make_table(in, n), make_table(out, n), nbytes, per,
+                            make_table(pads, n),
+                            make_launch(claim, report, budget_ns, kernel_id));
 }
 
 }  // namespace
@@ -56,6 +163,24 @@ int tdt_ag_copy(const void* shard, void* out, long long nbytes, int slot, void* 
       reinterpret_cast<const uint4*>(src), reinterpret_cast<uint4*>(dst), vecs,
       src + vecs * 16, dst + vecs * 16, tail);
   return (int)cudaGetLastError();
+}
+
+// in: n pointers to each rank's shard of nbytes; out: n pointers to each
+// rank's replica of n * nbytes (16-byte aligned); pads: n pointers to pads
+// of >= (n + 1) * lanes zero words. n >= 2. `lanes` is cut to what the card
+// keeps resident at once (resident_lanes, shmem.cuh).
+int tdt_ag_push(const void* const* in, const void* const* out, long long nbytes, int lanes,
+                const void* const* pads, int n, void* claim, void* report,
+                unsigned long long budget_ns, void* stream) {
+  return launch_gather(ag_push_kernel, kAgPush, in, out, nbytes, lanes, pads, n, claim, report,
+                       budget_ns, stream);
+}
+
+int tdt_ag_ring(const void* const* in, const void* const* out, long long nbytes, int lanes,
+                const void* const* pads, int n, void* claim, void* report,
+                unsigned long long budget_ns, void* stream) {
+  return launch_gather(ag_ring_kernel, kAgRing, in, out, nbytes, lanes, pads, n, claim, report,
+                       budget_ns, stream);
 }
 
 const char* tdt_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

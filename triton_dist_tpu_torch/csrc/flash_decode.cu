@@ -1,5 +1,6 @@
 // Contiguous-cache GQA decode, written by hand for Hopper (sm_90a): the
-// split-KV partials, their combine, and the sequence-parallel lse merge.
+// split-KV partials, their combine, and the sequence-parallel lse merge,
+// alone and fused with the partials' all-gather across ranks.
 //
 // Replaces three TPU kernels of triton_dist_tpu/ops/flash_decode.py:
 //
@@ -20,11 +21,19 @@
 // - the merge half of ll_ag_merge (_ll_ag_merge_kernel, :391-404): the
 //   running (m, denom, acc) rescaling over n segments in canonical order.
 //   It is kept apart from the combine because it rounds in another order.
+//   Across ranks (ll_ag_merge_kernel, _ll_ag_merge_kernel :332-402 whole),
+//   the transport is fused in front of it: each rank puts its f32 partial
+//   (out || lse) into slot `me` of every peer's workspace and signals
+//   (shmem.cuh), then merges the n segments in canonical order 0..n-1,
+//   waiting for each once and reading its own directly. Both kernels run
+//   one row's merge through the same device functions, so every replica
+//   equals the merge kernel's result over the stacked partials bit for bit.
 //
 // What bounds them on this card: bytes. The partials read each live key and
 // value once per (row, kv head) at about 4 * G flops per element, far below
 // the ~295 flops per byte where the H100 stops being memory bound; the
-// combine and the merge read R partial rows of D f32 values to write one.
+// combine and the merge read R partial rows of D f32 values to write one;
+// the fused merge writes n - 1 copies of a rank's partial and reads n.
 //
 // What the design does about it: a partial block stages tiles of K and V
 // (64 keys in bf16, 32 in f32: 16 KB each) through shared memory with a
@@ -43,6 +52,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "shmem.cuh"
 
 namespace {
 
@@ -369,6 +380,59 @@ __global__ void __launch_bounds__(kThreads)
     lse_out[row] = denom > 0.f ? m + logf(denom) : kNegInf;
 }
 
+// The running merge of one row in canonical segment order, shared by the
+// merge kernel and the fused gather-and-merge, so both give the same bits:
+// segment 0 initialises (acc, m, denom) = (out, lse, 1), each later segment
+// rescales (_ll_ag_merge_kernel :391-404), every product and sum rounded on
+// its own. Each lane holds the columns lane + 32 c. kCg reads through L2
+// (a segment another block delivered).
+struct MergeRow {
+  float acc[kMaxColsPerLane];
+  float m, denom;
+};
+
+template <bool kCg>
+__device__ __forceinline__ float load_col(const float* p) {
+  return kCg ? __ldcg(p) : *p;
+}
+
+template <bool kCg>
+__device__ __forceinline__ void merge_first(MergeRow& r, const float* o, float lse, int D,
+                                            int lane) {
+#pragma unroll
+  for (int c = 0; c < kMaxColsPerLane; ++c) {
+    const int d = lane + 32 * c;
+    r.acc[c] = d < D ? load_col<kCg>(o + d) : 0.f;
+  }
+  r.m = lse;
+  r.denom = 1.f;
+}
+
+template <bool kCg>
+__device__ __forceinline__ void merge_next(MergeRow& r, const float* o, float l, int D,
+                                           int lane) {
+  const float new_m = fmaxf(r.m, l);
+  const float scale = expf(r.m - new_m);
+  const float w = expf(l - new_m);
+#pragma unroll
+  for (int c = 0; c < kMaxColsPerLane; ++c) {
+    const int d = lane + 32 * c;
+    if (d < D) r.acc[c] = __fadd_rn(__fmul_rn(r.acc[c], scale), __fmul_rn(load_col<kCg>(o + d), w));
+  }
+  r.denom = __fadd_rn(__fmul_rn(r.denom, scale), w);
+  r.m = new_m;
+}
+
+template <typename TO>
+__device__ __forceinline__ void merge_store(const MergeRow& r, TO* out, int D, int lane) {
+  const float safe = r.denom > 0.f ? r.denom : 1.f;
+#pragma unroll
+  for (int c = 0; c < kMaxColsPerLane; ++c) {
+    const int d = lane + 32 * c;
+    if (d < D) out[d] = from_float<TO>(r.acc[c] / safe);
+  }
+}
+
 // One warp per row: outs [n, rows, D] f32, lses [n, rows] -> out [rows, D]
 // (TO), merged in segment order with the running rescale.
 template <typename TO>
@@ -378,41 +442,84 @@ __global__ void __launch_bounds__(kThreads)
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  float acc[kMaxColsPerLane];
-#pragma unroll
-  for (int c = 0; c < kMaxColsPerLane; ++c) {
-    const int d = lane + 32 * c;
-    acc[c] = d < D ? outs[(size_t)row * D + d] : 0.f;
-  }
-  float m = lses[row];
-  float denom = 1.f;
+  MergeRow r;
+  merge_first<false>(r, outs + (size_t)row * D, lses[row], D, lane);
   // segments 1..n-1, their lses one per lane, 32 at a time (as in the
   // combine)
   for (int s0 = 1; s0 < n; s0 += 32) {
     const float l_lane = s0 + lane < n ? lses[(size_t)(s0 + lane) * rows + row] : kNegInf;
     const int ns = min(32, n - s0);
 #pragma unroll 8
-    for (int i = 0; i < ns; ++i) {
-      const float l = __shfl_sync(0xffffffffu, l_lane, i);
-      const float new_m = fmaxf(m, l);
-      const float scale = expf(m - new_m);
-      const float w = expf(l - new_m);
-      const float* o = outs + ((size_t)(s0 + i) * rows + row) * D;
-#pragma unroll
-      for (int c = 0; c < kMaxColsPerLane; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) acc[c] = __fadd_rn(__fmul_rn(acc[c], scale), __fmul_rn(o[d], w));
-      }
-      denom = __fadd_rn(__fmul_rn(denom, scale), w);
-      m = new_m;
+    for (int i = 0; i < ns; ++i)
+      merge_next<false>(r, outs + ((size_t)(s0 + i) * rows + row) * D,
+                        __shfl_sync(0xffffffffu, l_lane, i), D, lane);
+  }
+  merge_store<TO>(r, out + (size_t)row * D, D, lane);
+}
+
+// B5 across ranks: grid (lanes, n), lane c merging rows [c kWarps, (c + 1)
+// kWarps), one warp a row. outs / lses: each rank's partial [rows, D] and
+// [rows] f32; ws: each rank's arrival workspace, n slots of rows * (D + 1)
+// f32 (the slot's outs, then its lses); res: each rank's merged [rows, D].
+// Pad words: [0, lanes) the entry barrier, [lanes + s lanes + c] the
+// delivery of segment s's rows of lane c. Each rank puts its rows into slot
+// `me` of every peer, then merges segments 0..n-1 in that order, waiting for
+// each once and reading its own directly: every rank's replica gets the
+// same bits.
+template <typename TO>
+__global__ void __launch_bounds__(kThreads)
+    ll_ag_merge_kernel(tdt_shmem::PeerTable outs, tdt_shmem::PeerTable lses,
+                       tdt_shmem::PeerTable ws, tdt_shmem::PeerTable res, int rows, int D,
+                       tdt_shmem::PeerTable pads, tdt_shmem::Launch L) {
+  using namespace tdt_shmem;
+  const int me = my_pe();
+  const int n = n_pes();
+  const int lanes = gridDim.x;
+  const int lane_id = blockIdx.x;
+  const int lane = threadIdx.x % 32;
+  if (!barrier_all_block(pads, lane_id, L)) return;
+  const int r0 = lane_id * kWarps;
+  const int nr = min(kWarps, rows - r0);
+  const size_t slot_floats = (size_t)rows * (D + 1);
+  const float* my_outs = symm_at<const float>(outs, me);
+  const float* my_lses = symm_at<const float>(lses, me);
+  for (int p = 0; p < n; ++p) {
+    if (p == me) continue;
+    float* slot = symm_at<float>(ws, p) + (size_t)me * slot_floats;
+    putmem_nbi_block(slot + (size_t)r0 * D, my_outs + (size_t)r0 * D,
+                     (long long)nr * D * sizeof(float));
+    putmem_nbi_block(slot + (size_t)rows * D + r0, my_lses + r0, (long long)nr * sizeof(float));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    for (int p = 0; p < n; ++p)
+      if (p != me) signal_op(symm_at<int>(pads, p) + lanes + me * lanes + lane_id, 1);
+  }
+  const int row = r0 + threadIdx.x / 32;
+  const float* arrived = symm_at<const float>(ws, me);
+  MergeRow r;
+  for (int seg = 0; seg < n; ++seg) {
+    const int word = lanes + seg * lanes + lane_id;
+    if (seg != me && !wait_block(symm_at<int>(pads, me) + word, 1, true, L, word)) return;
+    if (row >= rows) continue;
+    if (seg == me) {
+      const float* o = my_outs + (size_t)row * D;
+      if (seg == 0)
+        merge_first<false>(r, o, my_lses[row], D, lane);
+      else
+        merge_next<false>(r, o, my_lses[row], D, lane);
+    } else {
+      const float* base = arrived + (size_t)seg * slot_floats;
+      const float l = __ldcg(base + (size_t)rows * D + row);
+      if (seg == 0)
+        merge_first<true>(r, base + (size_t)row * D, l, D, lane);
+      else
+        merge_next<true>(r, base + (size_t)row * D, l, D, lane);
     }
   }
-  const float safe = denom > 0.f ? denom : 1.f;
-#pragma unroll
-  for (int c = 0; c < kMaxColsPerLane; ++c) {
-    const int d = lane + 32 * c;
-    if (d < D) out[(size_t)row * D + d] = from_float<TO>(acc[c] / safe);
-  }
+  if (row < rows) merge_store<TO>(r, symm_at<TO>(res, me) + (size_t)row * D, D, lane);
+  quiet();
 }
 
 template <typename T>
@@ -468,6 +575,20 @@ int launch_merge(const void* outs, const void* lses, void* out, int n, int rows,
   return (int)cudaGetLastError();
 }
 
+template <typename TO>
+int launch_ll_ag_merge(const void* const* outs, const void* const* lses, const void* const* ws,
+                       const void* const* res, int rows, int D, const void* const* pads, int n,
+                       void* claim, void* report, unsigned long long budget_ns, void* stream) {
+  using namespace tdt_shmem;
+  if (n < 2 || n > kMaxPes || rows <= 0 || D <= 0 || D > 32 * kMaxColsPerLane)
+    return (int)cudaErrorInvalidValue;
+  const int lanes = (rows + kWarps - 1) / kWarps;
+  return launch_cooperative(ll_ag_merge_kernel<TO>, dim3(lanes, n), dim3(kThreads), 0, stream,
+                            make_table(outs, n), make_table(lses, n), make_table(ws, n),
+                            make_table(res, n), rows, D, make_table(pads, n),
+                            make_launch(claim, report, budget_ns, kLlAgMerge));
+}
+
 }  // namespace
 
 extern "C" {
@@ -517,6 +638,24 @@ int tdt_ll_merge_f32(const void* outs, const void* lses, void* out, int n, int r
 int tdt_ll_merge_bf16(const void* outs, const void* lses, void* out, int n, int rows,
                       int D, void* stream) {
   return launch_merge<__nv_bfloat16>(outs, lses, out, n, rows, D, stream);
+}
+
+// outs / lses: n pointers to each rank's partial [rows, D] / [rows] f32;
+// ws: n pointers to each rank's n slots of rows * (D + 1) f32; res: n
+// pointers to each rank's merged [rows, D]; pads: n pointers to pads of
+// >= (n + 1) * ceil(rows / 4) zero words. n >= 2.
+int tdt_ll_ag_merge_f32(const void* const* outs, const void* const* lses, const void* const* ws,
+                        const void* const* res, int rows, int D, const void* const* pads, int n,
+                        void* claim, void* report, unsigned long long budget_ns, void* stream) {
+  return launch_ll_ag_merge<float>(outs, lses, ws, res, rows, D, pads, n, claim, report,
+                                   budget_ns, stream);
+}
+
+int tdt_ll_ag_merge_bf16(const void* const* outs, const void* const* lses, const void* const* ws,
+                         const void* const* res, int rows, int D, const void* const* pads, int n,
+                         void* claim, void* report, unsigned long long budget_ns, void* stream) {
+  return launch_ll_ag_merge<__nv_bfloat16>(outs, lses, ws, res, rows, D, pads, n, claim, report,
+                                           budget_ns, stream);
 }
 
 const char* tdt_cuda_error_string(int code) {

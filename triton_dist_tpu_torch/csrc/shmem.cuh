@@ -1,0 +1,356 @@
+// The device half of the port's shmem layer: `__device__` functions that the
+// collective kernels of this directory include.
+//
+// Counterpart of triton_dist_tpu/shmem/device.py (my_pe, n_pes, pe_at,
+// putmem_nbi/putmem_block, signal_op, signal_wait_until, quiet, fence,
+// barrier_all, barrier_pair) and of language.py's dl.* names (rank,
+// num_ranks, wait, consume_token, notify, symm_at).
+//
+// How n ranks run on one card: one process, one launch per collective call,
+// the rank as the grid's y dimension (my_pe() == blockIdx.y). Every block of
+// the launch is resident at once (the launches are cooperative, and a grid
+// that does not fit is refused), so a block may spin on a flag that a block
+// of another rank sets. A kernel reaches a peer's buffer only through a
+// PeerTable: the n base pointers of a symmetric buffer, filled by the host
+// and passed by value. It never computes a peer's address from its own, so
+// pointers mapped from other processes or cards can fill the same table.
+//
+// Signals are 32-bit words of a symmetric signal pad, one pad per kernel
+// family (the port's collective_id_for: two families never share a word).
+// signal_wait_until consumes what it waited for, as the TPU's semaphores do,
+// so a pad is all zeros again after every call and the next call starts
+// clean. Memory order: a producer's threads store, the block meets at
+// __syncthreads(), then one thread fences and signals with a release; the
+// consumer spins with an acquire load, the block meets, and the data is read
+// with ld.global.cg (L2, never a stale L1 line). TDT_SHMEM_SCOPE is the one
+// switch of scope: "gpu" for ranks on one card, "sys" for cards joined by
+// NVLink.
+//
+// Every spin is bounded: a wait that runs past its budget (about a second)
+// claims the launch's error report, writes which kernel, rank and signal
+// starved, and makes its block return; the host raises when it reads the
+// report. A protocol bug fails its call instead of hanging the card.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <tuple>
+
+#ifndef TDT_SHMEM_SCOPE
+#define TDT_SHMEM_SCOPE "gpu"
+#endif
+
+namespace tdt_shmem {
+
+constexpr int kMaxPes = 8;
+
+// the kernels that report a starved spin (shmem/device.py KERNELS)
+enum Kernel : int {
+  kBarrierAll = 1,
+  kRingPing = 2,
+  kAgPush = 3,
+  kAgRing = 4,
+  kRsRing = 5,
+  kLlAgMerge = 6,
+};
+
+// The n base pointers of one symmetric buffer, rank r's at ptr[r].
+struct PeerTable {
+  void* ptr[kMaxPes];
+};
+
+// What every launch of the layer carries: the error report and the budget
+// of a spin.
+struct Launch {
+  int* claim;                  // device word: 0 until an error claims it
+  volatile int* report;        // mapped host memory: set, kernel, rank, signal
+  unsigned long long budget_ns;
+  int kernel;
+};
+
+// the table of `n` pointers from the host's array (entries past n are null)
+inline PeerTable make_table(const void* const* ptrs, int n) {
+  PeerTable t;
+  for (int i = 0; i < kMaxPes; ++i) t.ptr[i] = i < n ? const_cast<void*>(ptrs[i]) : nullptr;
+  return t;
+}
+
+// One launch covering every rank: cooperative, so a grid whose blocks
+// cannot all be resident at once is refused at launch (a spin would
+// otherwise wait on a block that never runs). Each argument is converted to the kernel's
+// parameter type. Returns the launch's cudaError_t.
+template <typename... KArgs, typename... Args>
+inline int launch_cooperative(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
+                              void* stream, Args... args) {
+  static_assert(sizeof...(KArgs) == sizeof...(Args), "one value per kernel parameter");
+  std::tuple<KArgs...> values(static_cast<KArgs>(args)...);
+  void* params[sizeof...(KArgs)];
+  std::apply([&](auto&... v) {
+    int i = 0;
+    ((params[i++] = static_cast<void*>(&v)), ...);
+  }, values);
+  const cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid,
+                                                    block, params, smem,
+                                                    static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// the most blocks of one launch a collective keeps on each SM: the rest of
+// the SM stays free for the compute it overlaps
+constexpr int kLaneBlocksPerSm = 2;
+
+// `lanes` cut to what a grid (lanes, n) of `kernel` can keep resident on
+// the current device (its SM count times the blocks of `threads` an SM
+// holds at once, at most kLaneBlocksPerSm); 0 when not one lane fits or
+// the device cannot be asked.
+template <typename K>
+inline int resident_lanes(K kernel, int threads, int lanes, int n) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) != cudaSuccess)
+    return 0;
+  const int fit = sms * (per_sm < kLaneBlocksPerSm ? per_sm : kLaneBlocksPerSm) / n;
+  return lanes < fit ? lanes : fit;
+}
+
+inline Launch make_launch(void* claim, void* report, unsigned long long budget_ns, int kernel) {
+  return Launch{static_cast<int*>(claim), static_cast<volatile int*>(report), budget_ns, kernel};
+}
+
+// ---------------------------------------------------------------------------
+// identity
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int my_pe() { return blockIdx.y; }
+__device__ __forceinline__ int n_pes() { return gridDim.y; }
+// the flat id of the rank at `index` along the launch's axis (wrapped)
+__device__ __forceinline__ int pe_at(int index) {
+  const int n = n_pes();
+  return ((index % n) + n) % n;
+}
+
+// rank `pe`'s buffer of a symmetric tensor: the reference's symm_at
+template <typename T>
+__device__ __forceinline__ T* symm_at(const PeerTable& t, int pe) {
+  return static_cast<T*>(t.ptr[pe]);
+}
+
+// ---------------------------------------------------------------------------
+// ordered loads and stores of signal words
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire." TDT_SHMEM_SCOPE ".global.s32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release." TDT_SHMEM_SCOPE ".global.add.s32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release." TDT_SHMEM_SCOPE ".global.s32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void red_relaxed_add(int* p, int v) {
+  asm volatile("red.relaxed." TDT_SHMEM_SCOPE ".global.add.s32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// ---------------------------------------------------------------------------
+// ordering
+// ---------------------------------------------------------------------------
+
+// every store this thread made is performed for the peers (the reference's
+// quiet; the port's puts are plain stores, so completion is a fence)
+__device__ __forceinline__ void quiet() { __threadfence(); }
+// puts to one peer stay in order (the reference's fence)
+__device__ __forceinline__ void fence() { __threadfence(); }
+
+// ---------------------------------------------------------------------------
+// signals
+// ---------------------------------------------------------------------------
+
+enum SignalOp : int { kSignalSet = 0, kSignalAdd = 1 };
+
+// one thread: `sig` (a word of some rank's pad) set to or increased by
+// `value`, with a release, so that what this thread stored before is seen
+// by whoever acquires the word
+__device__ __forceinline__ void signal_op(int* sig, int value, int op = kSignalAdd) {
+  if (op == kSignalSet)
+    st_release(sig, value);
+  else
+    red_release_add(sig, value);
+}
+
+// one thread: record that `signal` of `kernel` starved on this rank; the
+// first error of the launch wins the claim and writes the report
+__device__ __noinline__ void report_starved(const Launch& L, int signal) {
+  if (atomicCAS(L.claim, 0, 1) == 0) {
+    L.report[1] = L.kernel;
+    L.report[2] = my_pe();
+    L.report[3] = signal;
+    __threadfence_system();
+    L.report[0] = 1;
+    __threadfence_system();
+  }
+}
+
+// one thread: spin until `*sig >= value` (acquire), then, with `consume`,
+// take `value` back off the word as the TPU's semaphore wait does. Returns
+// false, after reporting, when the budget runs out or another block of the
+// launch has already reported.
+__device__ __noinline__ bool signal_wait_until(int* sig, int value, bool consume,
+                                               const Launch& L, int signal) {
+  const unsigned long long t0 = global_ns();
+  for (unsigned polls = 1; ld_acquire(sig) < value; ++polls) {
+    if (polls % 64 == 0) {
+      if (*reinterpret_cast<volatile int*>(L.claim) != 0) return false;
+      if (global_ns() - t0 > L.budget_ns) {
+        report_starved(L, signal);
+        return false;
+      }
+    }
+    __nanosleep(32);
+  }
+  if (consume) red_relaxed_add(sig, -value);
+  return true;
+}
+
+// The block's stores so far, then one signal: the producer's half of every
+// protocol. All threads of the block call it.
+__device__ __forceinline__ void signal_op_block(int* sig, int value, int op = kSignalAdd) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    signal_op(sig, value, op);
+  }
+}
+
+// The consumer's half: one thread waits, the block meets, and every thread
+// may read what the signal covers. All threads call it; false on error.
+__device__ __forceinline__ bool wait_block(int* sig, int value, bool consume, const Launch& L,
+                                           int signal) {
+  int ok = 1;
+  if (threadIdx.x == 0) ok = signal_wait_until(sig, value, consume, L, signal);
+  return __syncthreads_and(ok);
+}
+
+// ---------------------------------------------------------------------------
+// puts: block-cooperative copies into a peer's buffer
+// ---------------------------------------------------------------------------
+
+// bytes [0, nbytes) of src to dst by every thread of the block, 16 bytes at
+// a time where both are 16-byte aligned; the source is read through L2, so a
+// segment that another block delivered is never read stale
+__device__ __forceinline__ void putmem_block(void* dst, const void* src, long long nbytes) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) % 16) == 0;
+  long long done = 0;
+  if (vec) {
+    const long long nv = nbytes / 16;
+    const uint4* s = static_cast<const uint4*>(src);
+    uint4* d = static_cast<uint4*>(dst);
+    for (long long i = threadIdx.x; i < nv; i += blockDim.x) d[i] = __ldcg(s + i);
+    done = nv * 16;
+  }
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  unsigned char* d = static_cast<unsigned char*>(dst);
+  for (long long i = done + threadIdx.x; i < nbytes; i += blockDim.x) d[i] = __ldcg(s + i);
+}
+
+// the put of the reference's nbi form: the port's stores are issued at once
+// and completed by quiet(), so it is the same copy
+__device__ __forceinline__ void putmem_nbi_block(void* dst, const void* src, long long nbytes) {
+  putmem_block(dst, src, nbytes);
+}
+
+// put, then signal the peer's word once every thread's stores are performed
+__device__ __forceinline__ void putmem_signal_block(void* dst, const void* src, long long nbytes,
+                                                    int* sig, int value, int op = kSignalAdd) {
+  putmem_block(dst, src, nbytes);
+  signal_op_block(sig, value, op);
+}
+
+// ---------------------------------------------------------------------------
+// barriers
+// ---------------------------------------------------------------------------
+
+// Barrier of the blocks at this blockIdx.x across every rank of the launch,
+// on `word` of the family's pad: signal every other rank, wait for n - 1
+// arrivals and consume them. Stores made before it are seen after it. All
+// threads call it; false on error.
+__device__ __forceinline__ bool barrier_all_block(const PeerTable& pads, int word, const Launch& L) {
+  const int me = my_pe();
+  const int n = n_pes();
+  __syncthreads();
+  int ok = 1;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    for (int p = 0; p < n; ++p)
+      if (p != me) red_release_add(symm_at<int>(pads, p) + word, 1);
+    ok = signal_wait_until(symm_at<int>(pads, me) + word, n - 1, true, L, word);
+  }
+  return __syncthreads_and(ok);
+}
+
+// Barrier of this block with the one at the same blockIdx.x on `peer`.
+__device__ __forceinline__ bool barrier_pair_block(const PeerTable& pads, int word, int peer,
+                                                   const Launch& L) {
+  __syncthreads();
+  int ok = 1;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    red_release_add(symm_at<int>(pads, peer) + word, 1);
+    ok = signal_wait_until(symm_at<int>(pads, my_pe()) + word, 1, true, L, word);
+  }
+  return __syncthreads_and(ok);
+}
+
+}  // namespace tdt_shmem
+
+// The names of the reference's distributed language (language.py's dl.*).
+namespace dl {
+
+__device__ __forceinline__ int rank() { return tdt_shmem::my_pe(); }
+__device__ __forceinline__ int num_ranks() { return tdt_shmem::n_pes(); }
+
+template <typename T>
+__device__ __forceinline__ T* symm_at(const tdt_shmem::PeerTable& t, int pe) {
+  return tdt_shmem::symm_at<T>(t, pe);
+}
+
+// block-wide wait until `*sig >= value`, without consuming; the token it
+// returns orders the loads that consume_token guards
+__device__ __forceinline__ bool wait(int* sig, int value, const tdt_shmem::Launch& L, int signal) {
+  return tdt_shmem::wait_block(sig, value, false, L, signal);
+}
+
+// the acquire and the block's barrier in wait() already order every later
+// load, so the value passes through
+template <typename T>
+__device__ __forceinline__ T consume_token(T value, bool /*token*/) {
+  return value;
+}
+
+// set or add `value` on rank `pe`'s word `word` of the pad, after this
+// block's stores
+__device__ __forceinline__ void notify(const tdt_shmem::PeerTable& pads, int pe, int word, int value,
+                                       int op = tdt_shmem::kSignalAdd) {
+  tdt_shmem::signal_op_block(tdt_shmem::symm_at<int>(pads, pe) + word, value, op);
+}
+
+}  // namespace dl

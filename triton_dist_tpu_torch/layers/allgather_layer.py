@@ -1,9 +1,11 @@
-"""The all-gather module layer, in its one-rank form.
+"""The all-gather module layer.
 
 Counterpart of ``triton_dist_tpu/layers/allgather_layer.py``: one method per
 all-gather algorithm over ``ops.allgather.all_gather``. The push, ring and
-auto gathers run at one rank (B9's one-rank copy, ``csrc/allgather.cu``).
-The 2-D gathers span a multi-axis mesh and raise ``NotImplementedError``
+auto gathers run at every rank count (B9, ``csrc/allgather.cu``: at one
+rank the copy of the shard, at n ranks the puts across ranks); they return
+what ``all_gather`` returns (every rank's replica at n ranks). The 2-D
+gathers span a multi-axis mesh and raise ``NotImplementedError``
 (ROADMAP.md Queue A, item 5 "collectives").
 """
 

@@ -24,9 +24,10 @@ from triton_dist_tpu_torch.shmem.context import ShmemContext
 @dataclasses.dataclass(frozen=True)
 class SpGQAFlashDecodeAttention:
     """Sequence-parallel GQA decode attention (``sp_gqa_flash_decode``):
-    this rank's split-KV partial, the partial all-gather and the lse merge.
-    One rank until the shmem layer is ported (ROADMAP.md Queue A, item 4
-    "shmem layer across ranks")."""
+    each rank's split-KV partial, the partial all-gather and the lse merge,
+    over every rank of ``ctx``'s ``axis``. At one rank the cache is [B,
+    Hkv, S, D]; at n ranks it is sharded on S, rank-major [n, B, Hkv, S /
+    n, D]. Returns rank 0's replica (every rank's is the same)."""
 
     ctx: ShmemContext
     num_q_heads: int
@@ -43,21 +44,24 @@ class SpGQAFlashDecodeAttention:
                                    ag_method=self.ag_method)
 
     def __call__(self, q, k_cache, v_cache, global_kv_lens):
-        """q [B, Hq, D]; k/v_cache [B', Hkv, S, D]; global_kv_lens [B]
-        int32. Returns [B, Hq, D] in q's type. With ``max_batch`` set, B'
-        must be ``max_batch`` and any B <= ``max_batch`` is padded to it."""
+        """q [B, Hq, D]; k/v_cache [(n,) B', Hkv, S(/n), D]; global_kv_lens
+        [B] int32. Returns [B, Hq, D] in q's type. With ``max_batch`` set,
+        B' must be ``max_batch`` and any B <= ``max_batch`` is padded to
+        it."""
         B, Hq, D = q.shape
         assert Hq == self.num_q_heads and D == self.head_dim
-        assert k_cache.shape[1] == self.num_kv_heads, (
-            f"cache has {k_cache.shape[1]} kv heads, layer configured for "
+        lead = k_cache.dim() - 4          # the rank dim of a sharded cache
+        cache_b, heads = k_cache.shape[lead], k_cache.shape[lead + 1]
+        assert heads == self.num_kv_heads, (
+            f"cache has {heads} kv heads, layer configured for "
             f"{self.num_kv_heads}")
-        if self.max_batch is None or B == k_cache.shape[0] == self.max_batch:
+        if self.max_batch is None or B == cache_b == self.max_batch:
             return self._fwd(q, k_cache, v_cache, global_kv_lens)
         mb = self.max_batch
         assert B <= mb, f"batch {B} exceeds the layer's max_batch {mb}"
-        assert k_cache.shape[0] == mb, (
+        assert cache_b == mb, (
             f"with max_batch={mb} the KV cache must be allocated at "
-            f"max_batch (got batch dim {k_cache.shape[0]})")
+            f"max_batch (got batch dim {cache_b})")
         q_pad = torch.cat([q, q.new_zeros(mb - B, Hq, D)])
         lens_pad = torch.cat([global_kv_lens,
                               global_kv_lens.new_ones(mb - B)])

@@ -5,8 +5,8 @@ Counterpart of ``triton_dist_tpu/layers/tp_linear.py``:
 (B16). With ``persistent=True`` a layer keeps one workspace context per
 shape and reuses it on every call (the reference's create-the-context-once
 pattern); without it each call allocates a fresh workspace. Both run at
-one rank until the shmem layer is ported (ROADMAP.md Queue A, items 4
-"shmem layer across ranks" and 6 "TP overlap across ranks").
+one rank until B15/B16's puts are ported (ROADMAP.md Queue A, item 6 "TP
+overlap across ranks").
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ from triton_dist_tpu_torch.models.llama import (LlamaConfig, block_apply,
                                                 forward_tp_overlap, generate,
                                                 init_kv_cache, init_page_pool,
                                                 init_params, mlp_tp_overlap,
-                                                prefill, prefill_chunk_paged)
+                                                prefill, prefill_chunk_paged,
+                                                shard_kv_cache)
 from triton_dist_tpu_torch.models.moe import (MoEConfig, init_moe_params,
                                               moe_mlp_ep_overlap,
                                               moe_mlp_tp_overlap)
@@ -17,4 +18,5 @@ __all__ = ["LlamaConfig", "MoEConfig", "block_apply",
            "init_kv_cache", "init_moe_params", "init_page_pool",
            "init_params", "mlp_tp_overlap", "moe_mlp_ep_overlap",
            "moe_mlp_tp_overlap",
-           "params_from_jax", "prefill", "prefill_chunk_paged"]
+           "params_from_jax", "prefill", "prefill_chunk_paged",
+           "shard_kv_cache"]

@@ -330,6 +330,22 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
+def shard_kv_cache(cache: dict, n: int) -> dict:
+    """A contiguous cache ``[L, B, Hkv, S, D]`` in the sequence-parallel
+    layout of n ranks, ``[L, n, B, Hkv, S / n, D]``: rank r's shard holds
+    slots ``r * S / n .. (r + 1) * S / n`` and is contiguous, so each layer
+    of each decode step reads it in place (the JAX cache is sharded on S
+    with ``P(None, None, None, axis, None)``). A copy, made once at the
+    edge (after ``prefill``)."""
+    def shard(t):
+        L, B, H, S, D = t.shape
+        if S % n:
+            raise ValueError(f"{S} slots do not split over {n} ranks")
+        return t.view(L, B, H, n, S // n, D).permute(0, 3, 1, 2, 4, 5) \
+            .contiguous()
+    return {name: shard(t) for name, t in cache.items()}
+
+
 def prefill(params: dict, tokens, cfg: LlamaConfig, cache: dict,
             length=None):
     """Full-sequence forward that also writes K/V into ``cache[:, :, :, :S]``
@@ -368,9 +384,11 @@ def prefill(params: dict, tokens, cfg: LlamaConfig, cache: dict,
 def _decode_layers(params: dict, token, pos, cfg: LlamaConfig, cache: dict,
                    attend, ffn):
     """One-token decode at the scalar position ``pos`` over the contiguous
-    cache: each layer writes its new (k, v) row into ``cache[i, :, :, pos]``
-    in place and attends with ``attend(q, ck, cv, kv_len)`` at
-    ``kv_len = pos + 1``. Returns (logits [B, V] f32, cache)."""
+    cache: each layer writes its new (k, v) row into slot ``pos`` in place
+    (``cache[i, :, :, pos]``; in the sequence-parallel layout, slot ``pos %
+    S_local`` of the rank that owns ``pos``) and attends with ``attend(q,
+    ck, cv, kv_len)`` at ``kv_len = pos + 1``. Returns (logits [B, V] f32,
+    cache)."""
     B = token.shape[0]
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pos = int(pos)
@@ -385,9 +403,14 @@ def _decode_layers(params: dict, token, pos, cfg: LlamaConfig, cache: dict,
         k = rope((h @ p["wk"]).view(B, 1, Hkv, Dh), positions,
                  cfg.rope_theta)[:, 0]                       # [B, Hkv, Dh]
         v = (h @ p["wv"]).view(B, Hkv, Dh)
-        ck, cv = cache["k"][i], cache["v"][i]                # [B, Hkv, S, Dh]
-        ck[:, :, pos] = k
-        cv[:, :, pos] = v
+        ck, cv = cache["k"][i], cache["v"][i]   # [(n,) B, Hkv, S(/n), Dh]
+        if ck.dim() == 4:
+            ck[:, :, pos] = k
+            cv[:, :, pos] = v
+        else:
+            s_local = ck.shape[3]
+            ck[pos // s_local, :, :, pos % s_local] = k
+            cv[pos // s_local, :, :, pos % s_local] = v
         attn = attend(q, ck, cv, kv_len)
         x = x + attn.reshape(B, Hq * Dh) @ p["wo"]
         h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
@@ -413,17 +436,25 @@ def decode_step(params: dict, token, pos, cfg: LlamaConfig, cache: dict,
 
 def decode_step_sp(ctx, params: dict, token, pos, cfg: LlamaConfig,
                    cache: dict, axis: str | None = None,
-                   ag_method: str = "fused", ffn=None):
+                   ag_method: str = "fused", ffn=None,
+                   replica_checks: list | None = None):
     """``decode_step`` with sequence-parallel attention
-    (``sp_gqa_flash_decode``: this rank's partial over its KV shard, the
+    (``sp_gqa_flash_decode``: each rank's partial over its KV shard, the
     partial all-gather and the lse merge) over the mesh axis ``axis`` of
-    ``ctx``. At one rank the shard is the whole cache and the merge of one
-    partial keeps its bits, so the logits equal ``decode_step``'s bit for
-    bit. More ranks wait for the shmem layer (ROADMAP.md Queue A, item 4
-    "shmem layer across ranks")."""
+    ``ctx``. At one rank the cache is ``init_kv_cache``'s and the merge of
+    one partial keeps its bits, so the logits equal ``decode_step``'s bit
+    for bit. At n ranks the cache is sharded on S (``shard_kv_cache``),
+    the new token's (k, v) lands in the shard that owns ``pos``, and the
+    rest of the layer (weights replicated) runs once on rank 0's replica of
+    the attention. With
+    ``replica_checks`` a list, each layer appends a 0-d bool tensor: whether
+    every rank's replica equals rank 0's bit for bit (no synchronisation)."""
     def attend(q, ck, cv, kv_len):
-        return sp_gqa_flash_decode(ctx, q, ck, cv, kv_len, axis=axis,
-                                   ag_method=ag_method)
+        rep = sp_gqa_flash_decode(ctx, q, ck, cv, kv_len, axis=axis,
+                                  ag_method=ag_method, replicas=True)
+        if replica_checks is not None:
+            replica_checks.append((rep == rep[:1]).all())
+        return rep[0]
 
     return _decode_layers(params, token, pos, cfg, cache, attend, ffn)
 
@@ -609,4 +640,4 @@ __all__ = ["LlamaConfig", "init_params", "rmsnorm", "rope", "block_apply",
            "init_kv_cache", "prefill", "decode_step",
            "decode_step_sp", "generate", "init_page_pool",
            "decode_step_paged", "prefill_chunk_paged",
-           "decode_multistep_paged"]
+           "decode_multistep_paged", "shard_kv_cache"]

@@ -11,8 +11,8 @@ expert FFN over all experts between them (``ops.group_gemm``: B18 then
 B17). Its tensor-parallel block ``moe_mlp_tp_overlap`` runs at one rank
 over the MoE-TP ops of ``ops.moe`` (B19, B20). The wire across ranks
 (B21/B22 at n > 1), the TP block over more ranks and the GShard training
-path (``moe_mlp_gshard``, ``moe_forward``) wait for the shmem layer
-(ROADMAP.md Queue A, item 7 "MoE / EP across ranks").
+path (``moe_mlp_gshard``, ``moe_forward``) wait for ROADMAP.md Queue A,
+item 7 "MoE / EP across ranks".
 """
 
 from __future__ import annotations

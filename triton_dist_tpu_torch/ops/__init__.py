@@ -1,4 +1,5 @@
 from triton_dist_tpu_torch.ops.allgather import all_gather, all_gather_plain
+from triton_dist_tpu_torch.ops.common import barrier_all_op, barrier_all_plain
 from triton_dist_tpu_torch.ops.allgather_gemm import (
     AgGemmContext, ag_gemm, ag_gemm_ws, create_ag_gemm_context,
     create_ag_gemm_workspace, tp_column_linear)
@@ -11,8 +12,8 @@ from triton_dist_tpu_torch.ops.flash_decode import (
     fd_fold_plain, fd_page_partials, fd_page_partials_plain,
     fd_partials_fold, fd_partials_fold_plain, flash_decode_dist,
     gqa_decode_paged, gqa_decode_paged_plain, gqa_decode_partial,
-    gqa_decode_partial_plain, ll_ag_merge, ll_merge, ll_merge_plain,
-    paged_kv_write, sp_gqa_flash_decode)
+    gqa_decode_partial_plain, ll_ag_merge, ll_ag_merge_plain, ll_merge,
+    ll_merge_plain, paged_kv_write, sp_gqa_flash_decode)
 from triton_dist_tpu_torch.ops.gemm import (GemmConfig, matmul, matmul_plain,
                                             slot_reduce, slot_reduce_plain)
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import (
@@ -23,6 +24,8 @@ from triton_dist_tpu_torch.ops.group_gemm import (
     grouped_gemm_gated, grouped_gemm_gated_plain, grouped_gemm_plain,
     moe_ffn_local, used_block_count)
 from triton_dist_tpu_torch.ops.moe import ag_moe_group_gemm, moe_reduce_rs
+from triton_dist_tpu_torch.ops.reduce_scatter import (reduce_scatter,
+                                                      reduce_scatter_plain)
 from triton_dist_tpu_torch.ops.ring_attention import (
     ring_attention, ring_attention_bwd, ring_attention_bwd_plain,
     ring_attention_fwd, ring_attention_fwd_plain, zigzag_indices)
@@ -30,6 +33,7 @@ from triton_dist_tpu_torch.ops.ring_attention import (
 __all__ = ["AgGemmContext", "FD_EMPTY", "GemmConfig", "GemmRsContext",
            "NEG_INF", "SPLIT_KEYS", "ag_gemm", "ag_moe_group_gemm", "ag_gemm_diff", "ag_gemm_ws",
            "align_tokens_by_expert", "all_gather", "all_gather_plain",
+           "barrier_all_op", "barrier_all_plain",
            "create_ag_gemm_context", "create_ag_gemm_workspace",
            "create_gemm_rs_context", "create_gemm_rs_workspace", "gemm_rs",
            "gemm_rs_diff", "gemm_rs_ws", "matmul", "matmul_plain",
@@ -41,10 +45,11 @@ __all__ = ["AgGemmContext", "FD_EMPTY", "GemmConfig", "GemmRsContext",
            "fd_partials_fold_plain", "flash_decode_dist",
            "gqa_decode_paged", "gqa_decode_paged_plain",
            "gqa_decode_partial", "gqa_decode_partial_plain",
-           "ll_ag_merge", "ll_merge", "ll_merge_plain", "grouped_gemm",
+           "ll_ag_merge", "ll_ag_merge_plain", "ll_merge", "ll_merge_plain",
+           "grouped_gemm",
            "grouped_gemm_gated", "grouped_gemm_gated_plain",
            "grouped_gemm_plain", "moe_ffn_local", "moe_reduce_rs",
-           "paged_kv_write",
+           "paged_kv_write", "reduce_scatter", "reduce_scatter_plain",
            "sp_gqa_flash_decode",
            "used_block_count", "ring_attention", "ring_attention_bwd",
            "ring_attention_bwd_plain", "ring_attention_fwd",

@@ -17,9 +17,8 @@ the pushes move nothing. What is left is one row movement each way:
 On a CUDA tensor each launches its hand-written Hopper kernel
 (``csrc/all_to_all.cu``); on a CPU tensor it runs its plain PyTorch version
 (``ep_dispatch_plain`` / ``ep_combine_plain``). The wire across ranks, its
-fp8/int8 quantisation and the segmented push (B22) wait for the shmem layer
-(ROADMAP.md Queue A, items 4 "shmem layer across ranks" and 7 "MoE / EP
-across ranks").
+fp8/int8 quantisation and the segmented push (B22) wait for ROADMAP.md
+Queue A, item 7 "MoE / EP across ranks".
 """
 
 from __future__ import annotations

@@ -9,10 +9,9 @@ tensor, its plain version on a CPU tensor. The workspace is carried and
 returned unwritten, as the TPU kernel leaves it at n = 1.
 
 More ranks, tuple axes (the 2-tier ``ag_overlap_protocol_2d``) and
-slice-crossing axes (``_ag_gemm_dcn``) wait for the shmem layer and the
-collectives (ROADMAP.md Queue A, items 4 "shmem layer across ranks" and
-6 "TP overlap across ranks") and raise
-``NotImplementedError``.
+slice-crossing axes (``_ag_gemm_dcn``) wait for the puts across ranks
+over the shmem layer (ROADMAP.md Queue A, item 6 "TP overlap across
+ranks") and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,16 +41,13 @@ def one_rank_axis(ctx, axis, op: str, multi: str) -> str:
     axis = norm_axis(ctx, axis)
     if isinstance(axis, tuple):
         raise NotImplementedError(
-            f"{op} over the axis tuple {axis} ({multi}) is not ported yet: it "
-            "waits for the shmem layer and the collectives (ROADMAP.md Queue "
-            "A, items 4 \"shmem layer across ranks\" and 6 \"TP overlap "
-            "across ranks\")")
+            f"{op} over the axis tuple {axis} ({multi}) is not ported yet: "
+            "ROADMAP.md Queue A, item 6 \"TP overlap across ranks\"")
     n = ctx.axis_size(axis)
     if n != 1:
         raise NotImplementedError(
-            f"{op} over {n} ranks is not ported yet: the puts across ranks "
-            "wait for the shmem layer (ROADMAP.md Queue A, items 4 \"shmem "
-            "layer across ranks\" and 6 \"TP overlap across ranks\")")
+            f"{op} over {n} ranks is not ported yet: its puts across ranks "
+            "are ROADMAP.md Queue A, item 6 \"TP overlap across ranks\"")
     return axis
 
 

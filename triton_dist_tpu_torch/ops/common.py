@@ -1,0 +1,75 @@
+"""What the collective ops share: the host-level barrier (TPU kernel B14),
+the signal pad of each kernel family, and the rule for the ranks a
+collective spans.
+
+Counterpart of ``triton_dist_tpu/ops/common.py``. The JAX package keys each
+kernel family's barrier semaphore by a stable ``collective_id_for(name)``;
+the port gives each family its own symmetric signal pad
+(``ShmemContext.signal_pad``), named ``<family>_<axis>``, so two families
+never share a flag word.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from triton_dist_tpu_torch import csrc
+from triton_dist_tpu_torch.shmem import device as shd
+
+COLLECTIVES = 'ROADMAP.md Queue A, item 5 "collectives"'
+
+
+def family_pad(ctx, family: str, axis, words: int) -> torch.Tensor:
+    """The signal pad of ``family`` over ``axis`` (at least ``words``
+    int32 words a rank)."""
+    name = family if axis is None else f"{family}_{axis}"
+    return ctx.signal_pad(name, words)
+
+
+def spans_every_rank(ctx, axis, op: str) -> int:
+    """The ranks along ``axis``. One launch covers every rank of the mesh,
+    so the group must be the whole mesh: a group inside a multi-axis mesh
+    (the 2-D and hierarchical paths) raises ``NotImplementedError``."""
+    n = ctx.axis_size(axis)
+    if n != ctx.num_ranks:
+        raise NotImplementedError(
+            f"{op} over {axis!r} ({n} of {ctx.num_ranks} ranks): a group "
+            "inside a multi-axis mesh is not ported yet: " + COLLECTIVES)
+    return n
+
+
+def barrier_all_plain(n: int, device="cpu"):
+    """The plain version of the barrier: every rank's 1."""
+    return torch.ones(n, dtype=torch.int32, device=device)
+
+
+def barrier_all_op(ctx, axis: str | None = None):
+    """A host-level barrier across ``axis`` (every axis for None): returns a
+    callable that runs it and returns int32 ones [n], one per rank, as the
+    JAX op's jitted callable does. Each rank signals every other rank's
+    barrier word and waits for n - 1 arrivals, in one launch of
+    ``csrc/shmem.cu`` covering every rank (on a CUDA context; it adds one to
+    ``barrier_all_op.launches``). A CPU context runs the plain version."""
+    n = spans_every_rank(ctx, axis, "barrier_all_op")
+
+    def barrier():
+        if ctx.device.type == "cpu":
+            return barrier_all_plain(n)
+        out = torch.zeros(n, dtype=torch.int32, device=ctx.device)
+        pad = family_pad(ctx, "barrier_all", axis, 1)
+        (pads,) = shd.tables(ctx, pad)
+        lib = shd.shmem_lib()
+        args = shd.launch_args(ctx)
+        with csrc.current_on(ctx.device):
+            rc = lib.tdt_barrier_all(pads, n, out.data_ptr(), *args)
+        csrc.check(lib, rc, "barrier_all_op")
+        barrier_all_op.launches += 1
+        return out
+
+    return barrier
+
+
+barrier_all_op.launches = 0
+
+__all__ = ["COLLECTIVES", "barrier_all_op", "barrier_all_plain",
+           "family_pad", "spans_every_rank"]

@@ -1,5 +1,5 @@
 """GQA decode attention: paged and contiguous caches, the partials'
-combine, and the sequence-parallel decode at one rank.
+combine, and the sequence-parallel decode across ranks.
 
 Counterpart of ``triton_dist_tpu/ops/flash_decode.py``. Four kernel
 wrappers, each with its plain PyTorch version beside it:
@@ -14,8 +14,9 @@ wrappers, each with its plain PyTorch version beside it:
 - ``decode_combine`` (``_combine_kernel``): the lse-weighted merge of R
   partials, ``csrc/flash_decode.cu``;
 - ``ll_merge``: the merge half of ``ll_ag_merge`` (``_ll_ag_merge_kernel``),
-  the canonical-order running merge of gathered partials,
-  ``csrc/flash_decode.cu``;
+  the canonical-order running merge of gathered partials, and
+  ``ll_ag_merge`` across ranks, the partials' all-gather fused with that
+  merge, ``csrc/flash_decode.cu``;
 - ``fd_page_partials`` (``_fd_page_partials`` / ``_fd_partial_kernel``): one
   independent softmax partial per block-table page, and ``fd_partials_fold``,
   the n = 1 route of ``flash_decode_dist``: the same per-page partials folded
@@ -24,13 +25,11 @@ wrappers, each with its plain PyTorch version beside it:
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises, and adds one to its ``launches`` count at
-each launch. ``ll_ag_merge``, ``sp_gqa_flash_decode`` and
-``flash_decode_dist`` run at one rank: the fused partial all-gather of one
-shard is the shard itself, the ``push``/``ring`` gather is
-``ops.allgather.all_gather``'s one-rank kernel, and the page fold has one
-rank's slab to fold. More ranks wait for the shmem layer (ROADMAP.md Queue
-A, item 4 "shmem layer across ranks") and the SP transports (item 8 "SP
-decode and sharded serving across ranks").
+each launch. ``ll_ag_merge`` and ``sp_gqa_flash_decode`` run at any rank
+count of the mesh (every rank on one card, see ``shmem/context.py``);
+``flash_decode_dist`` runs at one rank, where the page fold has one rank's
+slab to fold: its slab exchange across ranks (B8) waits for ROADMAP.md
+Queue A, item 8 "SP decode and sharded serving across ranks".
 
 The TPU kernels return lse lane-broadcast as ``[B, Hq, 128]``, a tiling
 artifact of the TPU (every DMA slice stays 128 lanes wide), and the SP wire
@@ -48,6 +47,8 @@ import torch
 
 from triton_dist_tpu_torch import csrc
 from triton_dist_tpu_torch.ops.allgather import all_gather
+from triton_dist_tpu_torch.ops.common import family_pad, spans_every_rank
+from triton_dist_tpu_torch.shmem import device as shd
 
 NEG_INF = -1e30
 
@@ -224,13 +225,22 @@ _COMBINE_ENTRIES = {(torch.float32, torch.float32): "tdt_decode_combine_f32",
                         "tdt_decode_combine_f32_bf16"}
 _MERGE_ENTRIES = {torch.float32: "tdt_ll_merge_f32",
                   torch.bfloat16: "tdt_ll_merge_bf16"}
+# outs lses ws res rows D pads n, then the shmem layer's launch arguments
+_LL_AG_SIG = [_P, _P, _P, _P, _I, _I, _P, _I] + shd.LAUNCH_SIG
+_LL_AG_ENTRIES = {torch.float32: "tdt_ll_ag_merge_f32",
+                  torch.bfloat16: "tdt_ll_ag_merge_bf16"}
+# rows of the (B, Hq) partials one block of the fused merge takes (its warps)
+_LL_AG_ROWS = 4
+
+
+_FD_SIGNATURES = {**{n: _PARTIAL_SIG for n in _PARTIAL_ENTRIES.values()},
+                  **{n: _COMBINE_SIG for n in _COMBINE_ENTRIES.values()},
+                  **{n: _MERGE_SIG for n in _MERGE_ENTRIES.values()},
+                  **{n: _LL_AG_SIG for n in _LL_AG_ENTRIES.values()}}
 
 
 def _fd_lib():
-    sigs = {**{n: _PARTIAL_SIG for n in _PARTIAL_ENTRIES.values()},
-            **{n: _COMBINE_SIG for n in _COMBINE_ENTRIES.values()},
-            **{n: _MERGE_SIG for n in _MERGE_ENTRIES.values()}}
-    return csrc.load("flash_decode", sigs)
+    return csrc.load("flash_decode", _FD_SIGNATURES)
 
 
 def split_count(S: int, split: int = SPLIT_KEYS) -> int:
@@ -519,67 +529,144 @@ def ll_merge(partial_outs, partial_lses, out_dtype=torch.float32):
 ll_merge.launches = 0
 
 
-def _multi_rank(what: str, n: int):
-    raise NotImplementedError(
-        f"{what} over {n} ranks is not ported yet: the partial all-gather "
-        "waits for the shmem layer (ROADMAP.md Queue A, item 4 \"shmem layer "
-        "across ranks\") and the SP transports (item 8 \"SP decode and "
-        "sharded serving across ranks\")")
+def ll_ag_merge_plain(partial_outs, partial_lses, out_dtype=torch.float32):
+    """The plain version of ``ll_ag_merge`` at n ranks: every rank merges
+    the same segments in the same order, so each replica is
+    ``ll_merge_plain`` of the stacked partials: [n, B, Hq, D]."""
+    merged = ll_merge_plain(partial_outs, partial_lses, out_dtype)
+    n = partial_outs.shape[0]
+    return merged.unsqueeze(0).expand((n,) + tuple(merged.shape)).clone()
 
 
 def ll_ag_merge(ctx, partial_outs, partial_lses, out_dtype, axis: str):
-    """The fused partial all-gather and lse merge at one rank. Each rank's
-    partial ``(out [1, B, Hq, D] f32, lse [1, B, Hq])`` is gathered over
-    ``axis`` (at one rank, the shard itself) and merged by ``ll_merge``.
-    Returns [B, Hq, D] in ``out_dtype``. An axis above 1 raises."""
-    n = ctx.axis_size(axis)
-    if n != 1:
-        _multi_rank("ll_ag_merge", n)
-    if partial_outs.shape[0] != n or partial_lses.shape[0] != n:
-        raise ValueError(f"ll_ag_merge: expected {n} partial, got "
-                         f"{partial_outs.shape[0]}")
-    return ll_merge(partial_outs, partial_lses, out_dtype)
+    """The fused partial all-gather and lse merge (TPU kernel B5). Rank r's
+    partial is ``(partial_outs[r] [B, Hq, D] f32, partial_lses[r] [B, Hq])``;
+    each rank gathers every rank's partial over ``axis`` and merges them in
+    canonical rank order with ``ll_merge``'s running rescale.
 
+    At one rank it returns the merge of the one partial ([B, Hq, D] in
+    ``out_dtype``, the ``ll_merge`` kernel). At n ranks it returns every
+    rank's replica, [n, B, Hq, D], each equal to ``ll_merge`` of the stacked
+    partials bit for bit: on a CUDA tensor one launch covering every rank
+    puts each partial into every peer's workspace and merges as the
+    segments land (``csrc/flash_decode.cu``; it adds one to
+    ``ll_ag_merge.launches``); a CPU tensor runs the plain version."""
+    n = spans_every_rank(ctx, axis, "ll_ag_merge")
+    if partial_outs.shape[0] != n or partial_lses.shape[0] != n:
+        raise ValueError(f"ll_ag_merge: expected {n} partials, got "
+                         f"{partial_outs.shape[0]}")
+    if n == 1:
+        return ll_merge(partial_outs, partial_lses, out_dtype)
+    if partial_outs.device.type == "cpu":
+        return ll_ag_merge_plain(partial_outs, partial_lses, out_dtype)
+    _check_cuda("ll_ag_merge", (partial_outs, partial_lses))
+    if partial_outs.dtype != torch.float32 \
+            or partial_lses.dtype != torch.float32 \
+            or out_dtype not in _LL_AG_ENTRIES:
+        raise TypeError(f"ll_ag_merge: partials must be f32 and the output "
+                        f"bf16 or f32, got {partial_outs.dtype}, "
+                        f"{partial_lses.dtype} -> {out_dtype}")
+    D = partial_outs.shape[-1]
+    if (partial_outs.dim() != 4 or partial_lses.shape
+            != partial_outs.shape[:3] or D > 256
+            or partial_outs[0].numel() == 0):
+        raise ValueError(f"ll_ag_merge: unsupported shapes outs "
+                         f"{tuple(partial_outs.shape)}, lses "
+                         f"{tuple(partial_lses.shape)}")
+    rows = partial_outs[0].numel() // D
+    lanes = -(-rows // _LL_AG_ROWS)
+    out = torch.empty(partial_outs.shape, dtype=out_dtype,
+                      device=partial_outs.device)
+    ws = torch.empty(n, n * rows * (D + 1), dtype=torch.float32,
+                     device=partial_outs.device)
+    pad = family_pad(ctx, "ll_ag_merge", axis, (n + 1) * lanes)
+    outs_t, lses_t, ws_t, res_t, pads = shd.tables(
+        ctx, partial_outs, partial_lses, ws, out, pad)
+    lib = _fd_lib()
+    args = shd.launch_args(ctx)
+    with csrc.current_on(out.device):
+        rc = getattr(lib, _LL_AG_ENTRIES[out_dtype])(
+            outs_t, lses_t, ws_t, res_t, rows, D, pads, n, *args)
+    csrc.check(lib, rc, "ll_ag_merge")
+    ll_ag_merge.launches += 1
+    return out
+
+
+ll_ag_merge.launches = 0
 
 AG_METHODS = ("fused", "push", "ring")
 
 
+def sp_local_lens(global_kv_lens, n: int, s_local: int):
+    """Each rank's valid keys of its shard: ``clamp(kv_len - r * S_local, 0,
+    S_local)``, [n, B] int32."""
+    starts = torch.arange(0, n * s_local, s_local, dtype=torch.int32,
+                          device=global_kv_lens.device)
+    return (global_kv_lens.to(torch.int32)[None, :]
+            - starts[:, None]).clamp_(0, s_local)
+
+
 def sp_gqa_flash_decode(ctx, q, k_cache, v_cache, global_kv_lens,
                         axis: str | None = None, block_s: int = 128,
-                        ag_method: str = "fused"):
-    """Sequence-parallel flash-decode at one rank: this rank's partial over
-    its KV shard (``gqa_decode_partial``), the partial all-gather, and the
-    lse merge.
+                        ag_method: str = "fused", replicas: bool = False):
+    """Sequence-parallel flash-decode: each rank's split-KV partial over its
+    KV shard (``gqa_decode_partial``), the partial all-gather, and the lse
+    merge.
 
-    q [B, Hq, D]; k_cache / v_cache [B, Hkv, S, D] (the whole cache at one
-    rank); global_kv_lens [B] int32. Returns [B, Hq, D] in q's type.
-    ``ag_method="fused"`` merges with ``ll_merge`` (``ll_ag_merge``);
-    ``"push"`` and ``"ring"`` pack the partial as one f32 wire
-    ``(out || lse)`` [1, B, Hq, D + 1], gather it with ``all_gather`` and
-    merge with ``decode_combine`` over the outs cast to q's type, as the JAX
-    path does. Over one partial both give the partial's bits. Other methods
-    and axes above 1 raise ``NotImplementedError``."""
+    q [B, Hq, D]; global_kv_lens [B] int32. At one rank ``k_cache`` /
+    ``v_cache`` are the whole cache [B, Hkv, S, D]; at n ranks they are
+    sharded on S, rank-major: [n, B, Hkv, S / n, D] (``models.llama``'s
+    ``shard_kv_cache`` makes the layout), rank r holding keys
+    ``r * S / n .. (r + 1) * S / n`` with ``clamp(kv_len - r * S / n, 0, S /
+    n)`` of them valid; an empty shard's partial is (0, NEG_INF), which
+    every merge takes as an exact no-op. One ``gqa_decode_partial`` launch
+    covers every rank's shard (the rank is a batch row).
+
+    ``ag_method="fused"`` merges with ``ll_ag_merge``; ``"push"`` and
+    ``"ring"`` pack each partial as one f32 wire ``(out || lse)`` [B, Hq,
+    D + 1], gather it with ``all_gather`` and let each rank merge its copy
+    with ``decode_combine`` over the outs cast to q's type, as the JAX path
+    does (push and ring give the same bits). Returns [B, Hq, D] in q's type
+    (rank 0's replica), or with ``replicas`` every rank's, [n, B, Hq, D]
+    (at one rank [1, B, Hq, D]). Other methods raise
+    ``NotImplementedError``."""
     axis = axis or ctx.axis_names[0]
-    n = ctx.axis_size(axis)
     if ag_method not in AG_METHODS:
         raise NotImplementedError(
             f"sp_gqa_flash_decode: ag_method {ag_method!r} is not ported "
-            f"(one rank takes {AG_METHODS}; the 2-D all-gathers wait for "
+            f"(the port takes {AG_METHODS}; the 2-D all-gathers wait for "
             "ROADMAP.md Queue A, item 5 \"collectives\")")
-    if n != 1:
-        _multi_rank("sp_gqa_flash_decode", n)
-    S = k_cache.shape[2]
-    local_len = global_kv_lens.clamp(0, S).to(torch.int32)
-    out_p, lse_p = gqa_decode_partial(q, k_cache, v_cache, local_len,
-                                      block_s=block_s)
+    n = spans_every_rank(ctx, axis, "sp_gqa_flash_decode")
+    B, Hq, D = q.shape
+    if n == 1 and k_cache.dim() == 4:          # one rank's whole cache
+        k_cache, v_cache = k_cache[None], v_cache[None]
+    if k_cache.dim() != 5 or k_cache.shape[:2] != (n, B) \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"sp_gqa_flash_decode: the caches of {n} ranks are [n, B, Hkv, "
+            f"S_local, D] = [{n}, {B}, ...], got {tuple(k_cache.shape)} / "
+            f"{tuple(v_cache.shape)}")
+    lens = sp_local_lens(global_kv_lens, n, k_cache.shape[3]).reshape(n * B)
+    out_p, lse_p = gqa_decode_partial(
+        q.repeat(n, 1, 1), k_cache.reshape((n * B,) + k_cache.shape[2:]),
+        v_cache.reshape((n * B,) + v_cache.shape[2:]), lens,
+        block_s=block_s)
+    outs = out_p.float().view(n, B, Hq, D)
+    lses = lse_p.view(n, B, Hq)
     if ag_method == "fused":
-        return ll_ag_merge(ctx, out_p.float()[None], lse_p[None], q.dtype,
-                           axis)
-    D = q.shape[-1]
-    wire = torch.cat([out_p.float(), lse_p[..., None]], -1)[None]
-    g = all_gather(ctx, wire, axis=axis, method=ag_method)
-    return decode_combine(g[..., :D].to(q.dtype).contiguous(),
-                          g[..., D].contiguous())
+        rep = ll_ag_merge(ctx, outs, lses, q.dtype, axis)
+        rep = rep[None] if n == 1 else rep
+    else:
+        wire = torch.cat([outs, lses[..., None]], -1)      # [n, B, Hq, D+1]
+        g = all_gather(ctx, wire, axis=axis, method=ag_method)
+        # [rank, segment, B, Hq, D+1] -> one combine over every rank's copy,
+        # the segments leading
+        segs = (g[None] if n == 1 else g).transpose(0, 1)
+        rep = decode_combine(
+            segs[..., :D].to(q.dtype).reshape(n, n * B, Hq, D).contiguous(),
+            segs[..., D].reshape(n, n * B, Hq).contiguous()
+        ).view(n, B, Hq, D)
+    return rep if replicas else rep[0]
 
 
 # ---------------------------------------------------------------------------
@@ -845,6 +932,6 @@ __all__ = ["AG_METHODS", "FD_EMPTY", "NEG_INF", "SPLIT_KEYS",
            "fd_page_partials", "fd_page_partials_plain", "fd_partials_fold",
            "fd_partials_fold_plain", "flash_decode_dist", "gqa_decode_paged",
            "gqa_decode_paged_plain", "gqa_decode_partial",
-           "gqa_decode_partial_plain", "ll_ag_merge", "ll_merge",
-           "ll_merge_plain", "paged_kv_write", "sp_gqa_flash_decode",
-           "split_count"]
+           "gqa_decode_partial_plain", "ll_ag_merge", "ll_ag_merge_plain",
+           "ll_merge", "ll_merge_plain", "paged_kv_write", "sp_gqa_flash_decode",
+           "sp_local_lens", "split_count"]

@@ -13,9 +13,9 @@ JAX kernel's sum of one slot; the workspace keeps the partial in slot 0 and
 the send stage is untouched, as the TPU kernel leaves them at n = 1.
 
 More ranks, tuple axes (the 2-tier ``_gemm_rs_2d``) and slice-crossing
-axes (``_gemm_rs_xla``) wait for the shmem layer and the collectives
-(ROADMAP.md Queue A, items 4 "shmem layer across ranks" and 6 "TP overlap
-across ranks") and raise ``NotImplementedError``.
+axes (``_gemm_rs_xla``) wait for the puts across ranks over the shmem
+layer (ROADMAP.md Queue A, item 6 "TP overlap across ranks") and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations

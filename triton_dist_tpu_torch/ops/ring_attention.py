@@ -10,9 +10,8 @@ launch the hand-written Hopper kernels in ``csrc/ring_attention.cu``; on a
 CPU tensor they run ``ring_attention_fwd_plain`` and
 ``ring_attention_bwd_plain``, the PyTorch versions in dense masked-matrix
 form, with the same prescale and rounding points. A ring of more than one
-rank raises: the transport needs the port's shmem layer (ROADMAP.md Queue
-A, items 4 "shmem layer across ranks" and 9 "training and CP across
-ranks").
+rank raises: the ring transport over the port's shmem layer is ROADMAP.md
+Queue A, item 9 "training and CP across ranks".
 
 Layouts are the JAX package's: q ``[B, Hq, S, D]``, k/v ``[B, Hkv, S, D]``,
 lse ``[B, Hq, S]`` f32 in the natural-log domain. The softmax runs in base
@@ -59,10 +58,9 @@ def _check_ring(group, layout: str, S: int) -> None:
     n = 1 if group is None else group.size()
     if n > 1:
         raise NotImplementedError(
-            f"ring attention over {n} ranks: the ring transport needs the "
-            "port's shmem layer (ROADMAP.md Queue A, items 4 \"shmem layer "
-            "across ranks\" and 9 \"training and CP across ranks\"); one "
-            "rank is supported")
+            f"ring attention over {n} ranks: the ring transport is not "
+            "ported yet (ROADMAP.md Queue A, item 9 \"training and CP across "
+            "ranks\"); one rank is supported")
 
 
 def _scale(sm_scale, D: int) -> float:

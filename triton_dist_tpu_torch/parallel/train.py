@@ -72,15 +72,14 @@ def _check_plan(cfg, plan: ParallelPlan, mesh: dict | None) -> None:
     if plan.pp is not None:
         raise NotImplementedError(
             "pipeline parallelism needs more than one rank "
-            "(parallel/pipeline.py, ROADMAP.md Queue A, items 4 \"shmem "
-            "layer across ranks\" and 9 \"training and CP across ranks\")")
+            "(parallel/pipeline.py, ROADMAP.md Queue A, item 9 \"training "
+            "and CP across ranks\")")
     wide = {a: n for a, n in (mesh or {}).items() if n > 1}
     if wide:
         raise NotImplementedError(
-            f"mesh axes {wide} need more than one rank: the port's shmem "
-            "layer and parallel/mesh.py come first (ROADMAP.md Queue A, "
-            "items 4 \"shmem layer across ranks\" and 9 \"training and CP "
-            "across ranks\")")
+            f"mesh axes {wide} need more than one rank: parallel/mesh.py and "
+            "the training plans across ranks are not ported yet (ROADMAP.md "
+            "Queue A, item 9 \"training and CP across ranks\")")
     if plan.cp is not None and plan.sp:
         raise ValueError("cp shards the sequence dim; disable sp")
     if plan.cp is not None and cfg.head_dim != HEAD_DIM:

@@ -22,11 +22,10 @@ waits for ROADMAP.md Queue A, item 8 "SP decode and sharded serving across
 ranks", where it is to be priced from an H100 measurement.
 
 Mesh axes above 1, a quantised a2a wire, the overlap schedules and
-speculation raise ``NotImplementedError``: they wait for the shmem layer and
-the kernels behind it (ROADMAP.md Queue A, items 4 "shmem layer across
-ranks", 7 "MoE / EP across ranks" and 8 "SP decode and sharded serving
-across ranks"; speculation is item 10, "the rest of the single-device
-serving tier"). The replicated-decision digest has nothing to compare at one
+speculation raise ``NotImplementedError``: they wait for the kernels across
+ranks behind them (ROADMAP.md Queue A, items 7 "MoE / EP across ranks" and
+8 "SP decode and sharded serving across ranks"; speculation is item 10,
+"the rest of the single-device serving tier"). The replicated-decision digest has nothing to compare at one
 rank.
 """
 
@@ -69,7 +68,6 @@ def _later(what: str, item: str):
                               f"{item}")
 
 
-_SHMEM = 'item 4 "shmem layer across ranks"'
 _MOE = 'item 7 "MoE / EP across ranks"'
 _SP = 'item 8 "SP decode and sharded serving across ranks"'
 
@@ -103,7 +101,7 @@ class ShardedServingEngine(ServingEngine):
         wide = {ax: ctx.axis_size(ax) for ax in MESH_AXES
                 if ctx.axis_size(ax) > 1}
         if wide:
-            _later(f"serving on mesh axes {wide}", _SHMEM)
+            _later(f"serving on mesh axes {wide}", _SP)
         if wire_dtype is not None:
             _later(f"the a2a wire dtype {wire_dtype!r} (B21)", _MOE)
         if overlap != "off":

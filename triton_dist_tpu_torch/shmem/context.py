@@ -1,48 +1,64 @@
-"""The device mesh of the shmem layer, in its one-rank form.
+"""The mesh of the shmem layer: its axes, its ranks, and their symmetric
+buffers.
 
-Counterpart of ``triton_dist_tpu/shmem/context.py``: ``ShmemContext`` names
-the mesh axes and their sizes, and ``initialize_distributed`` builds it.
-The JAX context wraps a ``jax.sharding.Mesh`` whose symmetric buffers and
-``shard_map`` launch the collective kernels. On one card every axis has
-size 1, the collectives are identities, and the context only carries the
-axis names and the device. An axis of size above 1 raises: the symmetric
-tensors, the process group and the transports are ROADMAP.md Queue A,
-item 4 "shmem layer across ranks".
+Counterpart of ``triton_dist_tpu/shmem/context.py``. The JAX context wraps a
+``jax.sharding.Mesh`` whose devices each hold one rank's shard. The port
+runs every rank of the mesh in one process on one card (the analog of the
+JAX package's single-process cluster of virtual CPU devices): flat rank ids
+are row-major over the axes, as JAX's are, and a *symmetric tensor* is one
+allocation ``[n, *local]`` whose row r is rank r's buffer. A collective
+kernel reaches a peer only through the table of the n row addresses
+(``peer_table``), never by offsetting its own, so that addresses mapped
+from other processes or cards can fill the same table later. Each kernel
+family has its own symmetric signal pad (``signal_pad``), the analog of
+the JAX package's ``collective_id_for``: two families never share a word.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Sequence
 
 import torch
 
 from triton_dist_tpu_torch.utils.env import default_device
 
+# the most ranks one launch covers (csrc/shmem.cuh kMaxPes)
+MAX_RANKS = 8
+# how long a collective kernel's spin waits before it reports its kernel,
+# rank and signal and its call raises (shmem/device.py)
+SPIN_BUDGET_S = 1.0
 
-def _multi_rank(mesh_shape) -> None:
-    raise NotImplementedError(
-        f"a mesh of shape {tuple(mesh_shape)} spans more than one rank; the "
-        "port runs one rank until the shmem layer (symmetric tensors, the "
-        "process group and its transports) is ported: ROADMAP.md Queue A, "
-        "item 4 \"shmem layer across ranks\"")
+# every live context by id: a starved spin may leave signals in the pads of
+# whichever context launched it, and the report does not say which
+_LIVE: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
 
 
 @dataclasses.dataclass(frozen=True)
 class ShmemContext:
-    """The mesh's axis names and sizes, and the device of this rank."""
+    """The mesh's axis names and sizes, the device that holds every rank,
+    and the per-family signal pads."""
 
     axis_names: tuple[str, ...]
     mesh_shape: tuple[int, ...]
     device: torch.device
+    _pads: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False, hash=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.mesh_shape):
             raise ValueError(f"axis names {self.axis_names} and mesh shape "
                              f"{self.mesh_shape} differ in length")
-        if any(n != 1 for n in self.mesh_shape):
-            _multi_rank(self.mesh_shape)
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"axis names {self.axis_names} repeat")
+        if any(n < 1 for n in self.mesh_shape):
+            raise ValueError(f"mesh shape {self.mesh_shape} has an empty axis")
+        if self.num_ranks > MAX_RANKS:
+            raise ValueError(f"a mesh of {self.num_ranks} ranks: one card "
+                             f"runs at most {MAX_RANKS}")
+        _LIVE[id(self)] = self
 
     @property
     def num_ranks(self) -> int:
@@ -57,18 +73,108 @@ class ShmemContext:
         return math.prod(self.mesh_shape[self.axis_names.index(a)]
                          for a in names)
 
+    # -- rank ids (row-major over the axes, as JAX's flat logical ids) -----
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """Rank ``rank``'s coordinate on every axis."""
+        out = {}
+        for name, size in zip(reversed(self.axis_names),
+                              reversed(self.mesh_shape)):
+            out[name] = rank % size
+            rank //= size
+        return out
+
+    def flat_id(self, coords: dict[str, int]) -> int:
+        pid = 0
+        for name, size in zip(self.axis_names, self.mesh_shape):
+            pid = pid * size + coords[name]
+        return pid
+
+    def my_pe(self, rank: int, axis: str | Sequence[str]) -> int:
+        """Rank ``rank``'s index along ``axis`` (or flattened over several
+        axes, major to minor): JAX ``shmem/device.py::my_pe``."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        c = self.coords(rank)
+        pid = 0
+        for name in names:
+            pid = pid * self.axis_size(name) + c[name]
+        return pid
+
+    def pe_at(self, rank: int, axis: str, index: int) -> int:
+        """The flat id of the rank whose coordinate on ``axis`` is ``index``
+        and whose other coordinates are ``rank``'s: JAX ``pe_at``."""
+        c = self.coords(rank)
+        c[axis] = index
+        return self.flat_id(c)
+
+    def pe_at_group(self, rank: int, group_axes: str | Sequence[str],
+                    index: int) -> int:
+        """The flat id of the rank at the flattened coordinate ``index``
+        over ``group_axes`` (major to minor), other coordinates ``rank``'s:
+        JAX ``pe_at_group``."""
+        names = (group_axes,) if isinstance(group_axes, str) \
+            else tuple(group_axes)
+        c = self.coords(rank)
+        for name in reversed(names):
+            size = self.axis_size(name)
+            c[name] = index % size
+            index //= size
+        return self.flat_id(c)
+
+    # -- symmetric tensors ---------------------------------------------------
+
+    def create_symm_tensor(self, shape: Sequence[int], dtype) -> torch.Tensor:
+        """A symmetric tensor of zeros: ``[n, *shape]`` on the context's
+        device, rank r's buffer at row r."""
+        return torch.zeros((self.num_ranks,) + tuple(shape), dtype=dtype,
+                           device=self.device)
+
+    def peer_table(self, symm: torch.Tensor) -> tuple[int, ...]:
+        """The address of every rank's buffer of ``symm`` (rank-major, one
+        row per rank): what a kernel gets in place of its peers' buffers."""
+        if symm.shape[0] != self.num_ranks or not symm.is_contiguous():
+            raise ValueError(f"a symmetric tensor is contiguous [n = "
+                             f"{self.num_ranks}, ...], got "
+                             f"{tuple(symm.shape)}")
+        step = symm.numel() // self.num_ranks * symm.element_size()
+        return tuple(symm.data_ptr() + r * step
+                     for r in range(self.num_ranks))
+
+    def signal_pad(self, family: str, words: int) -> torch.Tensor:
+        """The signal pad of one kernel family: ``[n, >= words]`` int32,
+        zero between calls (every wait consumes its signal). Made at first
+        use, and made again larger when a call needs more words."""
+        pad = self._pads.get(family)
+        if pad is None or pad.shape[1] < words:
+            pad = torch.zeros(self.num_ranks, max(words, 64),
+                              dtype=torch.int32, device=self.device)
+            self._pads[family] = pad
+        return pad
+
+    def clear_signal_pads(self) -> None:
+        """Zero every pad: after a spin ran out, a pad may hold signals that
+        no wait took."""
+        for pad in self._pads.values():
+            pad.zero_()
+
+
+def clear_live_signal_pads() -> None:
+    """Zero the pads of every live context (after a spin ran out in a
+    launch of any of them)."""
+    for ctx in list(_LIVE.values()):
+        ctx.clear_signal_pads()
+
 
 def initialize_distributed(axis_names: Sequence[str] = ("x",),
                            mesh_shape: Sequence[int] | None = None,
                            device=None) -> ShmemContext:
-    """The context of a one-rank mesh over ``axis_names`` (each of size 1
-    unless ``mesh_shape`` says otherwise, which raises above 1) on
-    ``device`` (``cuda`` unless the caller names another)."""
+    """The context of a mesh over ``axis_names`` (each of size 1 unless
+    ``mesh_shape`` says otherwise) whose ranks all run on ``device``
+    (``cuda`` unless the caller names another)."""
     names = tuple(axis_names)
     shape = tuple(mesh_shape) if mesh_shape is not None else (1,) * len(names)
-    if any(n != 1 for n in shape):
-        _multi_rank(shape)
     return ShmemContext(names, shape, default_device(device))
 
 
-__all__ = ["ShmemContext", "initialize_distributed"]
+__all__ = ["MAX_RANKS", "SPIN_BUDGET_S", "ShmemContext",
+           "clear_live_signal_pads", "initialize_distributed"]
