@@ -118,6 +118,25 @@ Phases, each printing its lines:
    fed one rank's tokens, must give ``decode_step``'s logits within 1e-5
    of their scale. A time at n > 1 is
    the kernels and their protocol on one card's SMs and HBM, not NVLink.
+15. tensor-parallel overlap across ranks on the one card (inside phase 5's
+   lifetime, on its 32-layer bf16 params): AG-GEMM (B15) and GEMM-RS (B16)
+   at Llama-3-8B's TP widths over 4096 token rows (qkv, gate‖up; wo, down)
+   at 2 and 4 ranks, bf16, through their persistent contexts: bitwise
+   their composition from the one-rank kernels (B2 on the gathered A by
+   column block; B2's f32 partials through the slot reduction in slot
+   order), on a rerun and on 5 calls with fresh data, within 2e-2 of their
+   plain versions, the workspace slots as the protocol leaves them and the
+   signal pads zero; timed beside the bound over all ranks' work, the plain
+   version, one-rank B2 on the whole product and ``torch.matmul``. Then
+   the main path, launches counted: ``forward_tp_overlap`` at 1, 2 and 4
+   ranks on 2 x 2048 tokens (twice each, bitwise; wall time, peak memory,
+   device time by family and idle share under the profiler), its logits at
+   n ranks within a gate of one rank's scale and a control (one rank's
+   shard of ``wo`` zeroed in every layer) outside it; and
+   ``mlp_tp_overlap``'s output and gradients in f32 at 1024 tokens at 2
+   and 4 ranks within 1e-5 of one rank's scale. Beside phase 4 (f32, full
+   width, the depth cut to 2), the logits at 2 and 4 ranks within 1e-5 of
+   one rank's scale.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -4011,6 +4030,456 @@ def sp_kernels(sp: dict, gather_cases: list, gather_launches: int) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 15: AG-GEMM and GEMM-RS across ranks, and the TP forward at 2 and 4
+# ---------------------------------------------------------------------------
+
+# the overlap ops at Llama-3-8B's tensor-parallel widths over 4096 token
+# rows, bf16: (name, op, M, K, N) of the global [M, K] @ [K, N]
+TP_OPS = (("qkv", "ag_gemm", 4096, 4096, 6144),
+          ("gate_up", "ag_gemm", 4096, 4096, 28672),
+          ("wo", "gemm_rs", 4096, 4096, 4096),
+          ("down", "gemm_rs", 4096, 14336, 4096))
+# the case of each op whose numbers head its kernels-line entry
+TP_OPS_MAIN = {"ag_gemm": "gate_up", "gemm_rs": "down"}
+# each op against its plain version (max |diff| / max |plain|): both sum in
+# f32 and cast once, in other orders; a bf16 rounding may fall the other way
+TP_OPS_TOL = 2e-2
+# forward_tp_overlap on phase 11's bf16 params at each rank count
+TP_RANKS_FWD = dict(B=2, S=2048, ranks=(1, 2, 4))
+# the bf16 logits at n ranks within this share of n = 1's logit scale (max
+# |diff| / max |ref|): GEMM-RS sums each K in n partials, so a bf16 rounding
+# may fall the other way, and 32 layers carry it on. The control, the
+# second rank's shard of wo zeroed in every layer at 4 ranks, must fall
+# outside it. On an H100 sound runs read 4.0% (n = 2) and 4.4% (n = 4), the
+# control 126%
+TP_RANKS_GATE = 0.2
+# the f32 check at full width, the depth cut to 2 layers (phase 4's params):
+# the logits at n ranks within tol of n = 1's scale (GEMM-RS's partial sums
+# are the only change of order)
+TP_RANKS_F32 = dict(B=2, S=512, layers=2, tol=1e-5)
+# mlp_tp_overlap in f32 at Llama-3-8B's widths on layer 0's weights: its
+# output and four gradients at n ranks within tol of n = 1's scale
+TP_MLP_RANKS = dict(T=1024, tol=1e-5)
+TP_RANKS_NOTE = ("n > 1 ranks share the one card: times are the kernels and "
+                 "their protocol on shared SMs and one HBM, not NVLink "
+                 "transfers, and the overlap of puts with compute cannot "
+                 "show")
+
+
+def ag_composition(a, b, n: int, out_dtype=None):
+    """AG-GEMM at n ranks from the one-rank kernel: B2 (``matmul``) on the
+    gathered A, column block by column block."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import gemm as tg
+
+    nl = b.shape[1] // n
+    return torch.cat([tg.matmul(a, b[:, r * nl:(r + 1) * nl].contiguous(),
+                                out_dtype=out_dtype) for r in range(n)],
+                     dim=1)
+
+
+def rs_composition(a, b, n: int, out_dtype=None):
+    """GEMM-RS at n ranks from the one-rank kernels: B2's f32 partial of
+    each rank's K block, and each rank's rows the slot reduction of the n
+    partials of its segment in slot order. Returns (out, partials)."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import gemm as tg
+
+    M, K = a.shape
+    kl, m = K // n, M // n
+    parts = [tg.matmul(a[:, s * kl:(s + 1) * kl].contiguous(),
+                       b[s * kl:(s + 1) * kl].contiguous(),
+                       out_dtype=torch.float32) for s in range(n)]
+    out = torch.cat([tg.slot_reduce(torch.stack([p[r * m:(r + 1) * m]
+                                                 for p in parts]),
+                                    out_dtype or a.dtype)
+                     for r in range(n)])
+    return out, parts
+
+
+def _pads_zero(ctx) -> bool:
+    return all(not bool(p.any()) for p in ctx._pads.values())
+
+
+def check_tp_ops(device, timed: bool = True, ranks=SP_RANKS, ops=TP_OPS,
+                 fresh: int = FRESH_CALLS, seed: int = 17) -> list[dict]:
+    """B15 (``ag_gemm``) and B16 (``gemm_rs``) across ranks through their
+    persistent contexts (``AgGemmContext``, ``GemmRsContext``) at each of
+    ``ranks`` and each of ``ops``, bf16: bitwise their composition from the
+    one-rank kernels (``ag_composition``, ``rs_composition``), on a rerun
+    and on ``fresh`` calls with fresh data; within ``TP_OPS_TOL`` of their
+    plain versions; every workspace slot as the protocol leaves it (AG: rank
+    r's slot s holds shard s for s != r; RS: rank r's slot s holds rank s's
+    partial of segment r) and every signal pad zero after the calls. Timed
+    beside the bound over all ranks' work, the plain version, one-rank B2
+    on the whole product and ``torch.matmul``. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import gemm as tg
+    from triton_dist_tpu_torch.ops.allgather_gemm import (
+        ag_gemm_plain, create_ag_gemm_context)
+    from triton_dist_tpu_torch.ops.gemm_reduce_scatter import (
+        create_gemm_rs_context, gemm_rs_plain)
+    from triton_dist_tpu_torch.shmem import check_errors
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def operands(M, K, N):
+        a = torch.randn(M, K, generator=gen, device=device).bfloat16()
+        b = (torch.randn(K, N, generator=gen, device=device) * 0.02) \
+            .bfloat16()
+        return a, b
+
+    records = []
+    for n in ranks:
+        ctx = _mesh(n, device)
+        for name, op, M, K, N in ops:
+            m = M // n
+            a, b = operands(M, K, N)
+            if op == "ag_gemm":
+                layer = create_ag_gemm_context(ctx, m, K, torch.bfloat16)
+                compose = lambda a, b, n=n: ag_composition(a, b, n)  # noqa
+                plain = lambda a=a, b=b, n=n: ag_gemm_plain(a, b, n)  # noqa
+            else:
+                layer = create_gemm_rs_context(ctx, m, N, torch.bfloat16)
+                compose = lambda a, b, n=n: rs_composition(a, b, n)[0]  # noqa
+                plain = lambda a=a, b=b, n=n: gemm_rs_plain(a, b, n)  # noqa
+            got, again = layer(a, b), layer(a, b)
+            check_errors(ctx)
+            pads_zero = _pads_zero(ctx)
+            if op == "ag_gemm":
+                want = ag_composition(a, b, n)
+                shards = a.view(n, m, K)
+                slots = all(torch.equal(layer.ws[r, s], shards[s])
+                            for r in range(n) for s in range(n) if s != r)
+            else:
+                want, parts = rs_composition(a, b, n)
+                slots = all(torch.equal(layer.ws[r, s],
+                                        parts[s][r * m:(r + 1) * m])
+                            for r in range(n) for s in range(n))
+                del parts
+            ref = plain()
+            err = (got.float() - ref.float()).abs().max().item()
+            fresh_ok = []
+            for _ in range(fresh):
+                ai, bi = operands(M, K, N)
+                fresh_ok.append(bool(torch.equal(layer(ai, bi),
+                                                 compose(ai, bi))))
+                del ai, bi
+            check_errors(ctx)
+            rec = {"kernel": op, "n": n,
+                   "case": f"{name} bfloat16 n={n} {M}x{K}x{N}",
+                   "bitwise_composition": bool(torch.equal(got, want)),
+                   "bitwise_repeat": bool(torch.equal(got, again)),
+                   "fresh_calls_bitwise": all(fresh_ok),
+                   "slots_as_the_protocol_leaves_them": slots,
+                   "pads_zero_after": pads_zero and _pads_zero(ctx),
+                   "max_abs_err": err,
+                   "rel_err": err / max(ref.float().abs().max().item(),
+                                        1e-30),
+                   "tol": TP_OPS_TOL}
+            del want, ref
+            if timed:
+                rec.update(_timings(
+                    lambda: layer(a, b), plain, lambda: torch.matmul(a, b),
+                    (f"{op}_kernel",), gemm_bound(M, K, N, 2, 2,
+                                                  "bfloat16")))
+                rec["library_call"] = "torch.matmul of the whole product"
+                rec["b2_ms"] = perf_func(lambda: tg.matmul(a, b))[1]
+                rec["b2_kernel_device_ms"] = kernel_device_ms(
+                    lambda: tg.matmul(a, b), "tdt_gemm")
+                rec["share_of_bound"] = rec["bound_ms"] / (
+                    rec["kernel_device_ms"] or rec["ms"])
+                rec["note"] = TP_RANKS_NOTE
+            log(f"kernel {op}", json.dumps(rec))
+            if not (rec["bitwise_composition"] and rec["bitwise_repeat"]
+                    and rec["fresh_calls_bitwise"]
+                    and rec["slots_as_the_protocol_leaves_them"]
+                    and rec["pads_zero_after"]
+                    and rec["rel_err"] <= rec["tol"]):
+                raise AssertionError(f"{op} across ranks failed: {rec}")
+            records.append(rec)
+            del a, b, got, again, layer
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return records
+
+
+def _tp_ranks_launches(L: int, n: int) -> dict:
+    """The launches of one forward_tp_overlap at n ranks: B15 and B16 two a
+    layer each at any n; at one rank they run B2 (four a layer) and the
+    slot reduction (two), at n > 1 the overlap kernel alone."""
+    one = n == 1
+    return {"matmul": 4 * L if one else 0, "ag_gemm": 2 * L,
+            "gemm_rs": 2 * L, "slot_reduce": 2 * L if one else 0,
+            "all_gather": 0}
+
+
+def _logit_rel(got, ref) -> float:
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def check_tp_ranks_f32(params, cfg, device, B: int = TP_RANKS_F32["B"],
+                       S: int = TP_RANKS_F32["S"],
+                       layers: int = TP_RANKS_F32["layers"],
+                       tol: float = TP_RANKS_F32["tol"],
+                       ranks=SP_RANKS) -> dict:
+    """``forward_tp_overlap`` in f32 at full width on the first ``layers``
+    layers of ``params``: the logits at each of ``ranks`` within ``tol`` of
+    one rank's scale, with the launches of ``_tp_ranks_launches``. Raises
+    on failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    gen = torch.Generator(device=device).manual_seed(18)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device=device)
+    on_card = device.type == "cuda"
+    rec = {"dtype": str(cfg.dtype), "layers": layers, "B": B, "S": S,
+           "tol": tol, "ranks": {}}
+    ok = True
+    with torch.inference_mode():
+        ref = llama.forward_tp_overlap(_mesh(1, device), params, tokens, cfg)
+        for n in ranks:
+            ctx = _mesh(n, device)
+            kernels = _zero_launches()
+            got = llama.forward_tp_overlap(ctx, params, tokens, cfg)
+            check_errors(ctx)
+            launches = {k: v.launches for k, v in kernels.items()}
+            r = {"max_rel_err": _logit_rel(got, ref),
+                 "finite": bool(torch.isfinite(got).all()),
+                 "launches": launches}
+            rec["ranks"][n] = r
+            ok &= (r["finite"] and r["max_rel_err"] <= tol
+                   and (not on_card or launches
+                        == _tp_ranks_launches(layers, n)))
+            del got
+    log("model forward_tp_overlap f32 across ranks", json.dumps(rec))
+    if not ok:
+        raise AssertionError(f"forward_tp_overlap across ranks disagrees "
+                             f"with one rank in f32: {rec}")
+    return rec
+
+
+def run_tp_ranks(params, cfg, device, card: str,
+                 B: int = TP_RANKS_FWD["B"], S: int = TP_RANKS_FWD["S"],
+                 ranks=TP_RANKS_FWD["ranks"],
+                 gate: float = TP_RANKS_GATE) -> dict:
+    """The main path of phase 15: ``forward_tp_overlap`` at full width and
+    depth on B x S seeded tokens at each of ``ranks``, under
+    ``torch.inference_mode``, twice (the launches set to 0 just before each
+    run and read just after; the rerun bitwise), timed between device
+    synchronisations with its peak memory, then once under
+    ``torch.profiler`` (device time by family, idle share against the
+    timed run). The logits at n > 1 must lie within ``gate`` of one rank's
+    logit scale, and a control (the second rank's shard of ``wo`` zeroed in
+    every layer, at the largest rank count) outside it. Raises on
+    failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device=device)
+    on_card = device.type == "cuda"
+    L = cfg.n_layers
+
+    def clock() -> float:
+        if on_card:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    rec = {"card": card, "dtype": str(cfg.dtype), "layers": L, "B": B,
+           "S": S, "tokens": B * S, "gate": gate, "ranks": {}}
+    ok, ref = True, None
+    with torch.inference_mode():
+        for n in ranks:
+            ctx = _mesh(n, device)
+            runs, first = [], None
+            for _ in range(2):
+                if on_card:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                kernels = _zero_launches()
+                t0 = clock()
+                logits = llama.forward_tp_overlap(ctx, params, tokens, cfg)
+                wall = clock() - t0
+                launches = {k: v.launches for k, v in kernels.items()}
+                check_errors(ctx)
+                runs.append({"wall_s": wall,
+                             "peak_mem_gib": (torch.cuda.max_memory_allocated()
+                                              / 2 ** 30 if on_card else None),
+                             "launches": launches})
+                if first is None:
+                    first = logits
+                else:
+                    rerun = bool(torch.equal(logits, first))
+                del logits
+            fams, dev_ops = device_time_by_family(
+                lambda: llama.forward_tp_overlap(ctx, params, tokens, cfg),
+                on_card, (("B15", ("ag_gemm_kernel",)),
+                          ("B16", ("gemm_rs_kernel",)),
+                          ("B2", ("tdt_gemm",)),
+                          ("slot_reduce", ("tdt_slot_reduce",)),
+                          ("softmax", ("softmax",))))
+            check_errors(ctx)
+            busy = sum(fams.values())
+            wall = runs[-1]["wall_s"]
+            r = {"runs": runs, "reruns_bit_identical": rerun,
+                 "finite": bool(torch.isfinite(first).all()),
+                 "shape": list(first.shape),
+                 "launches_expected": _tp_ranks_launches(L, n),
+                 "device_busy_s": busy,
+                 "device_idle_share": 1 - busy / wall if busy else None,
+                 "device_s_by_family": fams, "device_ops": dev_ops,
+                 "pads_zero_after": _pads_zero(ctx)}
+            if ref is None:
+                ref = first
+            else:
+                r["logit_rel_diff_vs_n1"] = _logit_rel(first, ref)
+                r["argmax_agree_with_n1"] = (first.argmax(-1) == ref.argmax(
+                    -1)).float().mean().item()
+            del first
+            ok &= (r["finite"] and rerun and r["pads_zero_after"]
+                   and r["shape"] == [B, S, cfg.vocab_size]
+                   and r.get("logit_rel_diff_vs_n1", 0.0) <= gate
+                   and (not on_card or all(
+                       x["launches"] == r["launches_expected"]
+                       for x in runs)))
+            rec["ranks"][n] = r
+            log(f"forward_tp_overlap n={n}", json.dumps(r))
+        # the control: the second rank's shard of wo (its rows of the
+        # contraction) zeroed in every layer, at the largest rank count
+        n = max(ranks)
+        kl = cfg.n_heads * cfg.head_dim // n
+        wo = params["blocks"]["wo"].clone()
+        wo[:, kl:2 * kl] = 0
+        ctl_params = dict(params, blocks=dict(params["blocks"], wo=wo))
+        ctx = _mesh(n, device)
+        ctl = llama.forward_tp_overlap(ctx, ctl_params, tokens, cfg)
+        check_errors(ctx)
+        rec["control"] = {"n": n, "zeroed_rank": 1,
+                          "logit_rel_diff_vs_n1": _logit_rel(ctl, ref)}
+        del ctl, ctl_params, wo, ref
+    ok &= rec["control"]["logit_rel_diff_vs_n1"] > gate
+    log("forward_tp_overlap across ranks", json.dumps(
+        {k: v for k, v in rec.items() if k != "ranks"}))
+    if not ok:
+        raise AssertionError(f"forward_tp_overlap across ranks failed its "
+                             f"checks: {rec}")
+    return rec
+
+
+def check_tp_mlp_ranks(device, w_gate, w_up, w_down,
+                       T: int = TP_MLP_RANKS["T"],
+                       tol: float = TP_MLP_RANKS["tol"], ranks=SP_RANKS,
+                       seed: int = 20) -> dict:
+    """``mlp_tp_overlap`` in f32 (the weights cast to f32) at one rank and
+    at each of ``ranks``: its output and the gradients of x and the three
+    weights at n ranks each within ``tol`` of one rank's scale, and the
+    launches of one forward plus backward (B15 and B16 two each, B9 one).
+    Raises on failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D = w_gate.shape[0]
+    x0 = torch.randn(T, D, generator=gen, device=device)
+    g = torch.randn(T, D, generator=gen, device=device)
+    on_card = device.type == "cuda"
+
+    def run(n):
+        ctx = _mesh(n, device)
+        leaves = [t.detach().float().clone().requires_grad_()
+                  for t in (x0, w_gate, w_up, w_down)]
+        kernels = _zero_launches()
+        out = llama.mlp_tp_overlap(ctx, *leaves)
+        (out * g).sum().backward()
+        check_errors(ctx)
+        launches = {k: v.launches for k, v in kernels.items()}
+        return [out.detach()] + [t.grad for t in leaves], launches
+
+    names = ("out", "dx", "dw_gate", "dw_up", "dw_down")
+    ref, _ = run(1)
+    rec = {"T": T, "d_model": D, "d_ff": w_gate.shape[1], "tol": tol,
+           "ranks": {}}
+    ok = True
+    expect = {"matmul": 0, "ag_gemm": 2, "gemm_rs": 2, "slot_reduce": 0,
+              "all_gather": 1}
+    for n in ranks:
+        got, launches = run(n)
+        rels = {k: _logit_rel(a, b) for k, a, b in zip(names, got, ref)}
+        rec["ranks"][n] = {"rel_err": rels, "launches": launches}
+        ok &= (max(rels.values()) <= tol
+               and (not on_card or launches == expect))
+        del got
+    rec["launches_expected"] = expect
+    log("mlp_tp_overlap f32 across ranks", json.dumps(rec))
+    if not ok:
+        raise AssertionError(f"mlp_tp_overlap across ranks failed: {rec}")
+    return rec
+
+
+def check_tp_ranks(params, cfg, device, card: str) -> dict:
+    """Phase 15 on the 32-layer bf16 params: B15 and B16 across ranks at TP
+    widths, the forward at 1, 2 and 4 ranks (the main path, launches
+    counted) with its gate and control, and the MLP's f32 gradients across
+    ranks (layer 0's weights)."""
+    import torch
+
+    t0 = time.perf_counter()
+    ops = check_tp_ops(device)
+    torch.cuda.empty_cache()
+    forward = run_tp_ranks(params, cfg, device, card)
+    torch.cuda.empty_cache()
+    b = params["blocks"]
+    mlp = check_tp_mlp_ranks(device, b["w_gate"][0], b["w_up"][0],
+                             b["w_down"][0])
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 15 took {seconds:.1f} s")
+    return {"ops": ops, "forward": forward, "mlp": mlp, "seconds": seconds}
+
+
+def tp_ranks_kernels(tp: dict) -> list:
+    """The ``kernels`` line's entries of phase 15: B15 and B16 across ranks
+    at 2 and 4 ranks, each headed by its largest TP shape (``TP_OPS_MAIN``)
+    and launched as the forward at that rank count launched it."""
+    entries = []
+    for op, replaces in (("ag_gemm", "triton_dist_tpu/ops/allgather_gemm.py"
+                                     ":243"),
+                         ("gemm_rs", "triton_dist_tpu/ops/"
+                                     "gemm_reduce_scatter.py:332")):
+        for n in SP_RANKS:
+            cases = [r for r in tp["ops"] if r["kernel"] == op and r["n"] == n]
+            main = next(r for r in cases
+                        if r["case"].startswith(TP_OPS_MAIN[op] + " "))
+            entries.append({
+                "name": f"{op} (n={n})", "route": "cuda",
+                "source": "triton_dist_tpu_torch/csrc/tp_overlap.cu",
+                "replaces": replaces,
+                "launches": tp["forward"]["ranks"][n]["runs"][0]["launches"]
+                [op],
+                "max_abs_err": max(r["max_abs_err"] for r in cases),
+                **{k: main.get(k) for k in ("ms", "kernel_device_ms",
+                                            "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "b2_ms", "case")},
+                "ranks_note": TP_RANKS_NOTE, "cases": cases})
+    return entries
+
+
 def main() -> int:
     try:
         import torch
@@ -4057,6 +4526,7 @@ def main() -> int:
     decode_step_rec = check_decode_step(params32, cfg32, device)
     check_sp_decode_f32(params32, cfg32, device)
     check_tp_forward_f32(params32, cfg32, device)
+    check_tp_ranks_f32(params32, cfg32, device)
     del params32
     torch.cuda.empty_cache()
 
@@ -4076,6 +4546,7 @@ def main() -> int:
     generation = check_generation(params, cfg, device, card)
     tp = check_tp_overlap(params, cfg, device, card)
     sp = check_sp_and_collectives(params, cfg, device, card)
+    tp_ranks = check_tp_ranks(params, cfg, device, card)
     del params                        # the trainer needs the card's memory
     torch.cuda.empty_cache()
 
@@ -4195,7 +4666,7 @@ def main() -> int:
              tp["layers"]["gemm_rs"], [tp["layers"]["gemm_rs"]]),
             ("slot_reduce", "triton_dist_tpu/ops/gemm_reduce_scatter.py:88",
              tp["layers"]["slot_reduce"], [tp["layers"]["slot_reduce"]]))]
-        + slice6 + slice7}))
+        + slice6 + slice7 + tp_ranks_kernels(tp_ranks)}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

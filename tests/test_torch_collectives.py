@@ -145,8 +145,9 @@ def test_reduce_scatter_at_one_rank_is_the_contribution():
 
 
 def _raising_calls():
-    """(name, call, what the message names) of every op outside this slice,
-    on a 2- or 4-rank context."""
+    """(name, call, what the message names) of every op or form outside the
+    ported slices, on a 2- or 4-rank context (the TP overlap ops over tuple
+    axes and inside a multi-axis mesh)."""
     from triton_dist_tpu_torch.models import llama as tl
     from triton_dist_tpu_torch.models.moe import MoEConfig, init_moe_params
     from triton_dist_tpu_torch.ops import allgather_gemm as tagg
@@ -172,13 +173,18 @@ def _raising_calls():
     ids = torch.zeros(8, dtype=torch.int32)
     q = torch.zeros(2, 4, 32)
     return [
-        ("ag_gemm", lambda: tagg.ag_gemm(ctx, a, b), tp6),
-        ("ag_gemm_ws", lambda: tagg.create_ag_gemm_workspace(ctx, 2, 8), tp6),
-        ("gemm_rs", lambda: tgrs.gemm_rs(ctx, a, b), tp6),
-        ("gemm_rs_ws", lambda: tgrs.create_gemm_rs_workspace(ctx, 2, 8), tp6),
+        ("ag_gemm over two axes", lambda: tagg.ag_gemm(
+            ctx2d, a, b, axis=("a", "b")), tp6),
+        ("ag_gemm_ws inside a 2-D mesh", lambda: tagg.create_ag_gemm_workspace(
+            ctx2d, 2, 8, axis="b"), tp6),
+        ("gemm_rs over two axes", lambda: tgrs.gemm_rs(
+            ctx2d, a, b, axis=("a", "b")), tp6),
+        ("gemm_rs_ws inside a 2-D mesh", lambda: tgrs.create_gemm_rs_workspace(
+            ctx2d, 2, 8, axis="a"), tp6),
         ("tp_column_linear", lambda: tagg.tp_column_linear(ctx, a, b,
-                                                           axis="x"), tp6),
-        ("mlp_tp_overlap", lambda: tl.mlp_tp_overlap(ctx, a, a, a, a), tp6),
+                                                           axis="x"), sp8),
+        ("mlp_tp_overlap inside a 2-D mesh", lambda: tl.mlp_tp_overlap(
+            ctx2d, a, a, a, a, axis="b"), tp6),
         ("ag_moe_group_gemm", lambda: tmoe.ag_moe_group_gemm(
             ctx, a, ids, torch.zeros(4, 8, 8)), moe7),
         ("moe_reduce_rs", lambda: tmoe.moe_reduce_rs(

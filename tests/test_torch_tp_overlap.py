@@ -169,10 +169,14 @@ def test_more_ranks_and_axis_tuples_raise():
             call()
     # a 1-tuple is its axis
     assert tag.ag_gemm(ctx, a, b, axis=("y",)).shape == (8, 8)
-    # more ranks share the device since the shmem layer came; the overlap
-    # ops' puts across ranks are still to port
+    # more ranks run over an axis that spans the whole mesh (every rank on
+    # the one card); a group inside a multi-axis mesh still waits
+    assert torch.equal(tag.ag_gemm(initialize_distributed(("x",), (2,),
+                                                          device="cpu"),
+                                   a, b), a @ b)
     with pytest.raises(NotImplementedError, match="TP overlap across ranks"):
-        tag.ag_gemm(initialize_distributed(("x",), (2,), device="cpu"), a, b)
+        tag.ag_gemm(initialize_distributed(("x", "y"), (2, 2),
+                                           device="cpu"), a, b, axis="y")
 
 
 def test_tp_column_linear_is_the_product_at_one_rank():

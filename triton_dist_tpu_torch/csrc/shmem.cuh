@@ -54,6 +54,8 @@ enum Kernel : int {
   kAgRing = 4,
   kRsRing = 5,
   kLlAgMerge = 6,
+  kAgGemm = 7,
+  kGemmRs = 8,
 };
 
 // The n base pointers of one symmetric buffer, rank r's at ptr[r].
@@ -103,15 +105,16 @@ inline int launch_cooperative(void (*kernel)(KArgs...), dim3 grid, dim3 block, s
 constexpr int kLaneBlocksPerSm = 2;
 
 // `lanes` cut to what a grid (lanes, n) of `kernel` can keep resident on
-// the current device (its SM count times the blocks of `threads` an SM
-// holds at once, at most kLaneBlocksPerSm); 0 when not one lane fits or
-// the device cannot be asked.
+// the current device (its SM count times the blocks of `threads`, each with
+// `smem` bytes of dynamic shared memory, an SM holds at once, at most
+// kLaneBlocksPerSm); 0 when not one lane fits or the device cannot be asked.
 template <typename K>
-inline int resident_lanes(K kernel, int threads, int lanes, int n) {
+inline int resident_lanes(K kernel, int threads, int lanes, int n, size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+          cudaSuccess)
     return 0;
   const int fit = sms * (per_sm < kLaneBlocksPerSm ? per_sm : kLaneBlocksPerSm) / n;
   return lanes < fit ? lanes : fit;

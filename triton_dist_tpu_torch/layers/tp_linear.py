@@ -5,8 +5,9 @@ Counterpart of ``triton_dist_tpu/layers/tp_linear.py``:
 (B16). With ``persistent=True`` a layer keeps one workspace context per
 shape and reuses it on every call (the reference's create-the-context-once
 pattern); without it each call allocates a fresh workspace. Both run at
-one rank until B15/B16's puts are ported (ROADMAP.md Queue A, item 6 "TP
-overlap across ranks").
+one rank, and at n ranks over an axis that spans the whole mesh (every
+rank on the one card, one launch of the overlap kernel a call); a reused
+workspace is guarded across calls by the kernel's entry barrier.
 """
 
 from __future__ import annotations

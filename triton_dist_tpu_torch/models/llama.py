@@ -281,9 +281,12 @@ def forward_tp_overlap(ctx, params: dict, tokens, cfg: LlamaConfig,
     """Full-sequence forward where every Megatron linear pair runs through
     the overlap ops: qkv and gate‖up through AG-GEMM, o and down through
     GEMM-RS (the model-level composition of the reference's tutorials 07
-    and 08). The fused [wq ‖ wk ‖ wv] is built per call. tokens [B, S];
-    returns logits [B, S, V] f32 (the LM head is a plain product, as in the
-    JAX model)."""
+    and 08). The fused [wq ‖ wk ‖ wv] is built per call, interleaved by
+    rank, so that at n ranks rank r's column block of the qkv output holds
+    its heads. The ops return the JAX package's global views (column blocks
+    by rank from AG-GEMM, row blocks by rank from GEMM-RS), so the code is
+    the same at any n. tokens [B, S]; returns logits [B, S, V] f32 (the LM
+    head is a plain product, as in the JAX model)."""
     axis = axis or ctx.axis_names[0]
     nr = ctx.axis_size(axis)
     B, S = tokens.shape

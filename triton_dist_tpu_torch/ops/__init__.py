@@ -1,7 +1,7 @@
 from triton_dist_tpu_torch.ops.allgather import all_gather, all_gather_plain
 from triton_dist_tpu_torch.ops.common import barrier_all_op, barrier_all_plain
 from triton_dist_tpu_torch.ops.allgather_gemm import (
-    AgGemmContext, ag_gemm, ag_gemm_ws, create_ag_gemm_context,
+    AgGemmContext, ag_gemm, ag_gemm_plain, ag_gemm_ws, create_ag_gemm_context,
     create_ag_gemm_workspace, tp_column_linear)
 from triton_dist_tpu_torch.ops.all_to_all import (ep_combine, ep_combine_plain,
                                                   ep_dispatch,
@@ -18,7 +18,7 @@ from triton_dist_tpu_torch.ops.gemm import (GemmConfig, matmul, matmul_plain,
                                             slot_reduce, slot_reduce_plain)
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import (
     GemmRsContext, create_gemm_rs_context, create_gemm_rs_workspace, gemm_rs,
-    gemm_rs_ws)
+    gemm_rs_plain, gemm_rs_ws)
 from triton_dist_tpu_torch.ops.group_gemm import (
     align_tokens_by_expert, apply_grouped, expert_alignment, grouped_gemm,
     grouped_gemm_gated, grouped_gemm_gated_plain, grouped_gemm_plain,
@@ -33,10 +33,11 @@ from triton_dist_tpu_torch.ops.ring_attention import (
 __all__ = ["AgGemmContext", "FD_EMPTY", "GemmConfig", "GemmRsContext",
            "NEG_INF", "SPLIT_KEYS", "ag_gemm", "ag_moe_group_gemm", "ag_gemm_diff", "ag_gemm_ws",
            "align_tokens_by_expert", "all_gather", "all_gather_plain",
-           "barrier_all_op", "barrier_all_plain",
+           "ag_gemm_plain", "barrier_all_op", "barrier_all_plain",
            "create_ag_gemm_context", "create_ag_gemm_workspace",
            "create_gemm_rs_context", "create_gemm_rs_workspace", "gemm_rs",
-           "gemm_rs_diff", "gemm_rs_ws", "matmul", "matmul_plain",
+           "gemm_rs_diff", "gemm_rs_plain", "gemm_rs_ws", "matmul",
+           "matmul_plain",
            "slot_reduce", "slot_reduce_plain", "tp_column_linear",
            "apply_grouped", "decode_combine", "decode_combine_plain",
            "ep_combine", "ep_combine_plain", "ep_dispatch",

@@ -1,26 +1,77 @@
-"""AllGather-GEMM (TPU kernel B15), in its one-rank form.
+"""AllGather-GEMM (TPU kernel B15).
 
 Counterpart of ``triton_dist_tpu/ops/allgather_gemm.py``. The TPU kernel
 barriers the ranks, puts the local A shard into every peer's workspace slot
 and runs the GEMM (B2, ``emit_gemm``) on each segment as it arrives, its own
-first. At one rank the barrier is empty, there are no puts, and the kernel
-is the local segment's GEMM: here ``gemm_into`` (``csrc/gemm.cu``) on a CUDA
-tensor, its plain version on a CPU tensor. The workspace is carried and
-returned unwritten, as the TPU kernel leaves it at n = 1.
+first.
 
-More ranks, tuple axes (the 2-tier ``ag_overlap_protocol_2d``) and
-slice-crossing axes (``_ag_gemm_dcn``) wait for the puts across ranks
-over the shmem layer (ROADMAP.md Queue A, item 6 "TP overlap across
-ranks") and raise ``NotImplementedError``.
+- At one rank the barrier is empty, there are no puts, and the kernel is
+  the local segment's GEMM: ``gemm_into`` (``csrc/gemm.cu``) on a CUDA
+  tensor, its plain version on a CPU tensor. The workspace is carried and
+  returned unwritten, as the TPU kernel leaves it at n = 1.
+- At n ranks, over an axis that spans the whole mesh, every rank runs on
+  the one card (``shmem/context.py``) and one cooperative launch of
+  ``csrc/tp_overlap.cu`` covers them all: the entry barrier, each rank's
+  puts of its shard into slot ``me`` of every peer's symmetric workspace
+  [n, M/n, K], then each rank's column block of C segment by segment in the
+  swizzled order ``me, me+1, ...``. A CPU tensor runs the plain version
+  (``ag_gemm_plain``): per rank, B2's plain product of the gathered A into
+  its column block, and the slots filled as the kernel fills them.
+
+Inputs and outputs are the JAX package's global views: ``a`` [M, K] with
+rank r's rows at block r, ``b`` [K, N] and C [M, N] with rank r's columns
+at block r. Tuple axes (the 2-tier ``ag_overlap_protocol_2d``),
+slice-crossing axes (``_ag_gemm_dcn``) and a group inside a multi-axis mesh
+raise ``NotImplementedError``: ROADMAP.md Queue A, item 6.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
-from triton_dist_tpu_torch.ops.gemm import GemmConfig, gemm_into, matmul
+from triton_dist_tpu_torch import csrc
+from triton_dist_tpu_torch.ops.common import family_pad, spans_every_rank
+from triton_dist_tpu_torch.ops.gemm import (GemmConfig, _b_operand,
+                                            gemm_into, matmul, matmul_plain)
+from triton_dist_tpu_torch.shmem import device as shd
+
+TP_OVERLAP = 'ROADMAP.md Queue A, item 6 "TP overlap across ranks"'
+_MULTI = "_ag_gemm_dcn, ag_overlap_protocol_2d"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+TP_SIGNATURES = {
+    # a b c ws pads n m_local n_local K ldb b_trans kind lanes ...
+    "tdt_ag_gemm": [_P] * 5 + [_I] * 8 + shd.LAUNCH_SIG,
+    # a b out ws pads n m_seg N k_local lda ldb b_trans kind lanes ...
+    "tdt_gemm_rs": [_P] * 5 + [_I] * 9 + shd.LAUNCH_SIG,
+}
+# rows and columns of the kernels' output tile (csrc/gemm_tile.cuh)
+TILE = 128
+
+
+def tp_lib():
+    return csrc.load("tp_overlap", TP_SIGNATURES)
+
+
+def kernel_kind(in_dtype, out_dtype) -> int:
+    """The overlap kernels' type code: bf16 into bf16 (0) or f32 (1), or f32
+    throughout (2)."""
+    if in_dtype == torch.bfloat16 and out_dtype in (torch.bfloat16,
+                                                    torch.float32):
+        return int(out_dtype == torch.float32)
+    if in_dtype == out_dtype == torch.float32:
+        return 2
+    raise TypeError(f"the overlap kernels take bf16 into bf16 or f32, or f32 "
+                    f"throughout; got {in_dtype} -> {out_dtype}")
+
+
+def tiles(rows: int, cols: int) -> int:
+    """Output tiles of a [rows, cols] block."""
+    return -(-rows // TILE) * -(-cols // TILE)
 
 
 def norm_axis(ctx, axis):
@@ -34,21 +85,20 @@ def norm_axis(ctx, axis):
     return axis
 
 
-def one_rank_axis(ctx, axis, op: str, multi: str) -> str:
-    """``axis`` normalised, when it spans one rank; else raise
-    ``NotImplementedError`` naming what waits (``multi``: the op's
-    multi-tier paths)."""
+def tp_axis(ctx, axis, op: str, multi: str) -> tuple[str, int]:
+    """(``axis`` normalised, its ranks) for an overlap op: one rank, or an
+    axis over the whole mesh (one launch covers every rank). A tuple axis
+    (``multi``: the op's multi-tier paths) or a group inside a multi-axis
+    mesh raises ``NotImplementedError``."""
     axis = norm_axis(ctx, axis)
     if isinstance(axis, tuple):
         raise NotImplementedError(
             f"{op} over the axis tuple {axis} ({multi}) is not ported yet: "
-            "ROADMAP.md Queue A, item 6 \"TP overlap across ranks\"")
+            + TP_OVERLAP)
     n = ctx.axis_size(axis)
-    if n != 1:
-        raise NotImplementedError(
-            f"{op} over {n} ranks is not ported yet: its puts across ranks "
-            "are ROADMAP.md Queue A, item 6 \"TP overlap across ranks\"")
-    return axis
+    if n > 1:
+        spans_every_rank(ctx, axis, op, TP_OVERLAP)
+    return axis, n
 
 
 def _local_gemm(a, b, cfg, out_dtype):
@@ -63,15 +113,89 @@ def _local_gemm(a, b, cfg, out_dtype):
     return out
 
 
+def _check(a, b, n: int, cfg) -> int:
+    """The local rows M / n, after checking that the shapes split over
+    ``n`` ranks and that ``cfg`` divides the local output."""
+    M, K = a.shape
+    if b.shape[0] != K:
+        raise ValueError(f"A/B inner dims {K} vs {b.shape[0]}")
+    if M % n or b.shape[1] % n:
+        raise ValueError(f"ag_gemm: M={M} and N={b.shape[1]} must split "
+                         f"over {n} ranks")
+    if cfg is not None:
+        cfg.check(M // n, b.shape[1] // n)
+    return M // n
+
+
+def ag_gemm_plain(a, b, n: int, out_dtype=None, ws=None):
+    """The plain version of AG-GEMM at ``n`` ranks: rank r's column block of
+    C is B2's plain product (``matmul_plain``) of the gathered A (``a``
+    itself, the shards rank-major) with rank r's column block of ``b``.
+    With ``ws`` [n, n, M/n, K], rank r's slot s receives shard s for every
+    s != r, as the kernel's puts leave it (its own slot is never written)."""
+    M, K = a.shape
+    nl = b.shape[1] // n
+    out = torch.empty(M, b.shape[1], dtype=out_dtype or a.dtype,
+                      device=a.device)
+    for r in range(n):
+        cols = slice(r * nl, (r + 1) * nl)
+        out[:, cols] = matmul_plain(a, b[:, cols], out.dtype)
+    if ws is not None:
+        shards = a.reshape(n, M // n, K)
+        for r in range(n):
+            for s in range(n):
+                if s != r:
+                    ws[r, s] = shards[s]
+    return out
+
+
+def _ag_ranks(ctx, axis, n: int, a, b, ws, out_dtype):
+    """AG-GEMM at n > 1 ranks: the plain version on a CPU tensor, else one
+    launch of the kernel through the workspace ``ws`` [n, n, M/n, K]."""
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return ag_gemm_plain(a, b, n, out_dtype, ws)
+    if b.dtype != a.dtype or ws.dtype != a.dtype:
+        raise TypeError(f"ag_gemm: a {a.dtype}, b {b.dtype} and the "
+                        f"workspace {ws.dtype} must share a type")
+    kind = kernel_kind(a.dtype, out_dtype)
+    a = a.contiguous()
+    b, trans = _b_operand(b)
+    shd.cuda_checks("ag_gemm", a, b, ws)
+    M, K = a.shape
+    N = b.shape[0] if trans else b.shape[1]
+    out = torch.empty(M, N, dtype=out_dtype, device=a.device)
+    lanes = n * tiles(M // n, N // n)
+    pad = family_pad(ctx, "ag_gemm", axis, lanes + n + 1)
+    slots, pads = shd.tables(ctx, ws, pad)
+    lib = tp_lib()
+    args = shd.launch_args(ctx)
+    with csrc.current_on(a.device):
+        rc = lib.tdt_ag_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), slots,
+                             pads, n, M // n, N // n, K, b.stride(0),
+                             int(trans), kind, lanes, *args)
+    csrc.check(lib, rc, "ag_gemm")
+    ag_gemm.launches += 1
+    return out
+
+
 def ag_gemm(ctx, a, b, axis=None, cfg: GemmConfig | None = None,
             out_dtype=None):
     """C = all_gather(a) @ b: ``a`` [M, K] sharded on rows, ``b`` [K, N]
-    sharded on columns; C [M, N] in ``out_dtype`` (a's type by default).
-    ``cfg``, when given, must divide the local output (the JAX op's
-    precondition). A CUDA tensor launches the GEMM kernel (one launch adds
-    one to ``ag_gemm.launches``) or raises."""
-    one_rank_axis(ctx, axis, "ag_gemm", "_ag_gemm_dcn, ag_overlap_protocol_2d")
-    return _local_gemm(a, b, cfg, out_dtype)
+    sharded on columns; C [M, N] sharded on columns, in ``out_dtype`` (a's
+    type by default). ``cfg``, when given, must divide the local output
+    (the JAX op's precondition). At n > 1 ranks a fresh workspace is made
+    for the call; ``ag_gemm_ws`` and ``AgGemmContext`` reuse one. A CUDA
+    tensor launches the kernel (each B15 call adds one to
+    ``ag_gemm.launches``) or raises."""
+    axis, n = tp_axis(ctx, axis, "ag_gemm", _MULTI)
+    if n == 1:
+        return _local_gemm(a, b, cfg, out_dtype)
+    m_local = _check(a, b, n, cfg)
+    ws = (None if a.device.type == "cpu" else
+          torch.empty((n, n, m_local, a.shape[1]), dtype=a.dtype,
+                      device=a.device))
+    return _ag_ranks(ctx, axis, n, a, b, ws, out_dtype)
 
 
 ag_gemm.launches = 0
@@ -80,36 +204,41 @@ ag_gemm.launches = 0
 def ag_gemm_ws(ctx, a, b, ws, axis=None, cfg: GemmConfig | None = None,
                out_dtype=None):
     """``ag_gemm`` with the symmetric workspace ``ws`` [n, n, M/n, K] (from
-    ``create_ag_gemm_workspace``) as an explicit operand: returns ``(C,
-    ws)``. At one rank no segment travels, so ``ws`` comes back
-    unwritten."""
-    axis = one_rank_axis(ctx, axis, "ag_gemm_ws",
-                         "_ag_gemm_dcn, ag_overlap_protocol_2d")
-    n = ctx.axis_size(axis)
+    ``create_ag_gemm_workspace``) as an explicit operand, written in place:
+    returns ``(C, ws)``. At one rank no segment travels, so ``ws`` comes
+    back unwritten; at n ranks rank r's slot s holds shard s for s != r,
+    and its own slot is left as it was."""
+    axis, n = tp_axis(ctx, axis, "ag_gemm_ws", _MULTI)
     M, K = a.shape
     if tuple(ws.shape) != (n, n, M // n, K) or ws.dtype != a.dtype:
         raise ValueError(
             f"workspace {tuple(ws.shape)}/{ws.dtype} does not match "
             f"({n}, {n}, {M // n}, {K})/{a.dtype}: create it with "
             f"create_ag_gemm_workspace(ctx, m_local={M // n}, k={K}, ...)")
-    return _local_gemm(a, b, cfg, out_dtype), ws
+    if n == 1:
+        return _local_gemm(a, b, cfg, out_dtype), ws
+    _check(a, b, n, cfg)
+    return _ag_ranks(ctx, axis, n, a, b, ws, out_dtype), ws
 
 
 def create_ag_gemm_workspace(ctx, m_local: int, k: int,
                              dtype=torch.bfloat16, axis=None):
     """The symmetric AG workspace: [n, n, m_local, k] zeros on the context's
-    device, one [n, m_local, k] block of slots per rank."""
-    axis = one_rank_axis(ctx, axis, "create_ag_gemm_workspace",
-                         "a 2-tier workspace")
-    n = ctx.axis_size(axis)
-    return torch.zeros((n, n, m_local, k), dtype=dtype, device=ctx.device)
+    device, one [n, m_local, k] block of slots per rank (at n > 1
+    ``ctx.create_symm_tensor``)."""
+    _, n = tp_axis(ctx, axis, "create_ag_gemm_workspace",
+                   "a 2-tier workspace")
+    if n == 1:
+        return torch.zeros((1, 1, m_local, k), dtype=dtype, device=ctx.device)
+    return ctx.create_symm_tensor((n, m_local, k), dtype)
 
 
 @dataclasses.dataclass
 class AgGemmContext:
     """Owns a symmetric workspace and threads it through ``ag_gemm_ws``, so
-    repeated calls reuse one buffer. (The JAX context also caches a jitted,
-    donating step per shape; PyTorch runs eagerly and updates in place.)"""
+    repeated calls reuse one buffer (the kernel's entry barrier guards it
+    across calls). (The JAX context also caches a jitted, donating step per
+    shape; PyTorch runs eagerly and updates in place.)"""
 
     ctx: object
     axis: str
@@ -133,15 +262,17 @@ def tp_column_linear(ctx, h, w, axis: str = "tp", impl: str = "xla",
     """``h @ w`` with ``w`` column-sharded over ``axis``, the output
     gathered back to replicated. At one rank it is ``h @ w``, as in the JAX
     op (a plain product there too, outside any kernel); more ranks raise
-    ``NotImplementedError``."""
+    ``NotImplementedError``: its only caller is the sharded serving engine
+    at tp > 1."""
     n = ctx.axis_size(axis)
     if n != 1:
         raise NotImplementedError(
             f"tp_column_linear over {n} ranks (impl {impl!r}) is not ported "
-            "yet: ROADMAP.md Queue A, item 6 \"TP overlap across ranks\"")
+            "yet: ROADMAP.md Queue A, item 8 \"SP decode and sharded "
+            "serving across ranks\"")
     return h @ w
 
 
-__all__ = ["AgGemmContext", "GemmConfig", "ag_gemm", "ag_gemm_ws",
-           "create_ag_gemm_context", "create_ag_gemm_workspace",
-           "tp_column_linear"]
+__all__ = ["AgGemmContext", "GemmConfig", "TP_OVERLAP", "ag_gemm",
+           "ag_gemm_plain", "ag_gemm_ws", "create_ag_gemm_context",
+           "create_ag_gemm_workspace", "tp_column_linear"]

@@ -15,8 +15,11 @@ AG-GEMM and GEMM-RS are each other's adjoints:
 The transposed weights go to the kernel as views (it reads an [N, K]
 operand as its transpose). The weight gradients are plain products with f32
 sums and one cast, as the JAX ops compute them (``jnp.dot`` outside any
-kernel). At one rank ``all_gather`` is B9's copy kernel (``ops/allgather.py``)
-and the rebuilt AG(dy) is dy.
+kernel), one per rank on that rank's blocks. At one rank ``all_gather`` is
+B9's copy kernel (``ops/allgather.py``) and the rebuilt AG(dy) is dy; at n
+ranks every rank gets its replica of AG(a) from B9's push, and rebuilds
+AG(dy) from its own workspace slots with its own segment of dy in slot
+``me``, as JAX's ``rebuild`` does.
 """
 
 from __future__ import annotations
@@ -62,9 +65,15 @@ class _AgGemmDiff(torch.autograd.Function):
         da = gemm_rs(sctx, dc, b.t(), axis=axis,
                      cfg=_bwd_cfg(fctx.cfg, dc.shape[0] // n, b.shape[0]),
                      out_dtype=a.dtype)
-        # db = AG(a)^T @ dc: a re-gathered (rematerialised), then a product
+        # db = AG(a)^T @ dc: a re-gathered (rematerialised), then each
+        # rank's product on its replica and its column block of dc
         a_g = all_gather(sctx, a.contiguous(), axis=axis)
-        return None, None, None, da, _wgrad(a_g.t(), dc, b.dtype)
+        if n == 1:
+            return None, None, None, da, _wgrad(a_g.t(), dc, b.dtype)
+        nl = dc.shape[1] // n
+        db = torch.cat([_wgrad(a_g[r].t(), dc[:, r * nl:(r + 1) * nl],
+                               b.dtype) for r in range(n)], dim=1)
+        return None, None, None, da, db
 
 
 class _GemmRsDiff(torch.autograd.Function):
@@ -87,12 +96,17 @@ class _GemmRsDiff(torch.autograd.Function):
         dx, ws = ag_gemm_ws(sctx, dy, w.t(), ws, axis=axis,
                             cfg=_bwd_cfg(fctx.cfg, m_local, w.shape[0] // n),
                             out_dtype=x.dtype)
-        # AG(dy) rebuilt from the workspace: slot s holds rank s's segment,
-        # except this rank's own (never copied there), filled from dy
-        dy_g = ws.reshape(n, m_local, N).to(dy.dtype, copy=True)
-        dy_g[0] = dy        # this rank's slot; one rank: me = 0
-        return None, None, None, dx, _wgrad(x.t(), dy_g.reshape(M, N),
-                                            w.dtype)
+        # AG(dy) rebuilt from each rank's workspace: its slot s holds rank
+        # s's segment, except its own (never copied there), filled from dy;
+        # then dw's row block r from rank r's x columns and its AG(dy)
+        dy_g = ws.to(dy.dtype, copy=True)
+        for r in range(n):
+            dy_g[r, r] = dy[r * m_local:(r + 1) * m_local]
+        kl = x.shape[1] // n
+        dw = torch.cat([_wgrad(x[:, r * kl:(r + 1) * kl].t(),
+                               dy_g[r].reshape(M, N), w.dtype)
+                        for r in range(n)])
+        return None, None, None, dx, dw
 
 
 def ag_gemm_diff(ctx, axis, cfg, a, b):

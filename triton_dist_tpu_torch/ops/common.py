@@ -26,15 +26,16 @@ def family_pad(ctx, family: str, axis, words: int) -> torch.Tensor:
     return ctx.signal_pad(name, words)
 
 
-def spans_every_rank(ctx, axis, op: str) -> int:
+def spans_every_rank(ctx, axis, op: str, item: str = COLLECTIVES) -> int:
     """The ranks along ``axis``. One launch covers every rank of the mesh,
     so the group must be the whole mesh: a group inside a multi-axis mesh
-    (the 2-D and hierarchical paths) raises ``NotImplementedError``."""
+    (the 2-D and hierarchical paths) raises ``NotImplementedError`` naming
+    the ROADMAP ``item`` it waits for."""
     n = ctx.axis_size(axis)
     if n != ctx.num_ranks:
         raise NotImplementedError(
             f"{op} over {axis!r} ({n} of {ctx.num_ranks} ranks): a group "
-            "inside a multi-axis mesh is not ported yet: " + COLLECTIVES)
+            "inside a multi-axis mesh is not ported yet: " + item)
     return n
 
 

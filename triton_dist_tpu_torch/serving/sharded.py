@@ -110,8 +110,7 @@ class ShardedServingEngine(ServingEngine):
             _later("speculate", 'item 10 "the rest of the single-device '
                    'serving tier"')
         if tp_impl != "xla":
-            _later(f"tp_impl={tp_impl!r} (B15)",
-                   'item 6 "TP overlap across ranks"')
+            _later(f"tp_impl={tp_impl!r} (tp_column_linear's modes)", _SP)
         if prefill_chunk is None:
             raise ValueError("sharded serving requires prefill_chunk: the "
                              "bucketed inline prefill takes no hook")
