@@ -137,6 +137,29 @@ Phases, each printing its lines:
    and 4 ranks within 1e-5 of one rank's scale. Beside phase 4 (f32, full
    width, the depth cut to 2), the logits at 2 and 4 ranks within 1e-5 of
    one rank's scale.
+16. the sharded MoE serving engine across ranks on the one card (inside
+   phase 9's lifetime, on its Mixtral weights): (a) the EP wire, B21
+   (``all_to_all_push``) and B22 (``all_to_all_push_seg``, 2 segments),
+   at 2, 4 and 8 ranks at the engine's decode rows (8 tokens, top-2) and
+   chunk rows (256), H 4096, for the plain, fp8 and int8 wires with the
+   quantise and dequantise in the kernel (both, each alone) and the
+   pre-quantised wire: every rank's outputs bitwise the plain version's,
+   on a rerun and 5 fresh calls, every pad zero; timed (between CUDA
+   events, the kernel alone, plain, ``transpose(0, 1).contiguous()``,
+   bound); a wire whose rank 1 never signals raises within its budget;
+   (b) ``moe_mlp_ep_overlap`` of layer 0 at ep = 4, plain and fp8 wire, 1
+   and 2 microbatches, bitwise the block at ep = 1; B2's column blocks of
+   the projections bitwise its whole product (cuBLAS's recorded); (c) the
+   main path,
+   launches counted: the first 10 requests of phase 9's trace through
+   ``ShardedServingEngine`` with the fp8 wire at 1x1x1 (the golden), 1x1x2,
+   1x1x4, 1x1x4 with ``overlap="ep"``, 2x1x2, 1x2x2 and 2x2x2, and with the
+   plain wire at 1x1x1 and 1x1x4: every mesh's streams bitwise its golden's,
+   every request finished, a preemption in each; tok/s and TTFT per mesh,
+   the 1x1x1 engine's time with cuBLAS projections beside it, one decode
+   dispatch of the 1x1x4 engine under the profiler; (d) the
+   wire fit t = t0 + bytes / rate of the bf16 and fp8 wires from (a)'s
+   kernel times. A time at n > 1 is every rank on the one card.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -146,6 +169,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -503,9 +527,10 @@ def device_time_by_family(fn, card: bool, families) -> tuple[dict, int]:
 
 def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
                      horizon: int = 4, ffn=None, distinct_tokens: bool = False,
-                     label: str = "") -> dict:
+                     label: str = "", attn_io=None, linear=None) -> dict:
     """One decode dispatch (``horizon`` steps over ``slots`` rows at ``kv``
-    tokens each, the layers' FFN replaced by ``ffn`` when given): its median
+    tokens each, the layers' FFN, attention and projections replaced by
+    ``ffn``, ``attn_io`` and ``linear`` when given): its median
     wall time over three plain runs (the ``.cpu()`` of the token slab waits
     for the card), then one run under ``torch.profiler`` for the device time
     by kernel family and the device ops per step. The idle share is 1 -
@@ -528,8 +553,9 @@ def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
 
     def dispatch():
         return llama.decode_multistep_paged(params, token, pos, cfg, pool, bt,
-                                            limit, horizon=horizon,
-                                            ffn=ffn)[0].cpu()
+                                            limit, horizon=horizon, ffn=ffn,
+                                            attn_io=attn_io,
+                                            linear=linear)[0].cpu()
 
     card = device.type == "cuda"
     dispatch()                                   # warm-up
@@ -544,7 +570,10 @@ def profile_dispatch(params, cfg, device, slots: int = 8, kv: int = 512,
     fams, kernels = device_time_by_family(
         dispatch, card, (("attention", ("decode_paged_kernel",)),
                          ("grouped_gemm", ("grouped_gemm",)),
-                         ("ep_rows", ("ep_dispatch", "ep_combine"))))
+                         ("ep_rows", ("ep_dispatch", "ep_combine")),
+                         ("ep_wire", ("a2a_push", "a2a_seg")),
+                         ("dense_gemm", ("tdt_gemm",)),
+                         ("all_gather", ("ag_push", "ag_ring"))))
     busy = sum(fams.values())
     rec = {"slots": slots, "kv_len": kv, "horizon": horizon,
            "wall_s": wall, "device_busy_s": busy,
@@ -770,7 +799,6 @@ def check_train(device, cfg, card: str, seq: int = TRAIN["seq"],
     under ``torch.profiler``: device time by family, the busiest kernels,
     and the idle share of that step (1 - the union of its device intervals
     / its wall time)."""
-    import functools
     import statistics
 
     import torch
@@ -1035,14 +1063,17 @@ def kernel_device_ms(fn, match: str, calls: int = 10) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and match in e.name]
-    return statistics.median(times) if times else None
+    for _ in range(3):        # a profile late in a long run may miss events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and match in e.name]
+        if times:
+            return statistics.median(times)
+    return None
 
 
 def ep_rows_bound(nbytes: int) -> tuple[float, str]:
@@ -1171,25 +1202,35 @@ def moe_block_reference(x, router_w, we_gate, we_up, we_down, topk: int):
 
 
 def check_moe_block(params, cfg, device, shapes=GG_SHAPES) -> list[dict]:
-    """The one-rank MoE block of layer 0 (router, top-2, B21's dispatch,
-    B18, B17, B21's combine) against ``moe_block_reference``, at both row
-    counts; a second run and a run at the other row block give the same
-    bits. Raises on any failure."""
+    """The MoE block of layer 0 as the one-rank engine runs it
+    (``moe_mlp_ep_overlap`` over a one-rank EP layer with the plain wire:
+    the router, top-2, the slot gather, B21, B18, B17, B21 back and the
+    fold) against ``moe_block_reference``, at both row counts; a second run
+    and a run at the other row block give the same bits. Raises on any
+    failure."""
     import torch
 
+    from triton_dist_tpu_torch.layers import EPAll2AllLayer
     from triton_dist_tpu_torch.models.moe import moe_mlp_ep_overlap
+    from triton_dist_tpu_torch.shmem import initialize_distributed
 
     p = {k: v[0] for k, v in params["blocks"].items()}
     ws = (p["w_router"], p["we_gate"], p["we_up"], p["we_down"])
+    ctx = initialize_distributed(("ep",), (1,), device=device)
     records = []
     for shape, (T, bm) in shapes.items():
         gen = torch.Generator(device=device).manual_seed(T)
         x = torch.randn(T, cfg.base.d_model, generator=gen, device=device,
                         dtype=torch.float32).to(cfg.base.dtype)
-        got = moe_mlp_ep_overlap(x, *ws, cfg.topk, block_m=bm)
-        again = moe_mlp_ep_overlap(x, *ws, cfg.topk, block_m=bm)
-        other = moe_mlp_ep_overlap(x, *ws, cfg.topk,
-                                   block_m=64 if bm == 16 else 16)
+        lay = EPAll2AllLayer.create(ctx, T, cfg.base.d_model, cfg.topk,
+                                    cfg.num_experts, axis="ep",
+                                    dtype=cfg.base.dtype)
+
+        def block(block_m):
+            return moe_mlp_ep_overlap(ctx, lay, x, *ws, block_m=block_m)
+
+        got, again = block(bm), block(bm)
+        other = block(64 if bm == 16 else 16)
         ref = moe_block_reference(x, *ws, cfg.topk)
         name = str(cfg.base.dtype).split(".")[-1]
         rec = {"shape": shape, "tokens": T, "block_m": bm, "dtype": name,
@@ -1206,32 +1247,72 @@ def check_moe_block(params, cfg, device, shapes=GG_SHAPES) -> list[dict]:
     return records
 
 
+def engine_kernels() -> tuple:
+    """The launch-counted wrappers of the sharded engine's path."""
+    from triton_dist_tpu_torch.ops import all_to_all as ea
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops.allgather import all_gather
+    from triton_dist_tpu_torch.ops.gemm import matmul
+
+    return (ea.all_to_all_push, ea.all_to_all_push_seg, all_gather, matmul,
+            fd.gqa_decode_paged, ea.ep_dispatch, ea.ep_combine,
+            gg.grouped_gemm_gated, gg.grouped_gemm)
+
+
+def engine_launches(eng) -> dict:
+    """The launches a sharded engine's run must make of each kernel of its
+    path, from its counters. Each of the S = horizon x dispatches + chunks
+    program runs goes through L layers: each layer runs the attention once
+    (B1, or the fused fold with ``long_context``), the MoE block's slot
+    gather, B18, B17 and fold once a microbatch (M), the wire twice (B21
+    with overlap off, B22 once a microbatch with overlap="ep") and four
+    projections (wq, wk, wv, wo); the LM head once a run. Each projection
+    is one B2 launch a TP rank (tp_impl "xla"). B9 gathers every
+    projection's columns at tp > 1, the pool's keys and values each layer
+    at sp > 1, and the digests once a check at more than one rank."""
+    c = eng.metrics.counters
+    runs = eng.decode_horizon * c["dispatches"] + c["prefill_chunks"]
+    L = eng.moe_cfg.base.n_layers
+    tp, sp = eng.ctx.axis_size("tp"), eng.ctx.axis_size("sp")
+    M = eng.overlap_microbatches
+    proj = (4 * L + 1) * runs
+    attention = "fd_partials_fold" if eng.long_context else "gqa_decode_paged"
+    want = {k: M * L * runs for k in ("ep_dispatch", "ep_combine",
+                                      "grouped_gemm_gated", "grouped_gemm")}
+    want.update({attention: L * runs,
+                 "all_to_all_push": 0 if M > 1 else 2 * L * runs,
+                 "all_to_all_push_seg": 2 * M * L * runs if M > 1 else 0,
+                 "matmul": tp * proj,
+                 "all_gather": ((c["digest_checks"] if eng.n_ranks > 1
+                                 else 0) + (proj if tp > 1 else 0)
+                                + (2 * L * runs if sp > 1 else 0))})
+    return want
+
+
 def check_moe_engine(params, cfg, device, trace, engine_kw: dict,
                      card: str) -> dict:
     """Serve the trace twice on the one-rank ``ShardedServingEngine``; raise
     unless every request finished with its full budget, a preemption
-    happened, each of the five kernels ran on every layer of every decode
-    step and chunk, and the two runs' token streams are bit-identical."""
+    happened, every kernel of the path launched exactly as often as
+    ``engine_launches`` says (B1, the slot gather, B18, B17 and the fold
+    once a layer of every decode step and chunk, B21 twice, B2 once a
+    projection), and the two runs' token streams are bit-identical."""
     import torch
 
-    from triton_dist_tpu_torch.ops import all_to_all as ea
-    from triton_dist_tpu_torch.ops import flash_decode as fd
-    from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.serving import ShardedServingEngine
 
     def make():
         return ShardedServingEngine(params, cfg, device=device, **engine_kw)
 
-    kernels = (fd.gqa_decode_paged, ea.ep_dispatch, gg.grouped_gemm_gated,
-               gg.grouped_gemm, ea.ep_combine)
+    kernels = engine_kernels()
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     res, eng, wall, launches = serve(make, device, trace, kernels)
     c = eng.metrics.counters
     h = eng.metrics.hist
-    expect = cfg.base.n_layers * (eng.decode_horizon * c["dispatches"]
-                                  + c["prefill_chunks"])
+    expect = engine_launches(eng)
     rec = {
         "card": card, "requests": len(trace),
         "finished": c["requests_finished"],
@@ -1258,8 +1339,8 @@ def check_moe_engine(params, cfg, device, trace, engine_kw: dict,
     ok = (rec["finished"] == len(trace) and len(res) == len(trace)
           and all(len(res[i]) == m for i, (_, _, m) in enumerate(trace))
           and rec["tokens_generated"] >= rec["tokens_expected"]
-          and rec["preemptions"] >= 1
-          and all(n == expect for n in launches.values()) and expect > 0
+          and rec["preemptions"] >= 1 and launches == expect
+          and expect["gqa_decode_paged"] > 0
           and launches2 == launches and rec["rerun_bit_identical"])
     if not ok:
         raise AssertionError(f"the MoE engine run failed its checks: {rec}")
@@ -1271,14 +1352,13 @@ def check_moe(device, card: str) -> dict:
     (seed 0): the grouped GEMMs against their plain versions on layer 0's
     experts, the MoE block against its plain path, a seeded trace through
     the one-rank ``ShardedServingEngine`` (served twice), then one decode
-    dispatch under the profiler. Phases 12 (long-context serving) and 13
+    dispatch through the engine's own hooks under the profiler. Phases 12 (long-context serving) and 13
     (the MoE-TP block) run on the same weights. Frees the weights before it
     returns."""
     import torch
 
-    from triton_dist_tpu_torch.models.moe import (MoEConfig, init_moe_params,
-                                                  moe_mlp_ep_overlap)
-    from triton_dist_tpu_torch.serving.sharded import DECODE_BLOCK_M
+    from triton_dist_tpu_torch.models.moe import MoEConfig, init_moe_params
+    from triton_dist_tpu_torch.serving import ShardedServingEngine
 
     preset = MoEConfig.mixtral_8x7b()
     cfg = dataclasses.replace(preset, base=dataclasses.replace(
@@ -1304,21 +1384,20 @@ def check_moe(device, card: str) -> dict:
                               make_trace(cfg.base, N_REQUESTS, 0), ENGINE,
                               card)
 
-    def ffn(h, p):
-        return moe_mlp_ep_overlap(h, p["w_router"], p["we_gate"], p["we_up"],
-                                  p["we_down"], cfg.topk,
-                                  block_m=DECODE_BLOCK_M)
-
-    profile = profile_dispatch(params, cfg.base, device, ffn=ffn,
-                               distinct_tokens=True, label="moe ")
+    eng = ShardedServingEngine(params, cfg, device=device, **ENGINE)
+    profile = profile_dispatch(params, cfg.base, device, ffn=eng.ffn,
+                               attn_io=eng.attn_io, linear=eng.linear,
+                               distinct_tokens=True, label="moe 1x1x1 ")
+    del eng
     del blocks
     torch.cuda.empty_cache()
 
     later = check_long_context_and_moe_tp(params, cfg, device, card)
+    ep = check_ep_ranks(params, cfg, device, card)
     del params
     torch.cuda.empty_cache()
     return {"ep_rows": ep_rows, "grouped": grouped, "block": block,
-            "engine": engine, "profile": profile, **later}
+            "engine": engine, "profile": profile, "ep": ep, **later}
 
 
 def check_long_context_and_moe_tp(params, cfg, device, card: str) -> dict:
@@ -2546,12 +2625,12 @@ def check_fd_kernels(device, timed: bool = True, decode_kv=FD_DECODE_KV,
     return records
 
 
-def profile_long_dispatch(params, cfg, device, attn_io, ffn, kv: int,
-                          slots: int = 8, horizon: int = 4) -> dict:
+def profile_long_dispatch(params, cfg, device, attn_io, ffn, linear,
+                          kv: int, slots: int = 8, horizon: int = 4) -> dict:
     """One decode dispatch of the long-context engine's shape: ``slots``
     rows, the first at ``kv`` keys and the others parked on the scratch
-    page, every layer's attention through ``attn_io`` and FFN through
-    ``ffn``. Its median wall time over three plain runs, then one run under
+    page, every layer's attention through ``attn_io``, FFN through ``ffn``
+    and projections through ``linear``. Its median wall time over three plain runs, then one run under
     ``torch.profiler``: device time by family, device ops, idle share."""
     import torch
 
@@ -2570,7 +2649,7 @@ def profile_long_dispatch(params, cfg, device, attn_io, ffn, kv: int,
     def dispatch():
         return llama.decode_multistep_paged(
             params, token, pos, cfg, pool, bt, limit, horizon=horizon,
-            ffn=ffn, attn_io=attn_io)[0].cpu()
+            ffn=ffn, attn_io=attn_io, linear=linear)[0].cpu()
 
     card = device.type == "cuda"
     dispatch()
@@ -2583,7 +2662,10 @@ def profile_long_dispatch(params, cfg, device, attn_io, ffn, kv: int,
     fams, ops = device_time_by_family(
         dispatch, card, (("attention", ("fd_partials_fold",)),
                          ("grouped_gemm", ("grouped_gemm",)),
-                         ("ep_rows", ("ep_dispatch", "ep_combine"))))
+                         ("ep_rows", ("ep_dispatch", "ep_combine")),
+                         ("ep_wire", ("a2a_push", "a2a_seg")),
+                         ("dense_gemm", ("tdt_gemm",)),
+                         ("all_gather", ("ag_push", "ag_ring"))))
     busy = sum(fams.values())
     rec = {"slots": slots, "live_rows": 1, "kv_len": kv, "horizon": horizon,
            "wall_s": wall, "device_busy_s": busy,
@@ -2600,21 +2682,17 @@ def check_long_engine(params, cfg, device, card: str, long=LONG,
     """Phase 12's engine: one seeded prompt of ``long["prompt"]`` tokens
     with ``long["new"]`` new ones through ``ShardedServingEngine(
     long_context=True)`` at mesh 1x1x1, twice (bit-identical streams;
-    the full budget generated; the fused fold and the MoE FFN's kernels
-    launched on every layer of every decode step and chunk, B1 and the slab
-    kernel never); TTFT, prefill s, decode ms per step, tok/s and peak
-    memory; one decode dispatch at the prompt's length under the profiler.
+    the full budget generated; every kernel of the path launched exactly
+    as ``engine_launches`` says, the fused fold on every layer of every
+    decode step and chunk, B1 and the slab kernel never); TTFT, prefill s,
+    decode ms per step, tok/s and peak memory; one decode dispatch at the
+    prompt's length through the engine's own hooks under the profiler.
     Raises on any failure."""
     import numpy as np
     import torch
 
-    from triton_dist_tpu_torch.models.moe import moe_mlp_ep_overlap
-    from triton_dist_tpu_torch.ops import all_to_all as ea
     from triton_dist_tpu_torch.ops import flash_decode as fd
-    from triton_dist_tpu_torch.ops import group_gemm as gg
     from triton_dist_tpu_torch.serving import ShardedServingEngine
-    from triton_dist_tpu_torch.serving.sharded import (DECODE_BLOCK_M,
-                                                       serving_mesh)
 
     base = cfg.base
     total = long["prompt"] + long["new"]
@@ -2624,9 +2702,7 @@ def check_long_engine(params, cfg, device, card: str, long=LONG,
     trace = [(0, [int(t) for t in rng.randint(1, base.vocab_size,
                                                long["prompt"])],
               long["new"])]
-    kernels = (fd.fd_partials_fold, ea.ep_dispatch, gg.grouped_gemm_gated,
-               gg.grouped_gemm, ea.ep_combine, fd.gqa_decode_paged,
-               fd.fd_page_partials)
+    kernels = engine_kernels() + (fd.fd_partials_fold, fd.fd_page_partials)
 
     def make():
         return ShardedServingEngine(params, cfg, device=device,
@@ -2637,8 +2713,8 @@ def check_long_engine(params, cfg, device, card: str, long=LONG,
         torch.cuda.reset_peak_memory_stats()
     res, eng, wall, launches = serve(make, device, trace, kernels)
     c, h = eng.metrics.counters, eng.metrics.hist
-    expect = base.n_layers * (eng.decode_horizon * c["dispatches"]
-                              + c["prefill_chunks"])
+    expect = dict(engine_launches(eng), gqa_decode_paged=0,
+                  fd_page_partials=0)
     ttft = h["ttft_s"].percentile(50)
     decode_s = wall - ttft
     rec = {"card": card, "prompt_tokens": long["prompt"],
@@ -2662,31 +2738,18 @@ def check_long_engine(params, cfg, device, card: str, long=LONG,
     rec["rerun_wall_s"] = wall2
     del eng2
     log("long-context engine", json.dumps(rec))
-    path = ("fd_partials_fold", "ep_dispatch", "grouped_gemm_gated",
-            "grouped_gemm", "ep_combine")
     ok = (len(res) == 1 and len(res[0]) == long["new"]
-          and rec["layout"] == "interleaved" and expect > 0
-          and all(launches[k] == expect for k in path)
-          and launches["gqa_decode_paged"] == 0
-          and launches["fd_page_partials"] == 0
+          and rec["layout"] == "interleaved"
+          and expect["fd_partials_fold"] > 0 and launches == expect
           and launches2 == launches and rec["rerun_bit_identical"])
     if not ok:
         raise AssertionError(f"the long-context engine failed its checks: "
                              f"{rec}")
 
-    ctx = serving_mesh()
-
-    def attn_io(q, k, v, kp, vp, bt, pos, kv_len, active):
-        return fd.flash_decode_dist(ctx, q, k, v, kp, vp, bt, pos, kv_len,
-                                    axis="sp", active=active)
-
-    def ffn(x, p):
-        return moe_mlp_ep_overlap(x, p["w_router"], p["we_gate"], p["we_up"],
-                                  p["we_down"], cfg.topk,
-                                  block_m=DECODE_BLOCK_M)
-
-    profile = profile_long_dispatch(params, base, device, attn_io, ffn,
-                                    long["prompt"])
+    eng = make()
+    profile = profile_long_dispatch(params, base, device, eng.attn_io,
+                                    eng.ffn, eng.linear, long["prompt"])
+    del eng
     if on_card:
         torch.cuda.empty_cache()
 
@@ -2698,46 +2761,36 @@ def teacher_forced(params, cfg, device, prompt, stream, upto: int,
     """One request through the model functions that the engine calls, with
     ``ENGINE``'s shapes: the prompt's chunks, then decode steps in
     ``num_slots`` rows (the request in row 0, the others parked) fed
-    ``stream[:upto]``, with attention through ``flash_decode_dist`` when
-    ``long_context`` and through B1 otherwise. A row's bits do not depend on
-    the other rows, so this repeats the engine's computation of the
-    request. Returns the greedy ``tokens`` of positions 0..upto, ``routers``
-    (each MoE layer call's f32 router logits of the request's rows, in call
+    ``stream[:upto]``, through a one-rank engine's own hooks (FFN,
+    projections, and attention: ``flash_decode_dist`` when
+    ``long_context``, B1 otherwise). A row's bits do not depend on the
+    other rows, so this repeats the engine's computation of the request.
+    Returns the greedy ``tokens`` of positions 0..upto, ``routers`` (each
+    MoE layer call's f32 router logits of the request's rows, in call
     order) and ``logits`` (the LM head's, of the last position)."""
     import torch
 
     from triton_dist_tpu_torch.models import llama
-    from triton_dist_tpu_torch.models.moe import moe_mlp_ep_overlap
-    from triton_dist_tpu_torch.ops import flash_decode as fd
-    from triton_dist_tpu_torch.serving.sharded import (CHUNK_BLOCK_M,
-                                                       DECODE_BLOCK_M,
-                                                       serving_mesh)
+    from triton_dist_tpu_torch.serving import ShardedServingEngine
 
     base = cfg.base
     slots, chunk = ENGINE["num_slots"], ENGINE["prefill_chunk"]
     routers, heads, rows = [], [], [0]
+    eng = ShardedServingEngine(params, cfg, device=device,
+                               long_context=long_context, **ENGINE)
+    attn_io = eng.attn_io
 
-    def ffn(block_m):
+    def ffn(hook):
         def f(h, p):             # the block's own router product, kept
             routers.append((h.float() @ p["w_router"])[:rows[0]])
-            return moe_mlp_ep_overlap(h, p["w_router"], p["we_gate"],
-                                      p["we_up"], p["we_down"], cfg.topk,
-                                      block_m=block_m)
+            return hook(h, p)
         return f
 
-    def linear(h, w, name):       # the plain product; keeps the LM head's
-        y = h @ w
+    def linear(h, w, name):       # the engine's product; keeps the LM head's
+        y = eng.linear(h, w, name)
         if name == "lm_head":
             heads.append(y[0].float())
         return y
-
-    attn_io = None
-    if long_context:
-        ctx = serving_mesh()
-
-        def attn_io(q, k, v, kp, vp, bt, pos, kv_len, active):
-            return fd.flash_decode_dist(ctx, q, k, v, kp, vp, bt, pos,
-                                        kv_len, axis="sp", active=active)
 
     n_pages = -(-(len(prompt) + upto + 1) // PS)
     pool = llama.init_page_pool(base, 1 + n_pages, PS, device=device)
@@ -2754,7 +2807,7 @@ def teacher_forced(params, cfg, device, prompt, stream, upto: int,
         rows[0] = end - start
         tok, pool = llama.prefill_chunk_paged(
             params, toks, start, end, base, pool, row,
-            ffn=ffn(CHUNK_BLOCK_M), attn_io=attn_io, linear=linear)
+            ffn=ffn(eng.ffn_chunk), attn_io=attn_io, linear=linear)
     tokens.append(int(tok))
     bt = torch.zeros(slots, ENGINE["pages_per_seq"], dtype=torch.int32,
                      device=device)
@@ -2768,9 +2821,9 @@ def teacher_forced(params, cfg, device, prompt, stream, upto: int,
         token[0], pos[0] = stream[j], len(prompt) + j
         tok, pool = llama.decode_step_paged(
             params, token, pos, base, pool, bt, active=active, sample=True,
-            ffn=ffn(DECODE_BLOCK_M), attn_io=attn_io, linear=linear)
+            ffn=ffn(eng.ffn), attn_io=attn_io, linear=linear)
         tokens.append(int(tok[0]))
-    del pool
+    del pool, eng
     return {"tokens": tokens, "routers": routers, "logits": heads[-1]}
 
 
@@ -4480,6 +4533,494 @@ def tp_ranks_kernels(tp: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the sharded MoE serving engine across ranks (B21, B22)
+# ---------------------------------------------------------------------------
+
+# ranks of the EP wire's checks; the engine's shapes at Mixtral-8x7B's
+# widths: a decode step's 8 token rows (top-2) and a 256-row chunk, cut
+# over the ranks
+A2A_RANKS = (2, 4, 8)
+A2A_ROWS = {"decode": 8, "chunk": 256}
+A2A_FRESH = 5
+A2A_SEGMENTS = 2
+# the meshes served (tp, sp, ep, overlap) and the requests of phase 9's
+# trace each serves: a prefix, to hold the phase's time, long enough to
+# preempt once in the 128-page pool; the golden is the 1x1x1 engine on the
+# same prefix
+EP_MESHES = ((1, 1, 2, "off"), (1, 1, 4, "off"), (1, 1, 4, "ep"),
+             (2, 1, 2, "off"), (1, 2, 2, "off"), (2, 2, 2, "off"))
+EP_PREFIX = 10
+
+
+def _bits(t):
+    """A tensor's raw bits, for comparisons where -0.0 and +0.0 (or two
+    NaNs) must count as they are."""
+    import torch
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.contiguous().view(ints[t.element_size()])
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        bool(torch.equal(_bits(a).cpu(), _bits(b).cpu()))
+
+
+def a2a_inputs(n: int, cap: int, H: int, seed: int, device):
+    """A wire's bf16 payload [n * n, cap, H] whose rows hit the quantiser's
+    edges (a zero row, a row of one repeated value at its amax, rows of
+    tiny values whose quotients fall to fp8's subnormals, one huge row),
+    the rest scaled normals; and the int32 id wire."""
+    import torch
+
+    from triton_dist_tpu_torch.ops.all_to_all import _id_cols
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n * n, cap, H, generator=gen, device=device)
+    x = x * torch.rand(n * n, cap, 1, generator=gen, device=device) * 4
+    x[0, 0] = 0
+    x[0, 1 % cap] = 3.0
+    x[-1, 0] = x[-1, 0] * 1e-6
+    x[-1, cap - 1] = x[-1, cap - 1] * 1e4
+    cols = _id_cols(cap)
+    ids = torch.randint(-1, 4, (n * n, cols // 128, 128), generator=gen,
+                        device=device, dtype=torch.int32)
+    return x.to(torch.bfloat16), ids
+
+
+def a2a_bound(ins, outs) -> tuple[float, str]:
+    """Every rank's input read once and output written once through the
+    one HBM (the ranks share the card)."""
+    nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_a2a_kernels(device, timed: bool = True, ranks=A2A_RANKS,
+                      rows=A2A_ROWS, H: int = 4096, topk: int = 2,
+                      fresh: int = A2A_FRESH) -> list[dict]:
+    """Phase 16a: B21 (``all_to_all_push``) and B22 (``all_to_all_push_seg``)
+    at ``ranks`` ranks on the one card, at the engine's decode and chunk
+    rows, for the plain wire and the fp8 and int8 wires: the quantise and
+    dequantise in the kernel (both, each alone), the pre-quantised wire,
+    and B22 at 2 segments. Every rank's outputs bitwise the plain version's
+    (a rerun and ``fresh`` calls with fresh data too), every pad zero after
+    a call. Timed: one call between CUDA events, the kernel alone, the
+    plain version, ``transpose(0, 1).contiguous()`` of the plain wire, the
+    bound. Then a wire whose rank 1 never signals must raise within the
+    budget, for B21 and for B22's counted segments, and the next call must
+    be right again. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import all_to_all as ea
+    from triton_dist_tpu_torch.shmem import check_errors, initialize_distributed
+    from triton_dist_tpu_torch.shmem.device import ShmemError
+
+    records = []
+    bf16 = torch.bfloat16
+    for n in ranks:
+        ctx = initialize_distributed(("x",), (n,), device=device)
+        for shape, R in rows.items():
+            T = R // n
+            for wire in (None, torch.float8_e4m3fn, torch.int8):
+                itemsize = (wire or bf16).itemsize
+                cap = ea._cap_round(T * topk, itemsize)
+                wname = "bf16" if wire is None else str(wire).split(".")[-1]
+
+                def make(seed, wire=wire, cap=cap):
+                    x, ids = a2a_inputs(n, cap, H, seed, device)
+                    if wire is None:
+                        return x, ids, None, None
+                    q, sc = ea._quant(x.reshape(-1, H), wire)
+                    return (x, ids, q.view(x.shape),
+                            ea._scale_wire(sc.view(n * n, cap), cap))
+
+                def cases(x, ids, q, sc, wire=wire):
+                    """(name, kernel call, plain call, kernel name)"""
+                    rep = dict(axis="x", replicas=True)
+                    if wire is None:
+                        return [
+                            ("wire", lambda: ea.all_to_all_push(
+                                ctx, x, ids, **rep), lambda: ea.
+                             all_to_all_push_plain(ctx, x, ids, **rep),
+                             "a2a_push"),
+                            (f"seg{A2A_SEGMENTS}", lambda: ea.
+                             all_to_all_push_seg(ctx, x, ids,
+                                                 segments=A2A_SEGMENTS,
+                                                 **rep), lambda: ea.
+                             all_to_all_push_plain(ctx, x, ids, **rep),
+                             "a2a_seg")]
+                    return [
+                        ("quant+dequant", lambda: ea.all_to_all_push(
+                            ctx, x, ids, quant_from=wire, dequant_to=bf16,
+                            **rep), lambda: ea.all_to_all_push_plain(
+                            ctx, x, ids, quant_from=wire, dequant_to=bf16,
+                            **rep), "a2a_push"),
+                        ("quant", lambda: ea.all_to_all_push(
+                            ctx, x, ids, quant_from=wire, **rep),
+                         lambda: ea.all_to_all_push_plain(
+                            ctx, x, ids, quant_from=wire, **rep),
+                         "a2a_push"),
+                        ("dequant", lambda: ea.all_to_all_push(
+                            ctx, q, ids, sc, dequant_to=bf16, **rep),
+                         lambda: ea.all_to_all_push_plain(
+                            ctx, q, ids, sc, dequant_to=bf16, **rep),
+                         "a2a_push"),
+                        ("wire", lambda: ea.all_to_all_push(
+                            ctx, q, ids, sc, **rep),
+                         lambda: ea.all_to_all_push_plain(
+                            ctx, q, ids, sc, **rep), "a2a_push"),
+                        (f"seg{A2A_SEGMENTS}", lambda: ea.
+                         all_to_all_push_seg(ctx, q, ids, sc,
+                                             segments=A2A_SEGMENTS, **rep),
+                         lambda: ea.all_to_all_push_plain(ctx, q, ids, sc,
+                                                          **rep),
+                         "a2a_seg")]
+
+                base = make(0)
+                listed = cases(*base)
+                for ci, (name, call, plain, kname) in enumerate(listed):
+                    got = call()
+                    again = call()
+                    check_errors(ctx)
+                    want = plain()
+                    ok_fresh = True
+                    for f in range(fresh):
+                        fr = make(100 + f)
+                        c = cases(*fr)[ci]
+                        ok_fresh &= _same(c[1](), c[2]())
+                    check_errors(ctx)
+                    pads_zero = all(int(p.abs().sum()) == 0
+                                    for p in ctx._pads.values())
+                    rec = {"ranks": n, "shape": shape, "rows_a_rank": T,
+                           "cap": cap, "H": H, "wire": wname, "case": name,
+                           "bitwise": _same(got, want),
+                           "bitwise_repeat": _same(got, again),
+                           "bitwise_fresh": ok_fresh,
+                           "pads_zero": pads_zero, "max_abs_err": 0.0}
+                    if name.startswith("seg"):
+                        rec["equals_b21"] = _same(
+                            got, listed[0 if wire is None else 3][1]())
+                    ins = [base[0], base[1]] if (
+                        wire is None or name in ("quant", "quant+dequant")) \
+                        else [base[2], base[1], base[3]]
+                    rec["wire_bytes_a_rank"] = sum(
+                        t.numel() * t.element_size() for t in got) // n
+                    if timed:
+                        lib = (lambda: base[0].view(n, n, cap, H)
+                               .transpose(0, 1).contiguous()) \
+                            if (wire is None and name in ("wire", "seg2")) \
+                            else None
+                        rec.update(_timings(call, plain, lib, (kname,),
+                                            a2a_bound(ins, list(got))))
+                        rec["library"] = ("transpose(0, 1).contiguous()"
+                                          if lib else
+                                          "none: no single call quantises "
+                                          "and exchanges per slot")
+                    log("a2a kernel vs plain", json.dumps(rec))
+                    if not (rec["bitwise"] and rec["bitwise_repeat"]
+                            and ok_fresh and pads_zero
+                            and rec.get("equals_b21", True)):
+                        raise AssertionError(f"the EP wire disagrees with "
+                                             f"its plain version: {rec}")
+                    records.append(rec)
+    if device.type != "cuda":         # the plain versions have no spin
+        return records
+    # the hang checks: rank 1 puts but never signals
+    ctx = initialize_distributed(("x",), (2,), device=device)
+    x, ids = a2a_inputs(2, 16, H, 7, device)
+    for name, wire in (
+            ("all_to_all_push", ea.all_to_all_push),
+            ("all_to_all_push_seg", functools.partial(
+                ea.all_to_all_push_seg, segments=A2A_SEGMENTS))):
+        t0 = time.perf_counter()
+        raised = False
+        try:
+            wire(ctx, x, ids, axis="x", silent_rank=1)
+            check_errors(ctx)
+        except ShmemError as e:
+            raised = True
+            log(f"{name} starved signal raised: {e}")
+        waited = time.perf_counter() - t0
+        ok_after = _same(wire(ctx, x, ids, axis="x"),
+                         ea.all_to_all_push_plain(ctx, x, ids, axis="x"))
+        check_errors(ctx)
+        log("a2a hang check", json.dumps({
+            "kernel": name, "raised": raised, "seconds": waited,
+            "next_call_bitwise": ok_after}))
+        if not (raised and waited < 2.5 and ok_after):
+            raise AssertionError(f"a starved {name} signal did not raise "
+                                 f"within its budget")
+    return records
+
+
+def check_ep_block(params, cfg, device, rows=A2A_ROWS, ranks: int = 4
+                   ) -> list[dict]:
+    """Phase 16b: ``moe_mlp_ep_overlap`` of layer 0 at ep = ``ranks`` on the
+    one card, for the plain and the fp8 wire, with M = 1 and M = 2
+    microbatches (B22 for M = 2), bitwise the block at ep = 1 on the same
+    rows with the same wire."""
+    import torch
+
+    from triton_dist_tpu_torch.layers import EPAll2AllLayer
+    from triton_dist_tpu_torch.models.moe import moe_mlp_ep_overlap
+    from triton_dist_tpu_torch.shmem import check_errors, initialize_distributed
+
+    p = {k: v[0] for k, v in params["blocks"].items()}
+    ws = (p["w_router"], p["we_gate"], p["we_up"], p["we_down"])
+    D = cfg.base.d_model
+    records = []
+    for shape, R in rows.items():
+        bm = 16 if shape == "decode" else 64
+        gen = torch.Generator(device=device).manual_seed(R + 1)
+        x = torch.randn(R, D, generator=gen, device=device).to(cfg.base.dtype)
+        for wire in (None, torch.float8_e4m3fn):
+            outs = {}
+            for n in (1, ranks):
+                ctx = initialize_distributed(("ep",), (n,), device=device)
+                lay = EPAll2AllLayer.create(ctx, R // n, D, cfg.topk,
+                                            cfg.num_experts, axis="ep",
+                                            dtype=cfg.base.dtype,
+                                            wire_dtype=wire)
+                for M in (1, 2):
+                    la = lay if M == 1 else dataclasses.replace(
+                        lay, a2a=dataclasses.replace(lay.a2a, seg_push=2))
+                    outs[n, M] = moe_mlp_ep_overlap(ctx, la, x, *ws,
+                                                    block_m=bm,
+                                                    microbatches=M)
+                check_errors(ctx)
+            rec = {"shape": shape, "rows": R, "ranks": ranks,
+                   "wire": None if wire is None else "float8_e4m3fn",
+                   "finite": bool(torch.isfinite(outs[1, 1].float()).all()),
+                   "ranks_equal_one_rank": {
+                       f"M={M}": _same(outs[ranks, M], outs[1, 1])
+                       for M in (1, 2)},
+                   "one_rank_M2_equal": _same(outs[1, 2], outs[1, 1])}
+            log("ep block across ranks", json.dumps(rec))
+            if not (rec["finite"] and all(rec["ranks_equal_one_rank"].values())
+                    and rec["one_rank_M2_equal"]):
+                raise AssertionError(f"the EP block across ranks is not "
+                                     f"bitwise the one-rank block: {rec}")
+            records.append(rec)
+    return records
+
+
+def check_column_products(params, cfg, device, ranks=(2, 4),
+                          rows=(8, 256)) -> list[dict]:
+    """The sharded engine's projections at Mixtral's widths (layer 0's wq
+    and wk, the LM head): B2 (``column_product``) on each rank's column
+    block must be bitwise its columns of the whole product, at every rank
+    count and row count; cuBLAS (``torch.matmul``) is checked the same way
+    and recorded only. Timed: B2 and cuBLAS on the whole product."""
+    import torch
+
+    from triton_dist_tpu_torch.ops.allgather_gemm import column_product
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    blocks = params["blocks"]
+    ws = {"wq": blocks["wq"][0], "wk": blocks["wk"][0],
+          "lm_head": params["lm_head"]}
+    records = []
+    for name, w in ws.items():
+        N = w.shape[1]
+        for R in rows:
+            gen = torch.Generator(device=device).manual_seed(R)
+            h = torch.randn(R, w.shape[0], generator=gen,
+                            device=device).to(w.dtype)
+            b2, cu = column_product(h, w), h @ w
+            rec = {"weight": name, "rows": R, "K": w.shape[0], "N": N,
+                   "b2_split_bitwise": {}, "cublas_split_bitwise": {}}
+            for n in ranks:
+                nl = N // n
+                cols = [slice(r * nl, (r + 1) * nl) for r in range(n)]
+                rec["b2_split_bitwise"][n] = bool(torch.equal(torch.cat(
+                    [column_product(h, w[:, c]) for c in cols], 1), b2))
+                rec["cublas_split_bitwise"][n] = bool(torch.equal(torch.cat(
+                    [h @ w[:, c] for c in cols], 1), cu))
+            if device.type == "cuda":
+                rec["b2_ms"] = perf_func(lambda: column_product(h, w))[1]
+                rec["cublas_ms"] = perf_func(lambda: h @ w)[1]
+            log("column products", json.dumps(rec))
+            if not all(rec["b2_split_bitwise"].values()):
+                raise AssertionError(f"B2's column blocks are not its whole "
+                                     f"product: {rec}")
+            records.append(rec)
+    return records
+
+
+def _first_difference(golden: dict, got: dict) -> dict | None:
+    for rid in sorted(golden):
+        a, b = golden[rid], got.get(rid)
+        if a != b:
+            step = next((i for i, (u, v) in enumerate(zip(a, b or []))
+                         if u != v), min(len(a), len(b or [])))
+            return {"request": rid, "token": step}
+    return None
+
+
+def check_ep_engines(params, cfg, device, card: str,
+                     meshes=EP_MESHES, prefix: int = EP_PREFIX) -> dict:
+    """Phase 16c: the first ``prefix`` requests of phase 9's trace through
+    ``ShardedServingEngine`` on each of ``meshes`` with the fp8 wire, and at
+    1x1x4 with the plain wire; each mesh's streams must be bitwise those of
+    the 1x1x1 engine with the same wire on the same requests (the golden),
+    every request finishing with its full budget, with a preemption. Launch
+    counts of the path's kernels are set to 0 before each run, must equal
+    ``engine_launches`` exactly (B21 and no B22 with overlap off, B22 and
+    no B21 with overlap="ep") and are summed. Then one decode dispatch of
+    the 1x1x4 engine under the profiler."""
+    import torch
+
+    from triton_dist_tpu_torch.serving import (ShardedServingEngine,
+                                               serving_mesh)
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    trace = make_trace(cfg.base, N_REQUESTS, 0)[:prefix]
+    kernels = engine_kernels()
+    fp8 = torch.float8_e4m3fn
+    runs = [((1, 1, 1, "off"), fp8)] + [(m, fp8) for m in meshes] \
+        + [((1, 1, 1, "off"), None), ((1, 1, 4, "off"), None)]
+    goldens, records = {}, []
+    totals = {k.__name__: 0 for k in kernels}
+    for (tp, sp, ep, overlap), wire in runs:
+        def make():
+            return ShardedServingEngine(params, cfg, serving_mesh(tp, sp, ep),
+                                        device=device, wire_dtype=wire,
+                                        overlap=overlap, **ENGINE)
+        res, eng, wall, launches = serve(make, device, trace, kernels)
+        check_errors(eng.ctx)
+        c, h = eng.metrics.counters, eng.metrics.hist
+        key = None if wire is None else "float8_e4m3fn"
+        golden = goldens.setdefault(key, res)
+        rec = {"mesh": eng.mesh_desc, "overlap": overlap, "wire": key,
+               "requests": len(trace), "finished": c["requests_finished"],
+               "tokens_generated": c["tokens_generated"],
+               "preemptions": c["preemptions"], "dispatches": c["dispatches"],
+               "prefill_chunks": c["prefill_chunks"],
+               "digest_checks": c["digest_checks"], "wall_s": wall,
+               "tok_per_s": c["tokens_generated"] / wall,
+               "ttft_p50_s": h["ttft_s"].percentile(50),
+               "exposed_comm_us_modelled": eng._exposed_comm_us,
+               "launches": launches,
+               "launches_expected": engine_launches(eng),
+               "bitwise_golden": res == golden,
+               "first_difference": _first_difference(golden, res)}
+        for k, v in launches.items():
+            totals[k] += v
+        log("ep engine", json.dumps(rec))
+        ok = (rec["finished"] == len(trace)
+              and all(len(res[i]) == m for i, (_, _, m) in enumerate(trace))
+              and rec["preemptions"] >= 1 and rec["bitwise_golden"]
+              and launches == rec["launches_expected"])
+        del eng
+        torch.cuda.empty_cache()
+        records.append(rec)
+        if not ok:
+            raise AssertionError(f"the sharded engine at {rec['mesh']} failed "
+                                 f"its checks: {rec}")
+    # the cost of B2 in the projections: the 1x1x1 golden engine again
+    # with cuBLAS products (timing only; its streams need not be bitwise)
+    def make_cublas():
+        eng = ShardedServingEngine(params, cfg, serving_mesh(1, 1, 1),
+                                   device=device, wire_dtype=fp8, **ENGINE)
+        eng.linear = lambda h, w, name: h @ w
+        return eng
+    _, eng, wall, _ = serve(make_cublas, device, trace, ())
+    cublas = {"mesh": "1x1x1", "projections": "cuBLAS (timing only)",
+              "wall_s": wall,
+              "tok_per_s": eng.metrics.counters["tokens_generated"] / wall,
+              "ttft_p50_s": eng.metrics.hist["ttft_s"].percentile(50)}
+    log("ep engine", json.dumps(cublas))
+    del eng
+    eng = ShardedServingEngine(params, cfg, serving_mesh(1, 1, 4),
+                               device=device, wire_dtype=fp8, **ENGINE)
+    profile = profile_dispatch(params, cfg.base, device, ffn=eng.ffn,
+                               attn_io=eng.attn_io, linear=eng.linear,
+                               distinct_tokens=True, label="ep 1x1x4 ")
+    del eng
+    log("ep engines launches", json.dumps(totals))
+    return {"runs": records, "launches": totals, "profile": profile,
+            "cublas_projections": cublas}
+
+
+def wire_fit(records: list[dict]) -> dict:
+    """Phase 16d: the wire fit ``t = t0 + bytes / rate`` of the plain bf16
+    wire and the fp8 wire (quantise and dequantise in the kernel), least
+    squares over 16a's kernel-alone times (``torch.profiler``) at every rank
+    count and shape, bytes the wire bytes a rank moves one way: the device
+    time of the exchange, which the engine's modelled comm split prices."""
+    fits = {}
+    for label, wire, case in (("bf16", "bf16", "wire"),
+                              ("fp8", "float8_e4m3fn", "quant+dequant")):
+        pts = [(r["wire_bytes_a_rank"], r["kernel_device_ms"] * 1e3)
+               for r in records if r["wire"] == wire and r["case"] == case
+               and r.get("kernel_device_ms")]
+        m = len(pts)
+        sx = sum(b for b, _ in pts)
+        sy = sum(t for _, t in pts)
+        sxx = sum(b * b for b, _ in pts)
+        sxy = sum(b * t for b, t in pts)
+        slope = (m * sxy - sx * sy) / (m * sxx - sx * sx)
+        t0 = (sy - slope * sx) / m
+        fits[label] = {"t0_us": t0, "gb_per_s": (1 / slope / 1e3
+                                                 if slope > 0 else None),
+                       "points": pts}
+    log("a2a wire fit", json.dumps(fits))
+    return fits
+
+
+def check_ep_ranks(params, cfg, device, card: str) -> dict:
+    """Phase 16 on phase 9's weights: the EP wire's kernels (16a), the EP
+    block across ranks (16b), the sharded engine on its meshes (16c) and
+    the wire fit (16d)."""
+    import torch
+
+    t0 = time.perf_counter()
+    a2a = check_a2a_kernels(device)
+    block = check_ep_block(params, cfg, device)
+    columns = check_column_products(params, cfg, device)
+    torch.cuda.empty_cache()
+    engines = check_ep_engines(params, cfg, device, card)
+    fit = wire_fit(a2a)
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return {"a2a": a2a, "block": block, "columns": columns,
+            "engines": engines, "fit": fit}
+
+
+def ep_kernels(ep: dict) -> list:
+    """The kernels line's entries of B21 and B22: the main case is the
+    decode wire at 4 ranks (bf16; B22 at 2 segments); every case listed."""
+    out = []
+    for name, kname, replaces, case in (
+            ("all_to_all_push", "a2a_push",
+             "triton_dist_tpu/ops/all_to_all.py:347", "wire"),
+            ("all_to_all_push_seg", "a2a_seg",
+             "triton_dist_tpu/ops/all_to_all.py:549", f"seg{A2A_SEGMENTS}")):
+        cases = [r for r in ep["a2a"]
+                 if (r["case"].startswith("seg")) == (kname == "a2a_seg")]
+        main_rec = next(r for r in cases if r["ranks"] == 4
+                        and r["shape"] == "decode" and r["wire"] == "bf16"
+                        and r["case"] == case)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/all_to_all.cu",
+            "replaces": replaces,
+            "launches": ep["engines"]["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            **{k: main_rec[k] for k in ("ms", "kernel_device_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+            "case": (f"decode, 4 ranks, {main_rec['rows_a_rank']} rows a "
+                     f"rank, cap {main_rec['cap']}, H {main_rec['H']}, bf16 "
+                     f"wire + ids"),
+            "cases": cases})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4666,7 +5207,8 @@ def main() -> int:
              tp["layers"]["gemm_rs"], [tp["layers"]["gemm_rs"]]),
             ("slot_reduce", "triton_dist_tpu/ops/gemm_reduce_scatter.py:88",
              tp["layers"]["slot_reduce"], [tp["layers"]["slot_reduce"]]))]
-        + slice6 + slice7 + tp_ranks_kernels(tp_ranks)}))
+        + slice6 + slice7 + tp_ranks_kernels(tp_ranks)
+        + ep_kernels(moe["ep"])}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

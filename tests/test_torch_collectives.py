@@ -1,7 +1,9 @@
 """The port's collectives across ranks against the JAX package on the same
 numpy inputs: the push and ring ``all_gather`` (B9) and the ring
-``reduce_scatter`` (B13) at 4 ranks, and the ops outside this slice, which
-still refuse more than one rank.
+``reduce_scatter`` (B13) at 4 ranks, and the ops outside the ported
+slices, which still refuse more than one rank (the gather and the barrier
+over a group inside a multi-axis mesh run now:
+``test_torch_ep_ranks.py``).
 
 On the CPU each wrapper runs its plain PyTorch version (copies; the ring's
 sums in its order and rounding); the JAX side runs its Pallas kernels in
@@ -154,7 +156,6 @@ def _raising_calls():
     from triton_dist_tpu_torch.ops import flash_decode as tfd
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as tgrs
     from triton_dist_tpu_torch.ops import moe as tmoe
-    from triton_dist_tpu_torch.ops.common import barrier_all_op
     from triton_dist_tpu_torch.parallel.train import (ParallelPlan,
                                                       make_train_step)
     from triton_dist_tpu_torch.serving.sharded import (ShardedServingEngine,
@@ -181,8 +182,9 @@ def _raising_calls():
             ctx2d, a, b, axis=("a", "b")), tp6),
         ("gemm_rs_ws inside a 2-D mesh", lambda: tgrs.create_gemm_rs_workspace(
             ctx2d, 2, 8, axis="a"), tp6),
-        ("tp_column_linear", lambda: tagg.tp_column_linear(ctx, a, b,
-                                                           axis="x"), sp8),
+        ("ll_ag_merge inside a 2-D mesh", lambda: tfd.ll_ag_merge(
+            ctx2d, torch.zeros(2, 2, 4, 32), torch.zeros(2, 2, 4),
+            torch.float32, axis="a"), coll5),
         ("mlp_tp_overlap inside a 2-D mesh", lambda: tl.mlp_tp_overlap(
             ctx2d, a, a, a, a, axis="b"), tp6),
         ("ag_moe_group_gemm", lambda: tmoe.ag_moe_group_gemm(
@@ -195,9 +197,10 @@ def _raising_calls():
                                                device="cpu",
                                                mesh={"cp": 2}),
          'item 9 "training and CP across ranks"'),
-        ("sharded engine", lambda: ShardedServingEngine(
+        ("sharded engine, overlap ep+sp", lambda: ShardedServingEngine(
             init_moe_params(mcfg, seed=0, device="cpu"), mcfg,
-            ctx=serving_mesh(sp=2), prefill_chunk=16, device="cpu"), sp8),
+            ctx=serving_mesh(sp=2), prefill_chunk=16, overlap="ep+sp",
+            device="cpu"), sp8),
         ("all_gather ring_2d", lambda: tag.all_gather(ctx, a,
                                                       method="ring_2d"),
          coll5),
@@ -206,7 +209,7 @@ def _raising_calls():
         ("all_gather ll", lambda: tag.all_gather(ctx, a, method="ll"), coll5),
         ("broadcast", lambda: tag.all_gather(ctx, a, method="broadcast"),
          coll5),
-        ("all_gather inside a 2-D mesh", lambda: tag.all_gather(
+        ("reduce_scatter inside a 2-D mesh", lambda: trs.reduce_scatter(
             ctx2d, a, axis="b"), coll5),
         ("reduce_scatter ring_2d", lambda: trs.reduce_scatter(
             ctx2d, a, method="ring_2d"), coll5),
@@ -215,8 +218,8 @@ def _raising_calls():
          coll5),
         ("reduce_scatter over two axes", lambda: trs.reduce_scatter(
             ctx2d, a, axis=("a", "b")), coll5),
-        ("barrier inside a 2-D mesh", lambda: barrier_all_op(ctx2d, "a"),
-         coll5),
+        ("sp_gqa_flash_decode inside a 2-D mesh", lambda: tfd.
+         sp_gqa_flash_decode(ctx2d, q, None, None, None, axis="a"), coll5),
     ]
 
 

@@ -1,5 +1,6 @@
 """The port's one-rank MoE serving path against the JAX package: the MoE
-block against JAX ``moe_mlp_ep_overlap`` on a one-device mesh, the paged
+block (``moe_mlp_ep_overlap`` over a one-rank ``EPAll2AllLayer``) against
+JAX ``moe_mlp_ep_overlap`` on a one-device mesh, the paged
 decode step and prefill chunk with the MoE ``ffn`` against JAX's, and the
 port's ``ShardedServingEngine`` against JAX ``ShardedServingEngine`` at mesh
 1x1x1 (no quantised wire) on ``test_sharded_serving.py``'s micro model (f32)
@@ -24,6 +25,7 @@ from triton_dist_tpu.models import moe as jm
 from triton_dist_tpu.serving import ShardedServingEngine as JEngine
 from triton_dist_tpu.serving import serving_mesh as j_serving_mesh
 from triton_dist_tpu.shmem.context import initialize_distributed
+from triton_dist_tpu_torch.layers import EPAll2AllLayer as TLayer
 from triton_dist_tpu_torch.models import llama as tl
 from triton_dist_tpu_torch.models import moe as tm
 from triton_dist_tpu_torch.models.convert import (params_from_jax,
@@ -31,6 +33,8 @@ from triton_dist_tpu_torch.models.convert import (params_from_jax,
 from triton_dist_tpu_torch.serving import (ServingEngine,
                                            ShardedServingEngine,
                                            serving_mesh)
+from triton_dist_tpu_torch.shmem import \
+    initialize_distributed as t_initialize_distributed
 
 pytestmark = pytest.mark.port
 
@@ -87,10 +91,17 @@ def _j_ffn(ctx, cfg, rows):
     return ffn
 
 
-def _t_ffn(cfg, block_m):
+def _t_ffn(cfg, rows, block_m):
+    """The port's block as the one-rank engine runs it: the plain wire over
+    a one-rank EP layer of ``rows`` rows."""
+    ctx = t_initialize_distributed(("x",), (1,), device="cpu")
+    layer = TLayer.create(ctx, max_tokens=rows, hidden=cfg.base.d_model,
+                          topk=cfg.topk, num_experts=cfg.num_experts,
+                          axis="x", dtype=cfg.base.dtype)
+
     def ffn(h, p):
-        return tm.moe_mlp_ep_overlap(h, p["w_router"], p["we_gate"],
-                                     p["we_up"], p["we_down"], cfg.topk,
+        return tm.moe_mlp_ep_overlap(ctx, layer, h, p["w_router"],
+                                     p["we_gate"], p["we_up"], p["we_down"],
                                      block_m=block_m)
     return ffn
 
@@ -111,7 +122,8 @@ def test_moe_block_matches_jax(micro, ctx):
     x = np.random.RandomState(3).randn(16, 128).astype(np.float32)
     want = jax.jit(lambda h, p: _j_ffn(ctx, jcfg, 16)(h, p))(
         jnp.asarray(x), _layer0(jparams))
-    outs = [_t_ffn(tcfg, bm)(_t(x), _layer0(tparams)) for bm in (16, 64)]
+    outs = [_t_ffn(tcfg, 16, bm)(_t(x), _layer0(tparams))
+            for bm in (16, 64)]
     np.testing.assert_allclose(outs[0].numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)
     assert torch.equal(outs[0], outs[1])
@@ -142,7 +154,7 @@ def test_decode_step_paged_with_moe_ffn_matches_jax(micro, ctx):
     t_logits, t_pages = tl.decode_step_paged(
         tparams, _t(token), _t(pos), tcfg.base,
         {k: _t(v) for k, v in pool.items()}, _t(bt), active=_t(active),
-        ffn=_t_ffn(tcfg, 16))
+        ffn=_t_ffn(tcfg, 4, 16))
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
                                atol=ATOL, rtol=RTOL)
     for k in ("k", "v"):
@@ -173,7 +185,7 @@ def test_prefill_chunk_paged_with_moe_ffn_matches_jax(micro, ctx):
                                jnp.int32(13), j_pages, jnp.asarray(row))
         t_tok, t_pages = tl.prefill_chunk_paged(
             tparams, _t(toks), start, 13, tcfg.base, t_pages, _t(row),
-            ffn=_t_ffn(tcfg, 64))
+            ffn=_t_ffn(tcfg, 8, 64))
     assert int(t_tok) == int(j_tok)
     for k in ("k", "v"):
         np.testing.assert_allclose(t_pages[k][:, row[:2]].numpy(),
@@ -244,24 +256,39 @@ def test_contended_trace_equals_uncontended(micro, golden, horizon):
 def test_ffn_hook_needs_prefill_chunk(micro):
     _, _, tcfg, tparams = micro
     with pytest.raises(ValueError, match="prefill_chunk"):
-        ServingEngine(tparams, tcfg.base, ffn=_t_ffn(tcfg, 16), device="cpu")
+        ServingEngine(tparams, tcfg.base, ffn=_t_ffn(tcfg, 4, 16),
+                      device="cpu")
     with pytest.raises(ValueError, match="prefill_chunk"):
         ShardedServingEngine(tparams, tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [
-    {"ctx": serving_mesh(tp=2)}, {"ctx": serving_mesh(sp=2)},
-    {"ctx": serving_mesh(ep=2)}, {"wire_dtype": "auto"},
-    {"wire_dtype": torch.float8_e4m3fn}, {"overlap": "ep"},
-    {"long_context": True, "ctx": serving_mesh(sp=2)}, {"speculate": 4},
-    {"tp_impl": "ag_gemm"}],
+@pytest.mark.parametrize("kw,built", [
+    ({"ctx": serving_mesh(tp=2)}, {"mesh_desc": "2x1x1"}),
+    ({"ctx": serving_mesh(sp=2)}, {"mesh_desc": "1x2x1"}),
+    ({"ctx": serving_mesh(ep=2)}, {"mesh_desc": "1x1x2"}),
+    ({"wire_dtype": "auto"}, {"mesh_desc": "1x1x1"}),
+    ({"wire_dtype": torch.float8_e4m3fn}, {"wire_dtype": "float8_e4m3fn"}),
+    ({"overlap": "ep+sp"}, None),
+    ({"long_context": True, "ctx": serving_mesh(sp=2)}, None),
+    ({"speculate": 4}, None),
+    ({"tp_impl": "ag_gemm"}, {"mesh_desc": "1x1x1"})],
     ids=["tp2", "sp2", "ep2", "wire-auto", "wire-fp8", "overlap",
          "long-context", "speculate", "tp-ag-gemm"])
-def test_multi_rank_options_raise(micro, kw):
+def test_multi_rank_options_raise(micro, kw, built):
+    """The options across ranks: the meshes, the wires and ``tp_impl``
+    build the engine now (``test_torch_sharded_ranks.py`` serves them);
+    ``overlap="ep+sp"`` (B6), ``long_context`` at sp > 1 (B8) and
+    ``speculate`` still raise, naming their ROADMAP item."""
     _, _, tcfg, tparams = micro
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedServingEngine(tparams, tcfg, device="cpu",
-                             **dict(ENGINE, **kw))
+    if built is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ShardedServingEngine(tparams, tcfg, device="cpu",
+                                 **dict(ENGINE, **kw))
+        return
+    eng = ShardedServingEngine(tparams, tcfg, device="cpu",
+                               **dict(ENGINE, **kw))
+    for attr, want in built.items():
+        assert getattr(eng, attr) == want
 
 
 @pytest.mark.parametrize("preset", ["tiny", "mixtral_8x7b",

@@ -180,9 +180,15 @@ def test_more_ranks_and_axis_tuples_raise():
 
 
 def test_tp_column_linear_is_the_product_at_one_rank():
+    """At one rank it is the product, summed per element in the fixed K
+    order that makes every column split bitwise the whole
+    (``column_product``; B2 on the card), within f32 rounding of ``h @
+    w``."""
     ctx = initialize_distributed(("tp",), device="cpu")
     h, w = (_t(x) for x in _arrays("float32", (4, K), (K, N)))
-    assert torch.equal(tag.tp_column_linear(ctx, h, w), h @ w)
+    got = tag.tp_column_linear(ctx, h, w)
+    assert torch.equal(got, tag.column_product(h, w))
+    torch.testing.assert_close(got, h @ w, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("persistent", [False, True])

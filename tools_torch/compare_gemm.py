@@ -73,6 +73,8 @@ def main() -> int:
     mine = csrc.load("gemm", tg._SIGNATURES)
     other = _other_library(Path(sys.argv[1]).resolve())
     for fn, argtypes in tg._SIGNATURES.items():
+        if not hasattr(other, fn):    # an entry the other build lacks
+            continue
         getattr(other, fn).argtypes = argtypes
         getattr(other, fn).restype = ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream

@@ -11,6 +11,10 @@
 // signals persist between calls, and the barrier keeps a fast rank's next
 // call from meeting a slow rank's current one once ranks are processes.
 // At one rank both are the copy of the shard into slot 0 (tdt_ag_copy).
+// Over an axis inside a multi-axis mesh they run in groups (a Group,
+// shmem.cuh): one launch covers every rank of the mesh, and each rank
+// gathers its own group's shards, talking to the members of its group
+// only; the slot of a shard is its rank's index in the group.
 //
 // What bounds them on this card: bytes. The push reads each shard once and
 // writes it n times (every replica's slot); the ring reads and writes each
@@ -61,26 +65,26 @@ __device__ __forceinline__ int flag_word(int seg, int lane) {
 // replica (n * nbytes).
 __global__ void __launch_bounds__(kThreads)
     ag_push_kernel(PeerTable in, PeerTable out, long long nbytes, long long per, PeerTable pads,
-                   Launch L) {
-  const int me = my_pe();
-  const int n = n_pes();
+                   Group G, Launch L) {
+  const int me = group_me(G);
+  const int n = group_n(G);
   const int lane = blockIdx.x;
-  if (!barrier_all_block(pads, lane, L)) return;
+  if (!barrier_group_block(pads, lane, G, L)) return;
   long long b0, b1;
   lane_range(nbytes, per, &b0, &b1);
-  const unsigned char* src = symm_at<const unsigned char>(in, me);
+  const unsigned char* src = symm_at<const unsigned char>(in, my_pe());
   const size_t slot = (size_t)me * nbytes;
   if (nbytes % 16 == 0) {
     // one 16-byte load, n stores: my slot of every replica
     for (long long i = b0 / 16 + threadIdx.x; i < b1 / 16; i += kThreads) {
       const uint4 v = __ldcg(reinterpret_cast<const uint4*>(src) + i);
       for (int p = 0; p < n; ++p)
-        reinterpret_cast<uint4*>(symm_at<unsigned char>(out, p) + slot)[i] = v;
+        reinterpret_cast<uint4*>(symm_at<unsigned char>(out, group_pe(G, p)) + slot)[i] = v;
     }
   } else {
     for (long long i = b0 + threadIdx.x; i < b1; i += kThreads) {
       const unsigned char v = __ldcg(src + i);
-      for (int p = 0; p < n; ++p) symm_at<unsigned char>(out, p)[slot + i] = v;
+      for (int p = 0; p < n; ++p) symm_at<unsigned char>(out, group_pe(G, p))[slot + i] = v;
     }
   }
   __syncthreads();
@@ -88,10 +92,10 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) {
     __threadfence();
     for (int p = 0; p < n; ++p)
-      if (p != me) signal_op(symm_at<int>(pads, p) + flag_word(me, lane), 1);
+      if (p != me) signal_op(symm_at<int>(pads, group_pe(G, p)) + flag_word(me, lane), 1);
     for (int s = 0; s < n && ok; ++s)
       if (s != me)
-        ok = signal_wait_until(symm_at<int>(pads, me) + flag_word(s, lane), 1, true, L,
+        ok = signal_wait_until(symm_at<int>(pads, my_pe()) + flag_word(s, lane), 1, true, L,
                                flag_word(s, lane));
   }
   if (!__syncthreads_and(ok)) return;
@@ -102,27 +106,27 @@ __global__ void __launch_bounds__(kThreads)
 // each forwarding the segment that arrived last.
 __global__ void __launch_bounds__(kThreads)
     ag_ring_kernel(PeerTable in, PeerTable out, long long nbytes, long long per, PeerTable pads,
-                   Launch L) {
-  const int me = my_pe();
-  const int n = n_pes();
+                   Group G, Launch L) {
+  const int me = group_me(G);
+  const int n = group_n(G);
   const int lane = blockIdx.x;
-  if (!barrier_all_block(pads, lane, L)) return;
+  if (!barrier_group_block(pads, lane, G, L)) return;
   long long b0, b1;
   lane_range(nbytes, per, &b0, &b1);
   const long long len = b1 > b0 ? b1 - b0 : 0;
-  const int right = pe_at(me + 1);
-  unsigned char* mine = symm_at<unsigned char>(out, me);
+  const int right = group_pe(G, me + 1);
+  unsigned char* mine = symm_at<unsigned char>(out, my_pe());
   unsigned char* next = symm_at<unsigned char>(out, right);
-  putmem_block(mine + (size_t)me * nbytes + b0, symm_at<const unsigned char>(in, me) + b0, len);
+  const unsigned char* shard = symm_at<const unsigned char>(in, my_pe()) + b0;
+  putmem_block(mine + (size_t)me * nbytes + b0, shard, len);
   for (int s = 0; s < n - 1; ++s) {
-    const int seg = pe_at(me - s);  // the newest segment I hold
+    const int seg = ((me - s) % n + n) % n;  // the newest segment I hold
     // hop 0 forwards my shard from its source; later hops what arrived
-    const unsigned char* from = s == 0 ? symm_at<const unsigned char>(in, me) + b0
-                                       : mine + (size_t)seg * nbytes + b0;
+    const unsigned char* from = s == 0 ? shard : mine + (size_t)seg * nbytes + b0;
     putmem_signal_block(next + (size_t)seg * nbytes + b0, from, len,
                         symm_at<int>(pads, right) + flag_word(seg, lane), 1);
-    const int prev = pe_at(me - s - 1);
-    if (!wait_block(symm_at<int>(pads, me) + flag_word(prev, lane), 1, true, L,
+    const int prev = ((me - s - 1) % n + n) % n;
+    if (!wait_block(symm_at<int>(pads, my_pe()) + flag_word(prev, lane), 1, true, L,
                     flag_word(prev, lane)))
       return;
   }
@@ -131,15 +135,18 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename K>
 int launch_gather(K kernel, int kernel_id, const void* const* in, const void* const* out,
-                  long long nbytes, int lanes, const void* const* pads, int n, void* claim,
-                  void* report, unsigned long long budget_ns, void* stream) {
-  if (n < 2 || n > kMaxPes || nbytes <= 0 || lanes < 1) return (int)cudaErrorInvalidValue;
+                  long long nbytes, int lanes, const void* const* pads, int n, const void* group,
+                  void* claim, void* report, unsigned long long budget_ns, void* stream) {
+  if (n < 2 || n > kMaxPes || nbytes <= 0 || lanes < 1 || group == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Group G = *static_cast<const Group*>(group);
+  if (G.n < 2 || G.n > n) return (int)cudaErrorInvalidValue;
   lanes = resident_lanes(kernel, kThreads, lanes, n);
   if (lanes < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const long long per = ((nbytes + lanes - 1) / lanes + 15) / 16 * 16;
   return launch_cooperative(kernel, dim3(lanes, n), dim3(kThreads), 0, stream,
                             make_table(in, n), make_table(out, n), nbytes, per,
-                            make_table(pads, n),
+                            make_table(pads, n), G,
                             make_launch(claim, report, budget_ns, kernel_id));
 }
 
@@ -166,21 +173,22 @@ int tdt_ag_copy(const void* shard, void* out, long long nbytes, int slot, void* 
 }
 
 // in: n pointers to each rank's shard of nbytes; out: n pointers to each
-// rank's replica of n * nbytes (16-byte aligned); pads: n pointers to pads
-// of >= (n + 1) * lanes zero words. n >= 2. `lanes` is cut to what the card
-// keeps resident at once (resident_lanes, shmem.cuh).
+// rank's replica of g * nbytes (16-byte aligned), g the group size; pads: n
+// pointers to pads of >= (g + 1) * lanes zero words; group: the gather's
+// groups over the n ranks (g >= 2). `lanes` is cut to what the card keeps
+// resident at once (resident_lanes, shmem.cuh).
 int tdt_ag_push(const void* const* in, const void* const* out, long long nbytes, int lanes,
-                const void* const* pads, int n, void* claim, void* report,
+                const void* const* pads, int n, const void* group, void* claim, void* report,
                 unsigned long long budget_ns, void* stream) {
-  return launch_gather(ag_push_kernel, kAgPush, in, out, nbytes, lanes, pads, n, claim, report,
-                       budget_ns, stream);
+  return launch_gather(ag_push_kernel, kAgPush, in, out, nbytes, lanes, pads, n, group, claim,
+                       report, budget_ns, stream);
 }
 
 int tdt_ag_ring(const void* const* in, const void* const* out, long long nbytes, int lanes,
-                const void* const* pads, int n, void* claim, void* report,
+                const void* const* pads, int n, const void* group, void* claim, void* report,
                 unsigned long long budget_ns, void* stream) {
-  return launch_gather(ag_ring_kernel, kAgRing, in, out, nbytes, lanes, pads, n, claim, report,
-                       budget_ns, stream);
+  return launch_gather(ag_ring_kernel, kAgRing, in, out, nbytes, lanes, pads, n, group, claim,
+                       report, budget_ns, stream);
 }
 
 const char* tdt_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

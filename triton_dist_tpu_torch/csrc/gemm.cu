@@ -52,9 +52,9 @@ using namespace tdt_gemm;
 template <int MT, bool kBT, typename OutT>
 __global__ void __launch_bounds__(kThreads, 2)
     tdt_gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                         OutT* __restrict__ C, int M, int N, int K) {
+                         OutT* __restrict__ C, int M, int N, int K, int ldb) {
   extern __shared__ __align__(16) unsigned char smem[];
-  gemm_tile_bf16<MT, kBT, OutT>(A, K, B, kBT ? K : N, C, N, M, N, K, blockIdx.x * 32 * MT,
+  gemm_tile_bf16<MT, kBT, OutT>(A, K, B, ldb, C, N, M, N, K, blockIdx.x * 32 * MT,
                                 blockIdx.y * kTN, smem);
 }
 
@@ -62,9 +62,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <bool kBT>
 __global__ void __launch_bounds__(kThreads)
     tdt_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                        float* __restrict__ C, int M, int N, int K) {
+                        float* __restrict__ C, int M, int N, int K, int ldb) {
   __shared__ __align__(16) float smem[kF32SmemBytes / sizeof(float)];
-  gemm_tile_f32<kBT>(A, K, B, kBT ? K : N, C, N, M, N, K, blockIdx.x * kF32Tile,
+  gemm_tile_f32<kBT>(A, K, B, ldb, C, N, M, N, K, blockIdx.x * kF32Tile,
                      blockIdx.y * kF32Tile, smem);
 }
 
@@ -83,7 +83,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int MT, bool kBT, typename OutT>
-int launch_bf16(const void* a, const void* b, void* c, int M, int N, int K, void* stream) {
+int launch_bf16(const void* a, const void* b, void* c, int M, int N, int K, int ldb,
+                void* stream) {
   constexpr int TM = 32 * MT;
   const size_t smem = bf16_smem_bytes<MT, kBT>();
   const cudaError_t err =
@@ -93,15 +94,15 @@ int launch_bf16(const void* a, const void* b, void* c, int M, int N, int K, void
   tdt_gemm_bf16_kernel<MT, kBT, OutT>
       <<<dim3((M + TM - 1) / TM, (N + kTN - 1) / kTN), kThreads, smem,
          (cudaStream_t)stream>>>(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-                                 static_cast<OutT*>(c), M, N, K);
+                                 static_cast<OutT*>(c), M, N, K, ldb);
   return (int)cudaGetLastError();
 }
 
 template <bool kBT, typename OutT>
-int dispatch_tile(const void* a, const void* b, void* c, int M, int N, int K, int tile_m,
-                  void* stream) {
-  if (tile_m == 128) return launch_bf16<4, kBT, OutT>(a, b, c, M, N, K, stream);
-  if (tile_m == 64) return launch_bf16<2, kBT, OutT>(a, b, c, M, N, K, stream);
+int dispatch_tile(const void* a, const void* b, void* c, int M, int N, int K, int ldb,
+                  int tile_m, void* stream) {
+  if (tile_m == 128) return launch_bf16<4, kBT, OutT>(a, b, c, M, N, K, ldb, stream);
+  if (tile_m == 64) return launch_bf16<2, kBT, OutT>(a, b, c, M, N, K, ldb, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -113,33 +114,45 @@ bool shapes_ok(int M, int N, int K) {
 
 extern "C" {
 
-// a [M, K] bf16; b [K, N] bf16, or [N, K] when b_trans; c [M, N] in f32 when
-// out_f32, else bf16; tile_m 128 or 64 (rows per block). All row-major and
-// contiguous. Returns the launch's cudaError_t.
+// a [M, K] bf16; b [K, N] bf16 with leading dimension ldb >= N (a column
+// block of a wider matrix, read in place), or [N, K] with ldb >= K when
+// b_trans; c [M, N] contiguous, in f32 when out_f32, else bf16; tile_m 128
+// or 64 (rows per block). Returns the launch's cudaError_t.
+int tdt_gemm_bf16_ld(const void* a, const void* b, void* c, int M, int N, int K, int ldb,
+                     int b_trans, int out_f32, int tile_m, void* stream) {
+  if (!shapes_ok(M, N, K) || ldb < (b_trans ? K : N)) return (int)cudaErrorInvalidValue;
+  if (b_trans)
+    return out_f32 ? dispatch_tile<true, float>(a, b, c, M, N, K, ldb, tile_m, stream)
+                   : dispatch_tile<true, bf16>(a, b, c, M, N, K, ldb, tile_m, stream);
+  return out_f32 ? dispatch_tile<false, float>(a, b, c, M, N, K, ldb, tile_m, stream)
+                 : dispatch_tile<false, bf16>(a, b, c, M, N, K, ldb, tile_m, stream);
+}
+
+// The same with b contiguous (ldb = N, or K when b_trans).
 int tdt_gemm_bf16(const void* a, const void* b, void* c, int M, int N, int K, int b_trans,
                   int out_f32, int tile_m, void* stream) {
-  if (!shapes_ok(M, N, K)) return (int)cudaErrorInvalidValue;
-  if (b_trans)
-    return out_f32 ? dispatch_tile<true, float>(a, b, c, M, N, K, tile_m, stream)
-                   : dispatch_tile<true, bf16>(a, b, c, M, N, K, tile_m, stream);
-  return out_f32 ? dispatch_tile<false, float>(a, b, c, M, N, K, tile_m, stream)
-                 : dispatch_tile<false, bf16>(a, b, c, M, N, K, tile_m, stream);
+  return tdt_gemm_bf16_ld(a, b, c, M, N, K, b_trans ? K : N, b_trans, out_f32, tile_m, stream);
 }
 
 // The same for f32 a, b and c (tile 128 x 128).
-int tdt_gemm_f32(const void* a, const void* b, void* c, int M, int N, int K, int b_trans,
-                 void* stream) {
-  if (!shapes_ok(M, N, K)) return (int)cudaErrorInvalidValue;
+int tdt_gemm_f32_ld(const void* a, const void* b, void* c, int M, int N, int K, int ldb,
+                    int b_trans, void* stream) {
+  if (!shapes_ok(M, N, K) || ldb < (b_trans ? K : N)) return (int)cudaErrorInvalidValue;
   const dim3 grid((M + kF32Tile - 1) / kF32Tile, (N + kF32Tile - 1) / kF32Tile);
   if (b_trans)
     tdt_gemm_f32_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c), M,
-        N, K);
+        N, K, ldb);
   else
     tdt_gemm_f32_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c), M,
-        N, K);
+        N, K, ldb);
   return (int)cudaGetLastError();
+}
+
+int tdt_gemm_f32(const void* a, const void* b, void* c, int M, int N, int K, int b_trans,
+                 void* stream) {
+  return tdt_gemm_f32_ld(a, b, c, M, N, K, b_trans ? K : N, b_trans, stream);
 }
 
 // ws [n, elems] f32, 16-byte aligned; out [elems] bf16 when out_bf16, else

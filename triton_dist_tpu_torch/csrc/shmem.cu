@@ -10,6 +10,10 @@
 // block into its right neighbour's buffer and signals, and waits for its
 // left neighbour's block.
 //
+// Over an axis inside a multi-axis mesh the barrier runs in groups (a
+// Group, shmem.cuh): one launch still covers every rank, and each rank
+// signals and waits on the members of its own group only.
+//
 // What bounds them on this card: latency. A barrier is a few hundred bytes
 // of signal traffic; its time is the L2 round trips of n - 1 release adds
 // and one acquire spin. The ping adds one block-cooperative copy.
@@ -30,8 +34,9 @@ namespace {
 constexpr int kThreads = 128;
 
 // grid (1, n); out [n] int32, rank r's word at r
-__global__ void __launch_bounds__(kThreads) barrier_all_kernel(PeerTable pads, int* out, Launch L) {
-  if (!barrier_all_block(pads, 0, L)) return;
+__global__ void __launch_bounds__(kThreads)
+    barrier_all_kernel(PeerTable pads, int* out, Group G, Launch L) {
+  if (!barrier_group_block(pads, 0, G, L)) return;
   if (threadIdx.x == 0) out[my_pe()] = 1;
 }
 
@@ -59,12 +64,14 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // pads: n pointers to each rank's barrier pad (>= 1 int32 word, zero);
-// out: [n] int32.
-int tdt_barrier_all(const void* const* pads, int n, void* out, void* claim, void* report,
-                    unsigned long long budget_ns, void* stream) {
-  if (n < 1 || n > kMaxPes || out == nullptr) return (int)cudaErrorInvalidValue;
+// out: [n] int32; group: the barrier's groups over the n ranks.
+int tdt_barrier_all(const void* const* pads, int n, void* out, const void* group, void* claim,
+                    void* report, unsigned long long budget_ns, void* stream) {
+  if (n < 1 || n > kMaxPes || out == nullptr || group == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Group G = *static_cast<const Group*>(group);
   return launch_cooperative(barrier_all_kernel, dim3(1, n), dim3(kThreads), 0, stream,
-                            make_table(pads, n), out,
+                            make_table(pads, n), out, G,
                             make_launch(claim, report, budget_ns, kBarrierAll));
 }
 

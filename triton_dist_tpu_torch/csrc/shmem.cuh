@@ -26,6 +26,13 @@
 // switch of scope: "gpu" for ranks on one card, "sys" for cards joined by
 // NVLink.
 //
+// Groups: a collective over one axis (or several) of a multi-axis mesh
+// runs in groups, the ranks that share every other coordinate. One launch
+// still covers every rank of the mesh; a Group carries each rank's index
+// in its group and its group's flat ids (row-major over the axes, as JAX's
+// pe_at_group gives them), and a rank signals, waits on and puts to the
+// members of its own group only. The whole mesh is one group.
+//
 // Every spin is bounded: a wait that runs past its budget (about a second)
 // claims the launch's error report, writes which kernel, rank and signal
 // starved, and makes its block return; the host raises when it reads the
@@ -56,11 +63,21 @@ enum Kernel : int {
   kLlAgMerge = 6,
   kAgGemm = 7,
   kGemmRs = 8,
+  kA2aPush = 9,
+  kA2aSeg = 10,
 };
 
 // The n base pointers of one symmetric buffer, rank r's at ptr[r].
 struct PeerTable {
   void* ptr[kMaxPes];
+};
+
+// The groups of a launch: rank r is member index[r] of a group of n ranks,
+// whose member i is flat rank pe[r][i].
+struct Group {
+  int n;
+  signed char index[kMaxPes];
+  signed char pe[kMaxPes][kMaxPes];
 };
 
 // What every launch of the layer carries: the error report and the budget
@@ -134,6 +151,15 @@ __device__ __forceinline__ int n_pes() { return gridDim.y; }
 __device__ __forceinline__ int pe_at(int index) {
   const int n = n_pes();
   return ((index % n) + n) % n;
+}
+
+// this rank's index in its group, the group's size, and the flat id of
+// the member at `index` (wrapped)
+__device__ __forceinline__ int group_me(const Group& g) { return g.index[blockIdx.y]; }
+__device__ __forceinline__ int group_n(const Group& g) { return g.n; }
+__device__ __forceinline__ int group_pe(const Group& g, int index) {
+  const int n = g.n;
+  return g.pe[blockIdx.y][((index % n) + n) % n];
 }
 
 // rank `pe`'s buffer of a symmetric tensor: the reference's symm_at
@@ -306,6 +332,22 @@ __device__ __forceinline__ bool barrier_all_block(const PeerTable& pads, int wor
     for (int p = 0; p < n; ++p)
       if (p != me) red_release_add(symm_at<int>(pads, p) + word, 1);
     ok = signal_wait_until(symm_at<int>(pads, me) + word, n - 1, true, L, word);
+  }
+  return __syncthreads_and(ok);
+}
+
+// The same barrier across the members of this rank's group only.
+__device__ __forceinline__ bool barrier_group_block(const PeerTable& pads, int word, const Group& g,
+                                                    const Launch& L) {
+  const int me = group_me(g);
+  const int n = group_n(g);
+  __syncthreads();
+  int ok = 1;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    for (int p = 0; p < n; ++p)
+      if (p != me) red_release_add(symm_at<int>(pads, group_pe(g, p)) + word, 1);
+    ok = signal_wait_until(symm_at<int>(pads, my_pe()) + word, n - 1, true, L, word);
   }
   return __syncthreads_and(ok);
 }

@@ -1,18 +1,17 @@
 """MoE model family (Mixtral/DeepSeek-style): configs, parameters and the
-one-rank MoE FFN of the serving path.
+MoE FFNs of the serving path.
 
 Counterpart of ``triton_dist_tpu/models/moe.py``. Its inference block
-``moe_mlp_ep_overlap`` routes rows through an EP all-to-all to the ranks
-that hold their experts; at one rank the dispatch keeps every row (its
-capacity is drop-proof) and the block reduces to what ``moe_mlp_ep_overlap``
-here computes: router, top-k, the dispatch into expert-aligned rows and the
-combine back (``ops.all_to_all``, B21's one-rank form), and the grouped
-expert FFN over all experts between them (``ops.group_gemm``: B18 then
-B17). Its tensor-parallel block ``moe_mlp_tp_overlap`` runs at one rank
-over the MoE-TP ops of ``ops.moe`` (B19, B20). The wire across ranks
-(B21/B22 at n > 1), the TP block over more ranks and the GShard training
-path (``moe_mlp_gshard``, ``moe_forward``) wait for ROADMAP.md Queue A,
-item 7 "MoE / EP across ranks".
+``moe_mlp_ep_overlap`` routes rows through the EP all-to-all
+(``layers.EPAll2AllLayer`` over ``ops.all_to_all``: B21, or B22 for the
+microbatched schedule) to the ranks that hold their experts, runs each
+rank's local experts (``ops.group_gemm``: B18 then B17) and combines the
+rows back, at any EP size, one rank included. The tensor-parallel block
+``moe_mlp_tp_overlap`` runs at one rank over the MoE-TP ops of ``ops.moe``
+(B19, B20). The TP block over more ranks, the expert-major layout and the
+GShard training path
+(``moe_mlp_gshard``, ``moe_forward``) wait for ROADMAP.md Queue A, item 7
+"MoE / EP across ranks".
 """
 
 from __future__ import annotations
@@ -22,9 +21,8 @@ import dataclasses
 import torch
 
 from triton_dist_tpu_torch.models.llama import LlamaConfig, init_params
-from triton_dist_tpu_torch.ops.all_to_all import ep_combine, ep_dispatch
-from triton_dist_tpu_torch.ops.group_gemm import (expert_alignment,
-                                                  grouped_gemm,
+from triton_dist_tpu_torch.ops.all_to_all import _cap_round
+from triton_dist_tpu_torch.ops.group_gemm import (apply_grouped, grouped_gemm,
                                                   grouped_gemm_gated)
 from triton_dist_tpu_torch.ops.moe import ag_moe_group_gemm, moe_reduce_rs
 from triton_dist_tpu_torch.utils.env import default_device
@@ -96,36 +94,95 @@ def init_moe_params(cfg: MoEConfig, seed: int = 0, device="cuda") -> dict:
     return params
 
 
-def moe_mlp_ep_overlap(x2d, router_w, we_gate, we_up, we_down, topk: int,
-                       block_m: int = 64):
-    """The one-rank form of the JAX ``moe_mlp_ep_overlap``: x2d [T, D] ->
-    [T, D] in x2d's type.
-
-    The router runs in f32 (``x2d.float() @ router_w``, router_w [D, E]),
-    then softmax, top-k and the renormalised top-k weights. Each (token, k)
-    pair is one row, aligned by expert over all E experts
-    (``expert_alignment``); ``ep_dispatch`` moves the rows into place,
-    ``grouped_gemm_gated`` (we_gate, we_up [E, D, F]; the gated output in
-    the model's type) and ``grouped_gemm`` (we_down [E, F, D]) run them
-    unmasked, and ``ep_combine`` sums ``weight * row`` over k in k order in
-    f32 and casts once, as the JAX combine does. Nothing syncs with the
-    host.
-
-    ``block_m`` is the aligned row block; a row's result does not depend on
-    it."""
-    T = x2d.shape[0]
-    E = router_w.shape[1]
+def router_topk(x2d, router_w, topk: int):
+    """The router in f32 (``x2d.float() @ router_w``), softmax, top-k and
+    the renormalised top-k weights: (weights [T, k] f32, ids [T, k])."""
     probs = torch.softmax(x2d.float() @ router_w, -1)
     gate_vals, gate_ids = probs.topk(topk, -1)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
-    src, valid, be, nb, pos = expert_alignment(gate_ids.reshape(-1), E,
-                                               block_m)
-    xs = ep_dispatch(x2d, src, valid, topk)
-    h = grouped_gemm_gated(xs, we_gate, we_up, be, block_m=block_m,
-                           n_blocks_used=nb, masked=False)
-    y = grouped_gemm(h, we_down, be, block_m=block_m, n_blocks_used=nb,
-                     masked=False)
-    return ep_combine(y, pos, gate_vals)
+    return gate_vals / gate_vals.sum(-1, keepdim=True), gate_ids
+
+
+def moe_mlp_ep_overlap(ctx, a2a_layer, x2d, router_w, we_gate, we_up,
+                       we_down, axis: str | None = None, block_m: int = 64,
+                       microbatches: int = 1):
+    """The EP MoE inference block (the JAX ``moe_mlp_ep_overlap``): router,
+    the EP dispatch, each rank's local experts, the EP combine.
+
+    ``x2d`` [n * T, D] holds every EP rank's T token rows, rank-major (the
+    global view of rows sharded over ``a2a_layer``'s axis); router_w
+    [D, E]; we_gate / we_up [E, D, F], we_down [E, F, D]. Rank r's local
+    experts are the slice ``we_*[r * El:(r + 1) * El]``, views of the same
+    tensors. Returns [n * T, D] in the context's type.
+
+    The router runs over every rank's rows in one product (``router_topk``;
+    a row's result is its rank's), then ``a2a_layer.dispatch``. The expert
+    FFN runs over every rank's received rows in one launch of each grouped
+    GEMM, rank r's local expert e as global expert r * El + e (a row's
+    result does not depend on the rows beside it), aligned by expert as
+    ``apply_grouped`` does; then ``a2a_layer.combine``.
+
+    ``microbatches=M > 1`` splits each rank's rows into M contiguous blocks,
+    each through an M-times-smaller drop-proof context (same wire type,
+    edges and segmented wire), issuing block i + 1's dispatch before block
+    i's FFN; the outputs are concatenated back per rank in order, so the
+    result is bitwise ``microbatches=1``'s."""
+    a2a = a2a_layer.a2a
+    n, E, k = a2a.n_ranks, a2a.num_experts, a2a.topk
+    el = a2a.experts_per_rank
+    T, D = a2a.max_tokens, x2d.shape[1]
+    gate_vals, gate_ids = router_topk(x2d, router_w, k)
+    mbs = int(microbatches)
+    if mbs > 1:
+        if T % mbs:
+            raise ValueError(f"{T} rows a rank do not split into {mbs} "
+                             f"microbatches")
+        itemsize = (a2a.wire_dtype or a2a.dtype).itemsize
+        if a2a.capacity < _cap_round(T * k, itemsize):
+            raise ValueError("microbatches need a drop-proof capacity: a "
+                             "smaller one drops other rows per microbatch")
+        mbT = T // mbs
+        mb_layer = dataclasses.replace(a2a_layer, a2a=dataclasses.replace(
+            a2a, max_tokens=mbT, capacity=_cap_round(mbT * k, itemsize)))
+
+        def part(t, i):
+            return t.view((n, T) + tuple(t.shape[1:]))[:, i * mbT:(i + 1) * mbT] \
+                .reshape((n * mbT,) + tuple(t.shape[1:])).contiguous()
+
+        parts = [tuple(part(t, i) for t in (x2d, gate_vals, gate_ids))
+                 for i in range(mbs)]
+    else:
+        mb_layer = a2a_layer
+        parts = [(x2d, gate_vals, gate_ids)]
+
+    def expert_ffn(recv_tok, recv_ids):
+        # rank d's received rows are rows [d * n * cap, (d + 1) * n * cap)
+        cap = recv_tok.shape[1]
+        rank = torch.arange(n, device=recv_ids.device).repeat_interleave(
+            n * cap).view(n * n, cap)
+        ids = torch.where(recv_ids >= 0, rank * el + recv_ids,
+                          torch.full_like(recv_ids, -1))
+
+        def ffn(xs, be, nb):
+            h = grouped_gemm_gated(xs, we_gate, we_up, be, block_m=block_m,
+                                   n_blocks_used=nb, masked=False)
+            return grouped_gemm(h, we_down, be, block_m=block_m,
+                                n_blocks_used=nb, masked=False)
+
+        out = apply_grouped(recv_tok.reshape(n * n * cap, -1),
+                            ids.reshape(-1), E, ffn, block_m=block_m)
+        return out.view(n * n, cap, -1)
+
+    disp = [mb_layer.dispatch(parts[0][0], parts[0][2])]
+    outs = []
+    for i in range(len(parts)):
+        if i + 1 < len(parts):
+            disp.append(mb_layer.dispatch(parts[i + 1][0], parts[i + 1][2]))
+        recv_tok, recv_ids, layout = disp[i]
+        outs.append(mb_layer.combine(expert_ffn(recv_tok, recv_ids), layout,
+                                     parts[i][1]))
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat([o.view(n, -1, D) for o in outs], 1).reshape(n * T, D)
 
 
 def moe_mlp_tp_overlap(ctx, x2d, router_w, we_up, we_down, topk: int,
@@ -144,9 +201,7 @@ def moe_mlp_tp_overlap(ctx, x2d, router_w, we_up, we_down, topk: int,
     block all-gathers with XLA; at one rank it is the rows' own ids. This
     block has no gate projection, unlike ``moe_mlp_ep_overlap``.
     ``block_m`` is the aligned row block of both grouped GEMMs."""
-    probs = torch.softmax(x2d.float() @ router_w, -1)
-    gate_vals, gate_ids = probs.topk(topk, -1)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+    gate_vals, gate_ids = router_topk(x2d, router_w, topk)
     rep = x2d.repeat_interleave(topk, 0)
     ids = gate_ids.reshape(-1).to(torch.int32)
     h = ag_moe_group_gemm(ctx, rep, ids, we_up, axis=axis, block_m=block_m)
@@ -156,4 +211,4 @@ def moe_mlp_tp_overlap(ctx, x2d, router_w, we_up, we_down, topk: int,
 
 
 __all__ = ["MoEConfig", "init_moe_params", "moe_mlp_ep_overlap",
-           "moe_mlp_tp_overlap"]
+           "moe_mlp_tp_overlap", "router_topk"]

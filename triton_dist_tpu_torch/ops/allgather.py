@@ -9,8 +9,10 @@ rank's gathered [n * m, ...]: the push kernel puts its shard into slot
 neighbour. On a CUDA tensor the gather is a hand-written Hopper kernel
 (``csrc/allgather.cu``): at one rank the copy of the shard into slot 0, at
 n ranks one launch covering every rank of the mesh on the card (see
-``shmem/context.py``). On a CPU tensor it runs its plain PyTorch version
-(``all_gather_plain``). The low-latency (B10), 2-D (B11, ``ring_2d``) and
+``shmem/context.py``). Over an axis inside a multi-axis mesh the gather
+runs in groups (``shmem.device.group_plan``): each rank gathers its own
+group's shards and talks to its group only. On a CPU tensor it runs its
+plain PyTorch version (``all_gather_plain``). The low-latency (B10), 2-D (B11, ``ring_2d``) and
 broadcast (B12) forms raise ``NotImplementedError``: ROADMAP.md Queue A,
 item 5 "collectives".
 """
@@ -22,13 +24,13 @@ import ctypes
 import torch
 
 from triton_dist_tpu_torch import csrc
-from triton_dist_tpu_torch.ops.common import (COLLECTIVES, family_pad,
-                                              spans_every_rank)
+from triton_dist_tpu_torch.ops.common import COLLECTIVES, family_pad
 from triton_dist_tpu_torch.shmem import device as shd
+from triton_dist_tpu_torch.shmem.device import group_plan
 
 _P = ctypes.c_void_p
-_GATHER_SIG = [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int] \
-    + shd.LAUNCH_SIG                      # in out nbytes lanes pads n ...
+_GATHER_SIG = [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int, _P] \
+    + shd.LAUNCH_SIG                      # in out nbytes lanes pads n group ...
 # shard, out, nbytes, slot, stream
 _SIGNATURES = {"tdt_ag_copy": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P],
                "tdt_ag_push": _GATHER_SIG, "tdt_ag_ring": _GATHER_SIG}
@@ -70,31 +72,33 @@ def lanes_for(nbytes: int) -> int:
 
 def all_gather(ctx, x, axis: str | None = None, method: str = "auto"):
     """Gather every rank's shard along ``axis`` (the context's first axis by
-    default). ``x`` [n * m, ...] holds the shards rank-major (rank r's at
-    rows ``r * m .. (r + 1) * m``: the JAX package's global view of an array
-    sharded on dim 0). At one rank it returns the gathered [m, ...]; at n
-    ranks every rank's replica, [n, n * m, ...], each the concatenation of
-    the shards bit for bit.
+    default; a tuple of axes is one group over them, major to minor). ``x``
+    [n * m, ...] holds the n shards of a group rank-major (index r's at rows
+    ``r * m .. (r + 1) * m``: the JAX package's global view of an array
+    sharded on dim 0 over ``axis`` and replicated over the other axes). At
+    one rank along ``axis`` it returns the gathered [m, ...]; at n it
+    returns every rank of the mesh's replica, [N, n * m, ...] (N the mesh's
+    ranks), each the concatenation of its group's shards bit for bit.
 
     A CPU tensor runs the plain version. A CUDA tensor (contiguous, 16-byte
     aligned, any type) launches the kernel, adding one to
     ``all_gather.launches``, or raises. Methods other than ``auto``,
-    ``push`` and ``ring``, and an axis that is not the whole mesh, raise
-    ``NotImplementedError``."""
+    ``push`` and ``ring`` raise ``NotImplementedError``."""
     axis = axis or ctx.axis_names[0]
     if method not in METHODS:
         raise NotImplementedError(
             f"all_gather: method {method!r} is not ported (the port takes "
             f"{METHODS}; the low-latency, 2-D and broadcast gathers wait for "
             f"{COLLECTIVES})")
-    n = spans_every_rank(ctx, axis, "all_gather")
+    n, group, _, _ = group_plan(ctx, axis)
+    N = ctx.num_ranks
     if method == "auto":
         method = auto_method(ctx, x, axis)
     if x.shape[0] % n:
         raise ValueError(f"all_gather: {x.shape[0]} rows do not split over "
                          f"{n} ranks")
     if x.device.type == "cpu":
-        return all_gather_plain(x, n)
+        return all_gather_plain(x, 1 if n == 1 else N)
     if not x.is_contiguous() or x.data_ptr() % 16 or x.numel() == 0:
         raise ValueError(f"all_gather: the shards {tuple(x.shape)} must be "
                          f"non-empty, contiguous and 16-byte aligned")
@@ -107,16 +111,18 @@ def all_gather(ctx, x, axis: str | None = None, method: str = "auto"):
             rc = lib.tdt_ag_copy(x.data_ptr(), out.data_ptr(), nbytes, 0,
                                  stream)
     else:
-        out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+        out = torch.empty((N,) + tuple(x.shape), dtype=x.dtype,
                           device=x.device)
         lanes = lanes_for(nbytes)
         pad = family_pad(ctx, f"ag_{method}", axis, (n + 1) * lanes)
-        ins, outs, pads = shd.tables(ctx, x.view(n, -1), out, pad)
+        ins = shd.group_table(ctx, x.view(n, -1), axis)
+        outs, pads = shd.tables(ctx, out, pad)
         lib = csrc.load("allgather", _SIGNATURES)
         args = shd.launch_args(ctx)
         with csrc.current_on(out.device):
             rc = getattr(lib, f"tdt_ag_{method}")(ins, outs, nbytes, lanes,
-                                                  pads, n, *args)
+                                                  pads, N, ctypes.byref(group),
+                                                  *args)
     csrc.check(lib, rc, f"all_gather ({method})")
     all_gather.launches += 1
     return out

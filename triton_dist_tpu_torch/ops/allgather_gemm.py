@@ -33,6 +33,7 @@ import dataclasses
 import torch
 
 from triton_dist_tpu_torch import csrc
+from triton_dist_tpu_torch.ops.allgather import all_gather
 from triton_dist_tpu_torch.ops.common import family_pad, spans_every_rank
 from triton_dist_tpu_torch.ops.gemm import (GemmConfig, _b_operand,
                                             gemm_into, matmul, matmul_plain)
@@ -257,22 +258,81 @@ def create_ag_gemm_context(ctx, m_local: int, k: int, dtype=torch.bfloat16,
     return AgGemmContext(ctx=ctx, axis=axis, ws=ws)
 
 
+def column_product_plain(h, w):
+    """The plain version of ``column_product``: every output element summed
+    over K in order, one f32 multiply and one f32 add a step, cast once.
+    Its bits depend on the element's row of ``h`` and column of ``w`` alone,
+    never on which other rows or columns share the call."""
+    acc = torch.zeros(h.shape[0], w.shape[1], dtype=torch.float32,
+                      device=h.device)
+    hf = h.float()
+    prod = torch.empty_like(acc)
+    for k in range(h.shape[1]):
+        torch.mul(hf[:, k:k + 1], w[k].float(), out=prod)
+        acc.add_(prod)
+    return acc.to(h.dtype)
+
+
+def column_product(h, w):
+    """``h @ w`` whose every output element is summed over K in one fixed
+    order, whatever rows and columns share the call, so a column block's
+    product is bitwise its columns of the whole product: B2 (``matmul``,
+    ``csrc/gemm.cu``, reading a column slice of ``w`` in place) on a CUDA
+    tensor, ``column_product_plain`` on a CPU tensor."""
+    if h.device.type == "cpu":
+        return column_product_plain(h, w)
+    return matmul(h.contiguous(), w)
+
+
 def tp_column_linear(ctx, h, w, axis: str = "tp", impl: str = "xla",
                      cfg: GemmConfig | None = None):
-    """``h @ w`` with ``w`` column-sharded over ``axis``, the output
-    gathered back to replicated. At one rank it is ``h @ w``, as in the JAX
-    op (a plain product there too, outside any kernel); more ranks raise
-    ``NotImplementedError``: its only caller is the sharded serving engine
-    at tp > 1."""
+    """``h @ w`` with ``w`` [K, N] column-sharded over ``axis`` (rank r's
+    columns at block r, views of ``w``), the output gathered back to
+    replicated: the JAX ``tp_column_linear``, the sharded serving engine's
+    ``linear`` hook at every mesh size.
+
+    ``impl="xla"``: each rank's column block ``column_product(h, w_r)``,
+    then the column blocks gathered through B9 (``all_gather`` over
+    ``axis``: every rank's replica; the result is rank 0's). Each element
+    is summed in one order whatever the split, so the result is bitwise
+    the one-rank ``column_product(h, w)``, as the serving contract needs.
+    ``impl="ag_gemm"``: the rows (padded with zero rows to a multiple of
+    n) through AG-GEMM (B15, ``ag_gemm``), then the same column gather; allclose to ``xla``, not bitwise (its tiles
+    sum in another order), as in the reference. ``impl="gemm_rs"`` is
+    refused: its reduce-scatter sums partial products across ranks, which
+    breaks the bitwise cross-mesh contract."""
+    if impl == "gemm_rs":
+        raise ValueError(
+            "tp_column_linear refuses impl='gemm_rs': its reduce-scatter "
+            "sums partial products in rank-varying order, which breaks the "
+            "bitwise cross-mesh-size trace contract serving pins. Use 'xla' "
+            "(bitwise) or 'ag_gemm' (allclose-only overlap).")
+    if impl not in ("xla", "ag_gemm"):
+        raise ValueError(f"unknown tp_column_linear impl {impl!r}")
     n = ctx.axis_size(axis)
-    if n != 1:
-        raise NotImplementedError(
-            f"tp_column_linear over {n} ranks (impl {impl!r}) is not ported "
-            "yet: ROADMAP.md Queue A, item 8 \"SP decode and sharded "
-            "serving across ranks\"")
-    return h @ w
+    if n == 1:
+        if impl == "ag_gemm":
+            return ag_gemm(ctx, h, w, axis=axis, cfg=cfg)
+        return column_product(h, w)
+    R, N = h.shape[0], w.shape[1]
+    if N % n:
+        raise ValueError(f"out dim {N} does not split over |{axis}| = {n}")
+    nl = N // n
+    if impl == "xla":
+        blocks = torch.stack([column_product(h, w[:, r * nl:(r + 1) * nl])
+                              for r in range(n)])
+    else:
+        # AG-GEMM's rows split over the ranks: pad them to a multiple of n
+        # with zero rows, and drop their products
+        pad = -R % n
+        hp = torch.cat([h, h.new_zeros(pad, h.shape[1])]) if pad else h
+        c = ag_gemm(ctx, hp.contiguous(), w, axis=axis, cfg=cfg)[:R]
+        blocks = c.reshape(R, n, nl).transpose(0, 1).contiguous()
+    g = all_gather(ctx, blocks.view(n * R, nl), axis=axis)[0]
+    return g.view(n, R, nl).transpose(0, 1).reshape(R, N)
 
 
 __all__ = ["AgGemmContext", "GemmConfig", "TP_OVERLAP", "ag_gemm",
+           "column_product", "column_product_plain",
            "ag_gemm_plain", "ag_gemm_ws", "create_ag_gemm_context",
            "create_ag_gemm_workspace", "tp_column_linear"]

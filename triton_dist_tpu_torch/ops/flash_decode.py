@@ -30,6 +30,10 @@ count of the mesh (every rank on one card, see ``shmem/context.py``);
 ``flash_decode_dist`` runs at one rank, where the page fold has one rank's
 slab to fold: its slab exchange across ranks (B8) waits for ROADMAP.md
 Queue A, item 8 "SP decode and sharded serving across ranks".
+``sp_paged_attend_write`` is the sharded serving engine's SP attention:
+the pool sharded on its page dim, gathered in page order through B9
+(``all_gather``) and walked by B1 at any SP size; its start-local form
+(B6, ``overlap=True``) waits for item 8.
 
 The TPU kernels return lse lane-broadcast as ``[B, Hq, 128]``, a tiling
 artifact of the TPU (every DMA slice stays 128 lanes wide), and the SP wire
@@ -194,6 +198,51 @@ def paged_kv_write(k_pages, v_pages, k_new, v_new, block_table, pos,
     k_pages[page, :, slot] = k_new
     v_pages[page, :, slot] = v_new
     return k_pages, v_pages
+
+
+SP_ITEM = 'ROADMAP.md Queue A, item 8 "SP decode and sharded serving across ranks"'
+
+
+def sp_paged_attend_write(ctx, q, k_new, v_new, k_pages, v_pages,
+                          block_table, pos, kv_len, axis: str = "sp",
+                          active=None, overlap: bool = False):
+    """The sequence-parallel paged write and attention of the sharded
+    serving engine (the JAX ``sp_paged_attend_write``): the pool
+    ``k/v_pages`` [P, Hkv, page_size, D] is the global view of a pool
+    sharded over ``axis`` on its page dim (rank r owns pages
+    ``[r * P / n, (r + 1) * P / n)``).
+
+    Each rank writes the rows whose page it owns (``paged_kv_write``'s
+    rows, inactive ones parked on the scratch page 0, rank 0's); the shards
+    are disjoint slices of the one global pool, so every rank's masked
+    write together is one scatter of every row, which is how it runs here.
+    Then the shards are gathered in page order through ``all_gather`` (B9;
+    every rank's replica, the concatenation of the shards bit for bit) and
+    ``gqa_decode_paged`` (B1) walks the gathered pool, the same walk on
+    every rank; it runs once, on rank 0's replica. The attention is
+    therefore bitwise the one-rank write and walk at any SP size. At one
+    rank it is that write and walk. Returns (attn [B, Hq, D], k_pages,
+    v_pages), the pools updated in place.
+
+    ``overlap=True`` (the start-local gather, B6) raises
+    ``NotImplementedError``."""
+    if overlap:
+        raise NotImplementedError(
+            "sp_paged_attend_write(overlap=True): the start-local pool "
+            f"gather (B6, pool_ag_start_local) is not ported yet: {SP_ITEM}")
+    n = ctx.axis_size(axis)
+    paged_kv_write(k_pages, v_pages, k_new, v_new, block_table, pos,
+                   active=active)
+    if n == 1:
+        return gqa_decode_paged(q, k_pages, v_pages, block_table,
+                                kv_len)[0], k_pages, v_pages
+    if k_pages.shape[0] % n:
+        raise ValueError(f"pool pages {k_pages.shape[0]} do not split over "
+                         f"|{axis}| = {n}: pad the pool (shard_pool_arrays)")
+    kf = all_gather(ctx, k_pages, axis=axis)
+    vf = all_gather(ctx, v_pages, axis=axis)
+    out = gqa_decode_paged(q, kf[0], vf[0], block_table, kv_len)[0]
+    return out, k_pages, v_pages
 
 
 # ---------------------------------------------------------------------------
@@ -933,5 +982,6 @@ __all__ = ["AG_METHODS", "FD_EMPTY", "NEG_INF", "SPLIT_KEYS",
            "fd_partials_fold_plain", "flash_decode_dist", "gqa_decode_paged",
            "gqa_decode_paged_plain", "gqa_decode_partial",
            "gqa_decode_partial_plain", "ll_ag_merge", "ll_ag_merge_plain",
-           "ll_merge", "ll_merge_plain", "paged_kv_write", "sp_gqa_flash_decode",
-           "sp_local_lens", "split_count"]
+           "ll_merge", "ll_merge_plain", "paged_kv_write", "SP_ITEM",
+           "sp_gqa_flash_decode", "sp_local_lens", "sp_paged_attend_write",
+           "split_count"]

@@ -35,6 +35,10 @@ _SIGNATURES = {
     "tdt_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # a, b, c, M, N, K, b_trans, stream
     "tdt_gemm_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, c, M, N, K, ldb, b_trans, out_f32, tile_m, stream
+    "tdt_gemm_bf16_ld": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, c, M, N, K, ldb, b_trans, stream
+    "tdt_gemm_f32_ld": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # ws, out, n, elems, out_bf16, stream
     "tdt_slot_reduce": [_P, _P, _I, ctypes.c_longlong, _I, _P],
 }
@@ -89,10 +93,21 @@ def _b_operand(b):
     return b.contiguous(), False
 
 
+def _b_strided(b):
+    """``b``'s leading dimension when it is a block of rows of a wider
+    row-major matrix (unit column stride, e.g. a column slice), the kernel
+    reading it in place; None otherwise."""
+    if b.dim() == 2 and b.stride(1) == 1 and b.stride(0) >= b.shape[1] \
+            and not b.is_contiguous():
+        return b.stride(0)
+    return None
+
+
 def gemm_into(a, b, out):
     """``out[...] = a @ b`` with f32 sums and one cast to ``out``'s type:
-    a [M, K], b [K, N] (row-major, or the transpose of a row-major [N, K]),
-    out [M, N] contiguous. Returns ``out``.
+    a [M, K], b [K, N] (row-major, a column block of a row-major matrix,
+    read in place, or the transpose of a row-major [N, K]), out [M, N]
+    contiguous. Returns ``out``.
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernel
     (bf16 a and b into a bf16 or f32 out, or f32 throughout) or raises; each
@@ -119,18 +134,24 @@ def gemm_into(a, b, out):
     if K == 0:
         return out.zero_()
     a = a.contiguous()
-    b, trans = _b_operand(b)
+    ldb = _b_strided(b)
+    if ldb is None:
+        b, trans = _b_operand(b)
+        ldb = K if trans else N
+    else:
+        trans = False
     lib = csrc.load("gemm", _SIGNATURES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with csrc.current_on(a.device):
         if a.dtype == torch.bfloat16:
-            rc = lib.tdt_gemm_bf16(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                   M, N, K, int(trans),
-                                   int(out.dtype == torch.float32),
-                                   hopper_tile(M, N)[0], stream)
+            rc = lib.tdt_gemm_bf16_ld(a.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), M, N, K, ldb, int(trans),
+                                      int(out.dtype == torch.float32),
+                                      hopper_tile(M, N)[0], stream)
         else:
-            rc = lib.tdt_gemm_f32(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  M, N, K, int(trans), stream)
+            rc = lib.tdt_gemm_f32_ld(a.data_ptr(), b.data_ptr(),
+                                     out.data_ptr(), M, N, K, ldb, int(trans),
+                                     stream)
     csrc.check(lib, rc, "gemm")
     matmul.launches += 1
     return out

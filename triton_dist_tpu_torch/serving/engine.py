@@ -52,7 +52,8 @@ from triton_dist_tpu_torch.models.llama import (LlamaConfig,
                                                 init_page_pool, prefill,
                                                 prefill_chunk_paged)
 from triton_dist_tpu_torch.serving.deadline import EngineStallError
-from triton_dist_tpu_torch.serving.kv_pool import KVPagePool, cache_to_pages
+from triton_dist_tpu_torch.serving.kv_pool import (KVPagePool, _fnv1a,
+                                                   cache_to_pages)
 from triton_dist_tpu_torch.serving.metrics import ServingMetrics
 from triton_dist_tpu_torch.serving.scheduler import (
     ContinuousBatchingScheduler, Request, RequestState)
@@ -348,7 +349,23 @@ class ServingEngine:
     # -- one engine iteration ---------------------------------------------
     def step(self) -> bool:
         """Admissions (prefill) and one batched decode dispatch (up to
-        ``decode_horizon`` tokens per slot). Returns False when idle."""
+        ``decode_horizon`` tokens per slot), then ``_post_step`` after a
+        productive step. Returns False when idle."""
+        progressed = self._step_impl()
+        if progressed:
+            self._post_step()
+        return progressed
+
+    def _post_step(self) -> None:
+        """Called after every productive step (the sharded engine checks
+        its replicated decisions here)."""
+
+    def control_digest(self) -> int:
+        """FNV-1a digest of the host control plane (allocator and
+        scheduler): the word the sharded engine compares across ranks."""
+        return _fnv1a(0x811C9DC5, self.alloc.digest(), self.sched.digest())
+
+    def _step_impl(self) -> bool:
         t_begin = time.perf_counter()
         if self.sched.idle:
             return False

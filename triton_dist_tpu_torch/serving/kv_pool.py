@@ -21,6 +21,8 @@ Counterpart of ``triton_dist_tpu/serving/kv_pool.py``:
 
 from __future__ import annotations
 
+import torch
+
 
 def _fnv1a(h: int, *words: int) -> int:
     """Fold ints into a 32-bit FNV-1a state (4 bytes each, two's
@@ -233,6 +235,33 @@ class KVPagePool:
 
 
 # ---------------------------------------------------------------------------
+# the device pool's layout over the SP ranks
+# ---------------------------------------------------------------------------
+
+def page_pool_pspec(axis: str | None) -> tuple:
+    """How the ``[L, P, Hkv, page_size, D]`` pool arrays are laid over the
+    mesh (the JAX ``page_pool_pspec``'s spec as a tuple): pages sharded
+    over ``axis``, everything else replicated. The port keeps the pool as
+    its global view, rank r's shard at pages ``[r * P / n, (r + 1) * P /
+    n)``."""
+    return (None, axis, None, None, None)
+
+
+def shard_pool_arrays(pool: dict, sp_ranks: int) -> dict:
+    """Pad the ``{"k", "v"}`` pool arrays' page dim (dim 1) with zero pages
+    up to a multiple of ``sp_ranks``, the SP shards' even split. The
+    allocator never hands out a padding page (``KVPagePool(sp_ranks=...)``
+    counts them in ``device_pages`` only), so no block table names one.
+    Arrays already a multiple come back as they are."""
+    pad = (-pool["k"].shape[1]) % sp_ranks
+    if not pad:
+        return pool
+    return {k: torch.cat([v, torch.zeros(v.shape[:1] + (pad,) + v.shape[2:],
+                                         dtype=v.dtype, device=v.device)], 1)
+            for k, v in pool.items()}
+
+
+# ---------------------------------------------------------------------------
 # contiguous cache <-> page pool converters
 # ---------------------------------------------------------------------------
 
@@ -267,4 +296,5 @@ def pages_to_cache(pages, block_table):
 
 
 __all__ = ["KVPagePool", "PageLedgerError", "cache_to_pages",
-           "pages_to_cache", "_fnv1a"]
+           "pages_to_cache", "page_pool_pspec", "shard_pool_arrays",
+           "_fnv1a"]

@@ -69,7 +69,7 @@ class ShmemContext:
         or None (the whole mesh)."""
         if axis is None:
             return self.num_ranks
-        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        names = self.group_axes(axis)
         return math.prod(self.mesh_shape[self.axis_names.index(a)]
                          for a in names)
 
@@ -120,6 +120,22 @@ class ShmemContext:
             c[name] = index % size
             index //= size
         return self.flat_id(c)
+
+    def group_axes(self, axis: str | Sequence[str] | None) -> tuple[str, ...]:
+        """The axes of a group: one name, a tuple of names (major to
+        minor), or None for every axis of the mesh."""
+        if axis is None:
+            return self.axis_names
+        return (axis,) if isinstance(axis, str) else tuple(axis)
+
+    def group_members(self, rank: int,
+                      axis: str | Sequence[str] | None) -> list[int]:
+        """The flat ids of ``rank``'s group along ``axis`` (None: the
+        whole mesh), in group-index order: ``pe_at_group`` of every index.
+        Rank r is member ``my_pe(r, axis)`` of its group."""
+        axes = self.group_axes(axis)
+        return [self.pe_at_group(rank, axes, i)
+                for i in range(self.axis_size(axes))]
 
     # -- symmetric tensors ---------------------------------------------------
 

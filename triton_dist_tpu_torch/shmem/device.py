@@ -41,12 +41,14 @@ import ctypes
 import torch
 
 from triton_dist_tpu_torch import csrc
-from triton_dist_tpu_torch.shmem.context import (SPIN_BUDGET_S,
+from triton_dist_tpu_torch.shmem.context import (MAX_RANKS, SPIN_BUDGET_S,
                                                  clear_live_signal_pads)
 
 # csrc/shmem.cuh's Kernel ids
 KERNELS = {1: "barrier_all_op", 2: "ring_ping", 3: "all_gather push",
-           4: "all_gather ring", 5: "reduce_scatter ring", 6: "ll_ag_merge"}
+           4: "all_gather ring", 5: "reduce_scatter ring", 6: "ll_ag_merge",
+           7: "ag_gemm", 8: "gemm_rs", 9: "all_to_all_push",
+           10: "all_to_all_push_seg"}
 _REPORT_WORDS = 4
 
 _P = ctypes.c_void_p
@@ -56,10 +58,55 @@ _U = ctypes.c_ulonglong
 # the launch arguments every kernel of the layer ends with
 LAUNCH_SIG = [_P, _P, _U, _P]                 # claim report budget_ns stream
 _SIGNATURES = {
-    "tdt_barrier_all": [_P, _I, _P] + LAUNCH_SIG,
+    "tdt_barrier_all": [_P, _I, _P, _P] + LAUNCH_SIG,
     "tdt_ring_ping": [_P, _P, _L, _P, _I, _I] + LAUNCH_SIG,
     "tdt_shmem_host_alloc": [_I, _P, _P],
 }
+
+
+class Group(ctypes.Structure):
+    """``csrc/shmem.cuh``'s Group: the groups of a launch over every rank
+    of a mesh. Rank r is member ``index[r]`` of a group of ``n``, whose
+    member i is flat rank ``pe[r][i]``."""
+
+    _fields_ = [("n", ctypes.c_int),
+                ("index", ctypes.c_byte * MAX_RANKS),
+                ("pe", (ctypes.c_byte * MAX_RANKS) * MAX_RANKS)]
+
+
+def group_struct(ctx, axis) -> Group:
+    """The Group of ``axis`` (a name, a tuple of names, or None for the
+    whole mesh) over every rank of ``ctx``."""
+    g = Group()
+    g.n = ctx.axis_size(axis)
+    for r in range(ctx.num_ranks):
+        g.index[r] = ctx.my_pe(r, ctx.group_axes(axis))
+        for i, pe in enumerate(ctx.group_members(r, axis)):
+            g.pe[r][i] = pe
+    return g
+
+
+_plans: dict = {}
+
+
+def group_plan(ctx, axis) -> tuple:
+    """(ranks in each group along ``axis``, the launch's ``Group``, every
+    rank's index in its group, rank 0's group's flat ids), made once per
+    mesh shape and axis. ``axis`` is a name, a tuple of names (flattened
+    major to minor, as JAX's ``pe_at_group``), or None for the whole mesh;
+    the groups are the ranks that share every other coordinate, and one
+    launch covers every rank of the mesh."""
+    if axis is not None and not isinstance(axis, str):
+        axis = tuple(axis)
+    key = (tuple(ctx.axis_names), tuple(ctx.mesh_shape), axis)
+    plan = _plans.get(key)
+    if plan is None:
+        axes = ctx.group_axes(axis)
+        plan = _plans[key] = (
+            ctx.axis_size(axis), group_struct(ctx, axis),
+            tuple(ctx.my_pe(r, axes) for r in range(ctx.num_ranks)),
+            tuple(ctx.group_members(0, axis)))
+    return plan
 
 
 class ShmemError(RuntimeError):
@@ -149,6 +196,21 @@ def tables(ctx, *symm) -> list:
     return [(ctypes.c_void_p * n)(*ctx.peer_table(t)) for t in symm]
 
 
+def group_table(ctx, x, axis):
+    """The peer table of an input sharded over ``axis`` and replicated over
+    the other axes: ``x`` [n_axis, ...] (one buffer per group index), and
+    every rank of the mesh points at the buffer of its own index, so the
+    ranks that hold the same shard share one buffer (nothing writes it)."""
+    n, _, index, _ = group_plan(ctx, axis)
+    if x.shape[0] != n or not x.is_contiguous():
+        raise ValueError(f"a sharded input is contiguous [{n}, ...] over "
+                         f"{axis!r}, got {tuple(x.shape)}")
+    step = x.numel() // n * x.element_size()
+    base = x.data_ptr()
+    return (ctypes.c_void_p * ctx.num_ranks)(*(base + i * step
+                                               for i in index))
+
+
 def cuda_checks(name: str, *tensors) -> None:
     """The collective kernels take contiguous tensors on one CUDA device."""
     dev = tensors[0].device
@@ -198,5 +260,6 @@ def ring_ping(ctx, blocks, silent_rank: int | None = None):
 
 ring_ping.launches = 0
 
-__all__ = ["KERNELS", "ShmemError", "check_errors", "launch_args",
-           "raise_pending", "ring_ping", "ring_ping_plain", "tables"]
+__all__ = ["KERNELS", "Group", "ShmemError", "check_errors", "group_plan",
+           "group_struct", "group_table", "launch_args", "raise_pending", "ring_ping",
+           "ring_ping_plain", "tables"]
