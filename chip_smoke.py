@@ -160,6 +160,31 @@ Phases, each printing its lines:
    dispatch of the 1x1x4 engine under the profiler; (d) the
    wire fit t = t0 + bytes / rate of the bf16 and fp8 wires from (a)'s
    kernel times. A time at n > 1 is every rank on the one card.
+   Phase 17 extends (c) with ``overlap="ep+sp"`` at 1x2x2 and 2x2x2
+   (B22's microbatches and B6's start-local pool gather).
+17. the sharded engine's SP modes and disaggregated serving: (a) after
+   phase 16, with no model weights held: B8 (``fd_fold_dist``, through
+   ``flash_decode_dist`` in blocks of rows) at 2 and 4 ranks at the long
+   prompt's decode (8 rows) and chunk (256 rows) shapes, bitwise the fused
+   n = 1 fold on a rerun and 5 fresh calls, within a row's rounding of its
+   plain version, pads zero, the peak a call adds under 8 GiB, and the fit
+   t = t0 + bytes / rate of its times (the engine's ``FD_FIT``); B6
+   (``pool_ag_start_local``) at 2 and 4 ranks and inside a 2x2x2 mesh's sp
+   groups on one layer of the engine's pools, bitwise its plain version
+   and B9's gather; B23 (``paged_transport``, through ``migrate_pages``
+   and ``lend_pages``) at Llama-3-8B's pools, 17 pages in a 64-entry id
+   list over 32 layers, bitwise its plain version with the padding
+   untouched and landed (n, tag), a starved call raising within 2 s and
+   the next one bitwise; each timed between CUDA events and under the
+   profiler beside its bound, plain version and closest PyTorch call. (b)
+   inside phase 12: its prompt through ``long_context=True`` at 1x2x1 and
+   1x4x1, bitwise phase 12's 1x1x1 streams, every kernel of the path to
+   its exact count. (c) inside phase 5's lifetime: its trace through
+   ``DisaggServingEngine`` twice (the same slots, chunk and horizon, a
+   pool the decode worker never outgrows, a forced prefill preemption):
+   every request bitwise the colocated engine's, the decode worker's
+   prompt tokens 0, each prompt page migrated once; tok/s, TTFT, B23's
+   launches and pages, and one step under the profiler.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -486,6 +511,7 @@ def check_engine(params, cfg, device, trace, engine_kw: dict,
           and rec["rerun_bit_identical"])
     if not ok:
         raise AssertionError(f"engine run failed its checks: {rec}")
+    rec["tokens"] = res
     return rec
 
 
@@ -1257,36 +1283,58 @@ def engine_kernels() -> tuple:
 
     return (ea.all_to_all_push, ea.all_to_all_push_seg, all_gather, matmul,
             fd.gqa_decode_paged, ea.ep_dispatch, ea.ep_combine,
-            gg.grouped_gemm_gated, gg.grouped_gemm)
+            gg.grouped_gemm_gated, gg.grouped_gemm, fd.fd_partials_fold,
+            fd.fd_page_partials, fd.fd_fold_dist, fd.pool_ag_start_local)
 
 
 def engine_launches(eng) -> dict:
     """The launches a sharded engine's run must make of each kernel of its
     path, from its counters. Each of the S = horizon x dispatches + chunks
-    program runs goes through L layers: each layer runs the attention once
-    (B1, or the fused fold with ``long_context``), the MoE block's slot
-    gather, B18, B17 and fold once a microbatch (M), the wire twice (B21
-    with overlap off, B22 once a microbatch with overlap="ep") and four
-    projections (wq, wk, wv, wo); the LM head once a run. Each projection
-    is one B2 launch a TP rank (tp_impl "xla"). B9 gathers every
-    projection's columns at tp > 1, the pool's keys and values each layer
-    at sp > 1, and the digests once a check at more than one rank."""
+    program runs goes through L layers: each layer runs the attention once,
+    the MoE block's slot gather, B18, B17 and fold once a microbatch (M),
+    the wire twice (B21 with overlap off, B22 once a microbatch with
+    overlap "ep" or "ep+sp") and four projections (wq, wk, wv, wo); the LM
+    head once a run. Each projection is one B2 launch a TP rank (tp_impl
+    "xla"). B9 gathers every projection's columns at tp > 1, and the
+    digests once a check at more than one rank. The attention: B1, after
+    B9's gather of the pool's keys and values at sp > 1 (B6's, once for
+    both, with overlap="ep+sp"); with ``long_context`` the fused fold at
+    sp = 1, and at sp > 1 each block of rows (``fd_row_block``) B7 once an
+    SP rank and B8 once."""
+    from triton_dist_tpu_torch.ops.flash_decode import fd_row_block
+
     c = eng.metrics.counters
     runs = eng.decode_horizon * c["dispatches"] + c["prefill_chunks"]
-    L = eng.moe_cfg.base.n_layers
+    base = eng.moe_cfg.base
+    L = base.n_layers
     tp, sp = eng.ctx.axis_size("tp"), eng.ctx.axis_size("sp")
     M = eng.overlap_microbatches
     proj = (4 * L + 1) * runs
-    attention = "fd_partials_fold" if eng.long_context else "gqa_decode_paged"
     want = {k: M * L * runs for k in ("ep_dispatch", "ep_combine",
                                       "grouped_gemm_gated", "grouped_gemm")}
-    want.update({attention: L * runs,
-                 "all_to_all_push": 0 if M > 1 else 2 * L * runs,
+    want.update({"gqa_decode_paged": 0, "fd_partials_fold": 0,
+                 "fd_page_partials": 0, "fd_fold_dist": 0,
+                 "pool_ag_start_local": 0, "all_gather": 0})
+    if eng.long_context and sp > 1:
+        rb = fd_row_block(sp, eng.pages_per_seq, base.n_heads,
+                          base.head_dim)
+        blocks = (eng.decode_horizon * c["dispatches"]
+                  * -(-eng.num_slots // rb)
+                  + c["prefill_chunks"] * -(-eng.prefill_chunk // rb))
+        want.update(fd_fold_dist=L * blocks, fd_page_partials=sp * L * blocks)
+    elif eng.long_context:
+        want["fd_partials_fold"] = L * runs
+    else:
+        want["gqa_decode_paged"] = L * runs
+        if sp > 1 and eng.overlap == "ep+sp":
+            want["pool_ag_start_local"] = L * runs
+        elif sp > 1:
+            want["all_gather"] = 2 * L * runs
+    want.update({"all_to_all_push": 0 if M > 1 else 2 * L * runs,
                  "all_to_all_push_seg": 2 * M * L * runs if M > 1 else 0,
-                 "matmul": tp * proj,
-                 "all_gather": ((c["digest_checks"] if eng.n_ranks > 1
-                                 else 0) + (proj if tp > 1 else 0)
-                                + (2 * L * runs if sp > 1 else 0))})
+                 "matmul": tp * proj})
+    want["all_gather"] += ((c["digest_checks"] if eng.n_ranks > 1 else 0)
+                           + (proj if tp > 1 else 0))
     return want
 
 
@@ -1412,6 +1460,10 @@ def check_long_context_and_moe_tp(params, cfg, device, card: str) -> dict:
     torch.cuda.empty_cache()
     long = check_long_engine(params, cfg, device, card)
     torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    long["sp"] = check_long_sp(params, cfg, device, card, long.pop("tokens"))
+    log(f"phase 17b (long-context at sp > 1) took "
+        f"{time.perf_counter() - t17:.1f} s")
     # phase 9's first four requests through the long-context and the plain
     # engine: on these bf16 weights equal up to near-ties, and in f32 at full
     # width, depth cut to 2 layers, equal
@@ -2695,14 +2747,8 @@ def check_long_engine(params, cfg, device, card: str, long=LONG,
     from triton_dist_tpu_torch.serving import ShardedServingEngine
 
     base = cfg.base
-    total = long["prompt"] + long["new"]
-    kw = engine_kw or dict(ENGINE, pages_per_seq=-(-total // PS),
-                           num_pages=-(-total // PS) + 64)
-    rng = np.random.RandomState(3)
-    trace = [(0, [int(t) for t in rng.randint(1, base.vocab_size,
-                                               long["prompt"])],
-              long["new"])]
-    kernels = engine_kernels() + (fd.fd_partials_fold, fd.fd_page_partials)
+    trace, kw = _long_setup(base, long, engine_kw)
+    kernels = engine_kernels()
 
     def make():
         return ShardedServingEngine(params, cfg, device=device,
@@ -2713,8 +2759,7 @@ def check_long_engine(params, cfg, device, card: str, long=LONG,
         torch.cuda.reset_peak_memory_stats()
     res, eng, wall, launches = serve(make, device, trace, kernels)
     c, h = eng.metrics.counters, eng.metrics.hist
-    expect = dict(engine_launches(eng), gqa_decode_paged=0,
-                  fd_page_partials=0)
+    expect = engine_launches(eng)
     ttft = h["ttft_s"].percentile(50)
     decode_s = wall - ttft
     rec = {"card": card, "prompt_tokens": long["prompt"],
@@ -2753,7 +2798,88 @@ def check_long_engine(params, cfg, device, card: str, long=LONG,
     if on_card:
         torch.cuda.empty_cache()
 
-    return {"engine": rec, "profile": profile}
+    return {"engine": rec, "profile": profile, "tokens": res}
+
+
+def _long_setup(base, long, engine_kw=None) -> tuple:
+    """Phase 12's trace (one seeded prompt of ``long["prompt"]`` tokens
+    and ``long["new"]`` new ones) and its engine's arguments."""
+    import numpy as np
+
+    total = long["prompt"] + long["new"]
+    kw = engine_kw or dict(ENGINE, pages_per_seq=-(-total // PS),
+                           num_pages=-(-total // PS) + 64)
+    rng = np.random.RandomState(3)
+    trace = [(0, [int(t) for t in rng.randint(1, base.vocab_size,
+                                               long["prompt"])],
+              long["new"])]
+    return trace, kw
+
+
+# phase 17b: phase 12's prompt at sp > 1 through the fold across ranks (B8)
+LONG_SP_MESHES = ((1, 2, 1), (1, 4, 1))
+
+
+def check_long_sp(params, cfg, device, card: str, golden: dict, long=LONG,
+                  meshes=LONG_SP_MESHES, engine_kw=None) -> list[dict]:
+    """Phase 17b: phase 12's prompt through ``ShardedServingEngine(
+    long_context=True)`` at each of ``meshes`` (sp > 1: B7 over each SP
+    rank's slice of the interleaved pool and B8's fold across ranks),
+    once each: the streams bitwise ``golden`` (phase 12's 1x1x1 run), every
+    kernel of the path launched exactly as ``engine_launches`` says; TTFT,
+    decode ms a step, tok/s, peak memory and the modelled attention split.
+    Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.serving import (ShardedServingEngine,
+                                               serving_mesh)
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    trace, kw = _long_setup(cfg.base, long, engine_kw)
+    on_card = device.type == "cuda"
+    records = []
+    for mesh in meshes:
+        def make():
+            return ShardedServingEngine(params, cfg, serving_mesh(*mesh),
+                                        device=device, long_context=True,
+                                        **kw)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        res, eng, wall, launches = serve(make, device, trace,
+                                         engine_kernels())
+        check_errors(eng.ctx)
+        c, h = eng.metrics.counters, eng.metrics.hist
+        ttft = h["ttft_s"].percentile(50)
+        decode_s = wall - ttft
+        rec = {"card": card, "mesh": eng.mesh_desc,
+               "prompt_tokens": long["prompt"], "new_tokens": long["new"],
+               "layout": eng.alloc.layout,
+               "tokens_generated": c["tokens_generated"],
+               "dispatches": c["dispatches"],
+               "prefill_chunks": c["prefill_chunks"],
+               "launches": launches,
+               "launches_expected": engine_launches(eng),
+               "bitwise_golden": res == golden,
+               "first_difference": _first_difference(golden, res),
+               "wall_s": wall, "ttft_s": ttft,
+               "decode_ms_per_step": decode_s / max(long["new"] - 1, 1)
+               * 1e3,
+               "tok_per_s": c["tokens_generated"] / wall,
+               "attn_local_us_modelled": h["attn_local_us"].mean,
+               "attn_fold_wait_us_modelled": h["attn_fold_wait_us"].mean,
+               "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                if on_card else None)}
+        log("long-context engine across ranks", json.dumps(rec))
+        del eng
+        if on_card:
+            torch.cuda.empty_cache()
+        if not (rec["bitwise_golden"] and rec["layout"] == "interleaved"
+                and rec["launches_expected"]["fd_fold_dist"] > 0
+                and (not on_card or launches == rec["launches_expected"])):
+            raise AssertionError(f"the long-context engine at "
+                                 f"{rec['mesh']} fails its checks: {rec}")
+        records.append(rec)
+    return records
 
 
 def teacher_forced(params, cfg, device, prompt, stream, upto: int,
@@ -3219,6 +3345,8 @@ def long_moe_tp_kernels(later: dict) -> list[dict]:
     of ``check_long_context_and_moe_tp``."""
     fdk, mtp = later["fd"], later["moe_tp"]
     long_launches = later["long"]["engine"]["launches"]
+    sp_slabs = sum(r["launches"]["fd_page_partials"]
+                   for r in later["long"]["sp"])
     fd_dist_source = "triton_dist_tpu_torch/csrc/flash_decode_dist.cu"
     gg_source = "triton_dist_tpu_torch/csrc/group_gemm.cu"
 
@@ -3236,12 +3364,11 @@ def long_moe_tp_kernels(later: dict) -> list[dict]:
         for name, source, replaces, launches, extra, main, cases in (
             ("fd_page_partials", fd_dist_source,
              "triton_dist_tpu/ops/flash_decode.py:810",
-             long_launches["fd_page_partials"],
-             {"on_main_path": False,
-              "note": "at one rank the slab kernel is off the path: the "
-                      "fused fold runs its page partial (the same __device__ "
-                      "function) with no slab; the slab kernel runs only in "
-                      "the checks"},
+             long_launches["fd_page_partials"] + sp_slabs,
+             {"note": "at one rank the fused fold runs B7's page partial "
+                      "(the same __device__ function) with no slab; at sp > "
+                      "1 (phase 17b) the slab kernel runs once an SP rank a "
+                      "block of rows, before B8"},
              main_rec(fdk["fd_page_partials"], dtype="bfloat16",
                       shape="decode"), fdk["fd_page_partials"]),
             ("fd_partials_fold", fd_dist_source,
@@ -4549,7 +4676,8 @@ A2A_SEGMENTS = 2
 # preempt once in the 128-page pool; the golden is the 1x1x1 engine on the
 # same prefix
 EP_MESHES = ((1, 1, 2, "off"), (1, 1, 4, "off"), (1, 1, 4, "ep"),
-             (2, 1, 2, "off"), (1, 2, 2, "off"), (2, 2, 2, "off"))
+             (2, 1, 2, "off"), (1, 2, 2, "off"), (2, 2, 2, "off"),
+             (1, 2, 2, "ep+sp"), (2, 2, 2, "ep+sp"))
 EP_PREFIX = 10
 
 
@@ -5021,6 +5149,666 @@ def ep_kernels(ep: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the sharded engine's SP modes and disaggregated serving
+# ---------------------------------------------------------------------------
+
+# B8 at the long prompt's shapes: 8 decode rows at the prompt's length, and
+# its last chunk of 256 rows, over the long-context engine's block-table
+# width (LONG's prompt and new tokens)
+FD_DIST_RANKS = (2, 4)
+# the most a call of flash_decode_dist at 4 ranks may hold at the chunk
+# shape above the pool (its slabs, in blocks of rows)
+FD_DIST_PEAK_GIB = 8.0
+# B6 at 2 and 4 ranks on one layer of the sharded engine's pools (the
+# pool of ENGINE, padded to the SP size), and inside a 2x2x2 mesh's sp groups
+POOL_AG_RANKS = (2, 4)
+# B23 at Llama-3-8B's pools: a 256-token chunk straddling a page edge
+# finalises 17 pages, sent in a 64-entry id list over 32 layers
+MIGRATE = {"pages": 17, "pmax": 64, "pool_pages": 128}
+
+
+def _fd_dist_cases(dtype, device, seed: int) -> dict:
+    """The decode and chunk inputs of B8 at the long prompt's shapes; pools
+    whose page count splits over 2, 4 and 8 ranks."""
+    long = LONG["prompt"]
+    S = -(-(long + LONG["new"]) // PS)
+    return {"decode": _fd_inputs(dtype, device, (long,) * 8, S, 8 * S + 8,
+                                 seed),
+            "chunk": _fd_inputs(dtype, device,
+                                tuple(range(long - 255, long + 1)), S, S + 8,
+                                seed + 1, shared=True)}
+
+
+def fd_dist_bound(c: dict, n: int, out_esize: int) -> tuple[float, str]:
+    """Least time of B8 on n ranks: each rank's slab read once, its lse
+    of every live page of its rows and its out of the pages it holds (one
+    rank's entry is real a page), and every rank's [B, Hq, D] result
+    written; on one card the ranks read their peers' slabs in place, so no
+    slab byte need move twice. The fold's operations (about 8 a real
+    element) are far below the bytes."""
+    kv, S = c["kv_len"], c["bt"].shape[1]
+    live = int((kv.long() + PS - 1).div(PS, rounding_mode="floor")
+               .clamp(max=S).sum())
+    B = c["q"].shape[0]
+    nbytes = (n * live * HQ * 4 + live * HQ * D * 4
+              + n * B * HQ * D * out_esize)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_fd_dist_kernels(device, timed: bool = True, ranks=FD_DIST_RANKS,
+                          cases=None, plain_rows: int = 16,
+                          seed: int = 40) -> list[dict]:
+    """B8 (``fd_fold_dist``) through ``flash_decode_dist`` at each of
+    ``ranks`` SP ranks on the long prompt's decode and chunk shapes (bf16):
+    every rank's result bitwise the fused n = 1 fold (``fd_partials_fold``)
+    on a rerun and on 5 calls with fresh queries, within ``FD_FOLD_REL`` of
+    the plain version (on ``plain_rows`` rows of the chunk: a row's fold
+    does not depend on the others), every pad zero; the peak memory a call
+    adds (its slabs, in blocks of rows) under ``FD_DIST_PEAK_GIB`` at the
+    chunk shape. With ``timed``, B8 alone on one block's slabs, between
+    CUDA events and under the profiler, beside its plain version and its
+    bound. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.shmem import check_errors
+    from triton_dist_tpu_torch.shmem.context import initialize_distributed
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    dtype = torch.bfloat16
+    on_card = device.type == "cuda"
+    cases = cases or _fd_dist_cases(dtype, device, seed)
+    records = []
+    for shape, c in cases.items():
+        B = c["q"].shape[0]
+        args = (c["q"], c["k"], c["v"], c["bt"], c["kv_len"])
+        fused = fd.fd_partials_fold(*args)
+        gen = torch.Generator(device=device).manual_seed(seed + 7)
+        kn = torch.randn(B, HKV, D, generator=gen, device=device).to(dtype)
+        parked = torch.zeros(B, dtype=torch.bool, device=device)
+        pos = torch.zeros(B, dtype=torch.int32, device=device)
+        rows = (list(range(B)) if B <= plain_rows else
+                list(range(plain_rows // 2)) + list(range(B - plain_rows // 2,
+                                                          B)))
+        sub = torch.tensor(rows, device=device)
+        for n in ranks:
+            ctx = initialize_distributed(("sp",), (n,), device=device)
+
+            def dist(q):
+                # active all False: the new rows go to the scratch page 0,
+                # which no block table uses, so the pool stays the fused
+                # fold's
+                return fd.flash_decode_dist(ctx, q, kn, kn, c["k"], c["v"],
+                                            c["bt"], pos, c["kv_len"],
+                                            active=parked, replicas=True)[0]
+            if on_card:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            got = dist(c["q"])
+            peak = ((torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                    if on_card else None)
+            again = dist(c["q"])
+            check_errors(ctx)
+            fresh_ok = True
+            for i in range(FRESH_CALLS):
+                q2 = torch.randn(c["q"].shape, generator=gen,
+                                 device=device).to(dtype)
+                ref = fd.fd_partials_fold(q2, *args[1:])
+                out = dist(q2)
+                fresh_ok &= all(_same(out[r], ref) for r in range(n))
+            check_errors(ctx)
+            p_local = c["k"].shape[0] // n
+            parts = [fd.fd_page_partials_plain(
+                c["q"][sub], c["k"][r * p_local:(r + 1) * p_local],
+                c["v"][r * p_local:(r + 1) * p_local], c["bt"][sub],
+                c["kv_len"][sub], r) for r in range(n)]
+            plain = fd.fd_fold_dist_plain(torch.stack([o for o, _ in parts]),
+                                          torch.stack([l for _, l in parts]),
+                                          dtype)
+            del parts
+            rec = {"kernel": "fd_fold_dist", "ranks": n, "shape": shape,
+                   "dtype": "bfloat16",
+                   "case": f"bfloat16 {shape}, {n} ranks, B={B} "
+                           f"S={c['bt'].shape[1]} kv="
+                           f"{int(c['kv_len'].min())}.."
+                           f"{int(c['kv_len'].max())}",
+                   "row_block": fd.fd_row_block(n, c["bt"].shape[1], HQ, D),
+                   "bitwise_fused_n1": all(_same(got[r], fused)
+                                           for r in range(n)),
+                   "bitwise_repeat": _same(got, again),
+                   "fresh_calls_bitwise": fresh_ok,
+                   "pads_zero": _pads_zero(ctx),
+                   "max_abs_err": (got[0][sub].float() - plain.float()).abs()
+                   .max().item(),
+                   "row_rel_err": _row_rel(got[0][sub], plain),
+                   "row_rel_tol": FD_FOLD_REL["bfloat16"],
+                   "plain_rows": len(rows), "peak_added_gib": peak,
+                   "peak_limit_gib": FD_DIST_PEAK_GIB}
+            ok = (rec["bitwise_fused_n1"] and rec["bitwise_repeat"]
+                  and fresh_ok and rec["pads_zero"]
+                  and rec["row_rel_err"] <= FD_FOLD_REL["bfloat16"]
+                  and (peak is None or peak <= FD_DIST_PEAK_GIB))
+            if timed:
+                # B8 alone on one block of rows' slabs
+                rb = min(B, rec["row_block"])
+                S = c["bt"].shape[1]
+                outs = torch.empty(n, rb, S, HQ, D, device=device)
+                lses = torch.empty(n, rb, S, HQ, device=device)
+                for r in range(n):
+                    fd._partials_into(c["q"][:rb],
+                                      c["k"][r * p_local:(r + 1) * p_local],
+                                      c["v"][r * p_local:(r + 1) * p_local],
+                                      c["bt"][:rb], c["kv_len"][:rb], r, None,
+                                      outs[r], lses[r], neutral_out=True)
+                kv = c["kv_len"][:rb]
+
+                def fold():
+                    return fd.fd_fold_dist(ctx, outs, lses, kv, dtype,
+                                           replicas=True)
+                _, rec["ms"] = perf_func(fold)
+                rec["kernel_device_ms"] = kernel_device_ms(fold,
+                                                           "fd_fold_dist")
+                if rb == B:
+                    _, rec["plain_ms"] = perf_func(
+                        lambda: fd.fd_fold_dist_plain(outs, lses, dtype),
+                        iters=1, warmup_iters=0)
+                rec["bound_ms"], rec["bound_by"] = fd_dist_bound(
+                    {"q": c["q"][:rb], "kv_len": kv, "bt": c["bt"][:rb]}, n,
+                    2)
+                rec["library_ms"] = None
+                rec["library_none_because"] = (
+                    "no single PyTorch call folds per-page partials of "
+                    "several ranks in a fixed order")
+                rec["timed_rows"] = rb
+                rec["pages"] = S
+                del outs, lses
+            log("kernel fd_fold_dist", json.dumps(rec))
+            del got, again, plain
+            if on_card:
+                torch.cuda.empty_cache()
+            if not ok:
+                raise AssertionError(f"fd_fold_dist fails its checks: {rec}")
+            records.append(rec)
+    return records
+
+
+def check_pool_ag(device, timed: bool = True, ranks=POOL_AG_RANKS,
+                  pages: int | None = None, seed: int = 41) -> list[dict]:
+    """B6 (``pool_ag_start_local``) on one layer of the sharded engine's K
+    and V pools (bf16, ENGINE's pool padded to the SP size) at each of
+    ``ranks`` and inside a 2x2x2 mesh's sp groups: every replica bitwise
+    the plain version's and B9's gather's, on a rerun and 5 calls with
+    fresh pools, every pad zero; timed beside the bound, the plain version
+    and ``torch.cat``. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.ops.allgather import all_gather
+    from triton_dist_tpu_torch.serving import serving_mesh
+    from triton_dist_tpu_torch.shmem import check_errors
+    from triton_dist_tpu_torch.shmem.context import (ShmemContext,
+                                                     initialize_distributed)
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pages = pages or ENGINE["num_pages"] + 1
+    meshes = [(n, initialize_distributed(("sp",), (n,), device=device))
+              for n in ranks]
+    grid = serving_mesh(2, 2, 2)
+    meshes.append((2, ShmemContext(grid.axis_names, grid.mesh_shape,
+                                   device)))
+    records = []
+    for n, ctx in meshes:
+        P = pages + (-pages) % n
+
+        def pools():
+            return tuple(torch.randn(P, HKV, PS, D, generator=gen,
+                                     device=device).to(torch.bfloat16)
+                         for _ in range(2))
+        kp, vp = pools()
+        kf, vf = fd.pool_ag_start_local(ctx, kp, vp)
+        kf2, vf2 = fd.pool_ag_start_local(ctx, kp, vp)
+        ref = fd.pool_ag_start_local_plain(kp, vp, ctx.num_ranks)
+        b9 = (all_gather(ctx, kp, axis="sp"), all_gather(ctx, vp, axis="sp"))
+        fresh_ok = True
+        for _ in range(FRESH_CALLS):
+            k2, v2 = pools()
+            fresh_ok &= _same(fd.pool_ag_start_local(ctx, k2, v2),
+                              fd.pool_ag_start_local_plain(k2, v2,
+                                                           ctx.num_ranks))
+        check_errors(ctx)
+        mesh = "x".join(map(str, ctx.mesh_shape))
+        rec = {"kernel": "pool_ag_start_local", "ranks": n, "mesh": mesh,
+               "case": f"bf16 pools [{P}, {HKV}, {PS}, {D}] x 2, sp {n}, "
+                       f"mesh {mesh}",
+               "bitwise_plain": _same((kf, vf), ref),
+               "bitwise_b9": _same((kf, vf), b9),
+               "bitwise_repeat": _same((kf, vf), (kf2, vf2)),
+               "fresh_calls_bitwise": fresh_ok, "pads_zero": _pads_zero(ctx),
+               "max_abs_err": 0.0 if _same((kf, vf), ref) else float("nan")}
+        ok = all(rec[k] for k in ("bitwise_plain", "bitwise_b9",
+                                  "bitwise_repeat", "fresh_calls_bitwise",
+                                  "pads_zero"))
+        if timed:
+            N = ctx.num_ranks
+            _, rec["ms"] = perf_func(lambda: fd.pool_ag_start_local(ctx, kp,
+                                                                    vp))
+            rec["kernel_device_ms"] = kernel_device_ms(
+                lambda: fd.pool_ag_start_local(ctx, kp, vp), "pool_ag")
+            _, rec["plain_ms"] = perf_func(
+                lambda: fd.pool_ag_start_local_plain(kp, vp, N))
+            _, rec["library_ms"] = perf_func(
+                lambda: torch.cat([kp, vp] * N))
+            rec["library"] = "torch.cat([k, v] * N)"
+            nbytes = 2 * kp.numel() * kp.element_size()
+            rec["bound_ms"], rec["bound_by"] = collective_bound(nbytes,
+                                                                N * nbytes)
+        log("kernel pool_ag_start_local", json.dumps(rec))
+        del kf, vf, kf2, vf2, ref, b9
+        if not ok:
+            raise AssertionError(f"pool_ag_start_local fails its checks: "
+                                 f"{rec}")
+        records.append(rec)
+    return records
+
+
+def _migrate_ids(pages: int, k: int, pmax: int, gen) -> tuple[list, list]:
+    """``k`` distinct source and destination ids in [1, pages] in a list of
+    ``pmax`` entries; the padding past ``k`` names other real pages, which
+    a transport must never touch."""
+    import torch
+
+    src = (torch.randperm(pages, generator=gen) + 1).tolist()
+    dst = (torch.randperm(pages, generator=gen) + 1).tolist()
+    return (src[:k] + src[k:k + pmax - k], dst[:k] + dst[k:k + pmax - k])
+
+
+def check_page_migrate(device, cfg, timed: bool = True, spec=MIGRATE,
+                       seed: int = 42) -> list[dict]:
+    """B23 (``paged_transport``, through ``migrate_pages`` and
+    ``lend_pages``) at ``cfg``'s pools ([2, L, P + 1, Hkv, 16, D], random
+    bf16): ``spec["pages"]`` pages in a ``spec["pmax"]``-entry id list,
+    bitwise the plain version's pools (the padding entries' pages
+    untouched), landed (n, tag) at both roles, on a rerun and 5 fresh calls
+    with other ids and tags, every pad zero; a call whose producer never
+    signals raises ``ShmemError`` within ``HANG_LIMIT_S``, and the next
+    call is bitwise again. Timed beside the bound, the plain version and
+    ``index_copy_``. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import page_migrate as pm
+    from triton_dist_tpu_torch.ops.lend_pages import lend_pages
+    from triton_dist_tpu_torch.shmem import ShmemError, check_errors
+    from triton_dist_tpu_torch.shmem.context import initialize_distributed
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    ctx = initialize_distributed(("role",), (2,), device=device)
+    gen = torch.Generator().manual_seed(seed)
+    P, k, pmax = spec["pool_pages"], spec["pages"], spec["pmax"]
+    shape = (cfg.n_layers, P + 1, cfg.n_kv_heads, PS, cfg.head_dim)
+    pool_k = ctx.create_symm_tensor(shape, cfg.dtype)
+    pool_v = ctx.create_symm_tensor(shape, cfg.dtype)
+    dgen = torch.Generator(device=device).manual_seed(seed)
+    for t in (pool_k, pool_v):
+        t.copy_(torch.randn(t.shape, generator=dgen, device=device))
+
+    def one(fn, tag, **kw):
+        src, dst = _migrate_ids(P, k, pmax, gen)
+        rk, rv = pool_k.clone(), pool_v.clone()
+        pm.paged_transport_plain(ctx, rk, rv, src, dst, k, "role",
+                                 kw.get("producer", 0),
+                                 kw.get("consumer", 1), tag)
+        _, _, landed = fn(ctx, pool_k, pool_v, src, dst, k, axis="role",
+                          tag=tag, **kw)
+        lnd = landed.cpu().tolist()
+        return (_same((pool_k, pool_v), (rk, rv))
+                and lnd == [[k, tag], [k, tag]]), dst[k:]
+
+    ok_first, _ = one(pm.migrate_pages, 5)
+    ok_repeat, _ = one(pm.migrate_pages, 6)
+    fresh = all(one(pm.migrate_pages, 10 + i)[0] for i in range(FRESH_CALLS))
+    lend_ok, _ = one(lend_pages, 7, lender=0, borrower=1)
+    check_errors(ctx)
+    pads = _pads_zero(ctx)
+    # starvation: the producer puts but never signals
+    src, dst = _migrate_ids(P, k, pmax, gen)
+    t0 = time.perf_counter()
+    raised = False
+    try:
+        pm.paged_transport(ctx, pool_k, pool_v, src, dst, k, axis="role",
+                           tag=99, silent=True)
+        check_errors(ctx)
+    except ShmemError as e:
+        raised = True
+        log("paged_transport starved as expected:", str(e))
+    hang_s = time.perf_counter() - t0
+    after_ok, _ = one(pm.migrate_pages, 100)
+    page_bytes = pool_k[0, 0, 0].numel() * pool_k.element_size()
+    rec = {"kernel": "paged_transport",
+           "case": f"{k} pages in a {pmax}-entry id list, {cfg.n_layers} "
+                   f"layers, pools [2, {cfg.n_layers}, {P + 1}, "
+                   f"{cfg.n_kv_heads}, {PS}, {cfg.head_dim}] bf16",
+           "bitwise_plain": ok_first, "bitwise_repeat": ok_repeat,
+           "fresh_calls_bitwise": fresh, "lend_pages_bitwise": lend_ok,
+           "pads_zero": pads, "starved_raised": raised,
+           "starved_s": hang_s, "hang_limit_s": HANG_LIMIT_S,
+           "bitwise_after_starved": after_ok,
+           "bytes_moved": 2 * k * cfg.n_layers * page_bytes,
+           "max_abs_err": 0.0 if ok_first else float("nan")}
+    ok = (ok_first and ok_repeat and fresh and lend_ok and pads and raised
+          and hang_s <= HANG_LIMIT_S and after_ok)
+    if timed:
+        src, dst = _migrate_ids(P, k, pmax, gen)
+
+        def call():
+            return pm.migrate_pages(ctx, pool_k, pool_v, src, dst, k,
+                                    axis="role", tag=1)
+        _, rec["ms"] = perf_func(call)
+        rec["kernel_device_ms"] = kernel_device_ms(call, "transport")
+        rk, rv = pool_k.clone(), pool_v.clone()
+        _, rec["plain_ms"] = perf_func(lambda: pm.paged_transport_plain(
+            ctx, rk, rv, src, dst, k, "role", 0, 1, 1))
+        si = torch.tensor(src[:k], device=device)
+        di = torch.tensor(dst[:k], device=device)
+        ks, vs = pool_k[0].index_select(1, si), pool_v[0].index_select(1, si)
+
+        def library():
+            rk[1].index_copy_(1, di, ks)
+            rv[1].index_copy_(1, di, vs)
+        _, rec["library_ms"] = perf_func(library)
+        rec["library"] = ("index_copy_ of K and of V, the sources gathered "
+                          "outside the timed call")
+        rec["bound_ms"], rec["bound_by"] = collective_bound(
+            rec["bytes_moved"], rec["bytes_moved"])
+        del rk, rv, ks, vs
+    log("kernel paged_transport", json.dumps(rec))
+    del pool_k, pool_v
+    if not ok:
+        raise AssertionError(f"paged_transport fails its checks: {rec}")
+    return [rec]
+
+
+def fd_fold_fit(records: list[dict]) -> dict:
+    """The fit t = t0 + bytes / rate of B8's kernel-alone times
+    (``torch.profiler``), bytes the remote slabs a rank folds ((n - 1) x
+    rows x pages x Hq x (D + 1) f32): the time the engine's modelled
+    ``attn_fold_wait_us`` prices (``serving.sharded.FD_FIT``)."""
+    pts = [((r["ranks"] - 1) * r["timed_rows"] * r["pages"] * HQ * (D + 1)
+            * 4, r["kernel_device_ms"] * 1e3) for r in records
+           if r.get("kernel_device_ms")]
+    m = len(pts)
+    sx = sum(b for b, _ in pts)
+    sy = sum(t for _, t in pts)
+    sxx = sum(b * b for b, _ in pts)
+    sxy = sum(b * t for b, t in pts)
+    slope = (m * sxy - sx * sy) / (m * sxx - sx * sx)
+    fit = {"t0_us": (sy - slope * sx) / m,
+           "gb_per_s": 1 / slope / 1e3 if slope > 0 else None,
+           "points": pts}
+    log("fd fold fit", json.dumps(fit))
+    return fit
+
+
+def check_sp_kernels(device, card: str) -> dict:
+    """Phase 17a: B8, B6 and B23 against their plain versions and timed
+    (on a card with no model weights held)."""
+    import torch
+
+    from triton_dist_tpu_torch.models.llama import LlamaConfig
+
+    t0 = time.perf_counter()
+    fd_dist = check_fd_dist_kernels(device)
+    fit = fd_fold_fit(fd_dist)
+    torch.cuda.empty_cache()
+    pool_ag = check_pool_ag(device)
+    migrate = check_page_migrate(device, LlamaConfig.llama3_8b())
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 17a took {seconds:.1f} s")
+    return {"fd_fold_dist": fd_dist, "fd_fit": fit,
+            "pool_ag_start_local": pool_ag, "paged_transport": migrate,
+            "seconds": seconds}
+
+
+# phase 17c: phase 5's trace through the disaggregated engine, at ENGINE's
+# slots, chunk and horizon (every GEMM of both roles at the colocated
+# engine's shapes), with pools a decode worker never outgrows (8 slots of
+# a whole block-table row), so every prompt page migrates once
+DISAGG = dict(ENGINE, num_pages=ENGINE["num_slots"] * PPS,
+              num_prefill_slots=2)
+
+
+def serve_disagg(make, device, trace, preempt: bool) -> tuple:
+    """Serve ``trace`` on a fresh ``make()`` engine, arrivals as ``run``
+    takes them; with ``preempt`` evict the youngest prefill once, the first
+    step it is part-way through its prompt (``force_preempt_prefill``).
+    Returns (tokens by rid, engine, wall s, launches of B23 and B1 in the
+    run, the evicted rid)."""
+    from collections import deque
+
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.ops import page_migrate as pm
+
+    eng = make()
+    kernels = (pm.paged_transport, fd.gqa_decode_paged)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    pending, evicted, i = deque(trace), None, 0
+    t0 = time.perf_counter()
+    while i < 10_000:
+        while pending and pending[0][0] <= i:
+            eng.submit(*pending.popleft()[1:])
+        victim = eng.sched_p.pick_victim() if preempt and evicted is None \
+            else None
+        if victim is not None:
+            req = eng.sched_p.slots[victim]
+            if 0 < req.prefill_cursor < len(req.prompt):
+                evicted = req.rid
+                eng.force_preempt_prefill()
+        if not eng.step() and not pending:
+            break
+        i += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ({r.rid: list(r.generated) for r in eng._finished}, eng, wall,
+            {k.__name__: k.launches for k in kernels}, evicted)
+
+
+def profile_disagg_step(eng, device, trace) -> dict:
+    """Once the decode worker has active slots while prompts still
+    prefill: one step of both roles timed (host clock to a synchronize),
+    then the next under ``torch.profiler``, its device time by family (B1,
+    B23, cuBLAS, the rest) and device ops; the idle share is 1 - that
+    device time / the first step's wall time."""
+    import torch
+
+    from triton_dist_tpu_torch.serving import RequestState
+
+    for _, prompt, new in trace[:2 * eng.num_slots]:
+        eng.submit(prompt, new)
+    for _ in range(200):
+        eng.step()
+        active = sum(r is not None and r.state is RequestState.ACTIVE
+                     for r in eng.sched_d.slots)
+        if active >= eng.num_slots // 2 and not eng.sched_p.idle:
+            break
+    card = device.type == "cuda"
+    if card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    if card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fams, ops = device_time_by_family(
+        eng.step, card, (("attention", ("decode_paged_kernel",)),
+                         ("transport", ("transport_kernel",))))
+    busy = sum(fams.values())
+    rec = {"wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1 - busy / wall if busy else None,
+           "device_s_by_family": fams, "device_ops": ops}
+    log("profile disagg step", json.dumps(rec))
+    return rec
+
+
+def check_disagg(params, cfg, device, card: str, trace, golden: dict,
+                 engine_kw=DISAGG) -> dict:
+    """Phase 17c: ``trace`` (phase 5's) through ``DisaggServingEngine``
+    twice, each run with a forced prefill preemption: every request
+    finishes with its full budget and its tokens bitwise ``golden`` (the
+    colocated engine's, phase 5), the reruns bitwise; the decode worker
+    processes no prompt token and never preempts; the pages migrated are
+    the prompts' pages, each once; B23 launched once a migrated chunk and
+    B1 once a layer of every decode step and chunk. tok/s, TTFT p50, B23's
+    launches and pages; one step under the profiler. The colocated engine
+    also serves the trace once with a pool as large as one role's (phase
+    5's golden ran a smaller pool and preempts), bitwise ``golden``: the
+    comparison of tok/s and TTFT at the same pages. Raises on any
+    failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.serving import (DisaggServingEngine,
+                                               ServingEngine)
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    t0 = time.perf_counter()
+
+    def make():
+        return DisaggServingEngine(params, cfg, device=device, **engine_kw)
+
+    colo_kw = {k: v for k, v in engine_kw.items()
+               if k != "num_prefill_slots"}
+    res, eng, wall, _ = serve(
+        lambda: ServingEngine(params, cfg, device=device, **colo_kw), device,
+        trace, (fd.gqa_decode_paged,))
+    c = eng.metrics.counters
+    colocated = {"num_pages": colo_kw["num_pages"],
+                 "bitwise_golden": res == golden,
+                 "first_difference": _first_difference(golden, res),
+                 "preemptions": c["preemptions"], "wall_s": wall,
+                 "tok_per_s": c["tokens_generated"] / wall,
+                 "ttft_p50_s": eng.metrics.hist["ttft_s"].percentile(50)}
+    log("colocated engine at one role's pool", json.dumps(colocated))
+    del eng, res
+    if not colocated["bitwise_golden"]:
+        raise AssertionError(f"the colocated engine at {colo_kw['num_pages']}"
+                             f" pages departs from its golden: {colocated}")
+
+    runs = []
+    on_card = device.type == "cuda"
+    for run in range(2):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        res, eng, wall, launches, evicted = serve_disagg(make, device, trace,
+                                                         preempt=True)
+        check_errors(eng.ctx)
+        c, d = eng.metrics.counters, eng.metrics_decode.counters
+        pages = sum(-(-len(p) // eng.page_size) for _, p, _ in trace)
+        tokens = c["tokens_generated"] + d["tokens_generated"]
+        rec = {"card": card, "run": run, "requests": len(trace),
+               "finished": d["requests_finished"], "failed": len(eng.failed),
+               "tokens_generated": tokens,
+               "tokens_expected": sum(m for _, _, m in trace),
+               "bitwise_colocated": res == golden,
+               "first_difference": _first_difference(golden, res),
+               "prefill_preemptions": c["preemptions"],
+               "evicted_rid": evicted,
+               "decode_preemptions": d["preemptions"],
+               "decode_prefill_tokens_max":
+                   eng.metrics_decode.hist["step_prefill_tokens"].max,
+               "handoffs": c["handoffs"], "pages_migrated":
+                   c["pages_migrated"], "prompt_pages": pages,
+               "migrate_chunks": c["migrate_chunks"],
+               "pages_per_chunk_mean":
+                   eng.metrics.hist["migrate_pages_per_chunk"].mean,
+               "migrate_s_mean": eng.metrics.hist["migrate_s"].mean,
+               "launches": launches, "launches_expected": {
+                   "paged_transport": c["migrate_chunks"],
+                   "gqa_decode_paged": cfg.n_layers * (
+                       eng.decode_horizon * d["dispatches"]
+                       + c["prefill_chunks"])},
+               "wall_s": wall, "tok_per_s": tokens / wall,
+               "ttft_p50_s": eng.metrics.hist["ttft_s"].percentile(50),
+               "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                if on_card else None)}
+        log("disagg engine", json.dumps(rec))
+        ok = (rec["finished"] == len(trace) and not rec["failed"]
+              and rec["bitwise_colocated"]
+              and all(len(res[i]) == m for i, (_, _, m) in enumerate(trace))
+              and rec["prefill_preemptions"] == 1 and evicted is not None
+              and rec["decode_preemptions"] == 0
+              and rec["decode_prefill_tokens_max"] == 0
+              and rec["handoffs"] == len(trace) and rec["pages_migrated"]
+              == pages
+              and (not on_card or launches == rec["launches_expected"]))
+        del eng
+        if not ok:
+            raise AssertionError(f"the disaggregated engine fails its "
+                                 f"checks: {rec}")
+        runs.append(rec)
+    eng = make()
+    profile = profile_disagg_step(eng, device, trace)
+    del eng
+    if on_card:
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 17c (disaggregated serving) took {seconds:.1f} s")
+    return {"runs": runs, "profile": profile, "colocated": colocated,
+            "seconds": seconds}
+
+
+def sp_modes_kernels(sp17: dict, moe: dict, disagg: dict) -> list[dict]:
+    """The ``kernels`` line's entries of B8, B6 and B23 (phase 17): the
+    main cases are B8 at 4 ranks at the long prompt's decode rows, B6 at 4
+    ranks on one layer of the engine's pools, B23's 17-page chunk; the
+    launches are the main path's runs' (17b's long-context legs, 16c's
+    ``overlap="ep+sp"`` meshes, 17c's first disaggregated run)."""
+    def main_rec(records, **match):
+        return next(r for r in records
+                    if all(r.get(k) == v for k, v in match.items()))
+
+    keys = ("ms", "kernel_device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "case")
+    fd_main = main_rec(sp17["fd_fold_dist"], ranks=4, shape="decode")
+    ag_main = main_rec(sp17["pool_ag_start_local"], ranks=4, mesh="4")
+    tr_main = sp17["paged_transport"][0]
+    return [{
+        "name": "fd_fold_dist", "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/flash_decode_dist.cu",
+        "replaces": "triton_dist_tpu/ops/flash_decode.py:1023",
+        "launches": sum(r["launches"]["fd_fold_dist"]
+                        for r in moe["long"]["sp"]),
+        "max_abs_err": max(r["max_abs_err"] for r in sp17["fd_fold_dist"]),
+        **{k: fd_main.get(k) for k in keys},
+        "library_none_because": fd_main["library_none_because"],
+        "cases": sp17["fd_fold_dist"]}, {
+        "name": "pool_ag_start_local", "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/pool_ag.cu",
+        "replaces": "triton_dist_tpu/ops/flash_decode.py:597",
+        "launches": moe["ep"]["engines"]["launches"]["pool_ag_start_local"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in sp17["pool_ag_start_local"]),
+        **{k: ag_main.get(k) for k in keys},
+        "library": ag_main["library"],
+        "cases": sp17["pool_ag_start_local"]}, {
+        "name": "paged_transport", "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/page_migrate.cu",
+        "replaces": "triton_dist_tpu/ops/page_migrate.py:238",
+        "launches": disagg["runs"][0]["launches"]["paged_transport"],
+        "max_abs_err": tr_main["max_abs_err"],
+        **{k: tr_main.get(k) for k in keys},
+        "library": tr_main["library"],
+        "cases": sp17["paged_transport"]}]
+
+
 def main() -> int:
     try:
         import torch
@@ -5080,14 +5868,16 @@ def main() -> int:
     log(f"params {cfg.n_layers} layers x d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B, made in {time.perf_counter() - t0:.1f} s")
     check_model(params, cfg, device)
-    engine = check_engine(params, cfg, device, make_trace(cfg, N_REQUESTS, 0),
-                          ENGINE, card)
+    trace = make_trace(cfg, N_REQUESTS, 0)
+    engine = check_engine(params, cfg, device, trace, ENGINE, card)
 
     profile_dispatch(params, cfg, device)
     generation = check_generation(params, cfg, device, card)
     tp = check_tp_overlap(params, cfg, device, card)
     sp = check_sp_and_collectives(params, cfg, device, card)
     tp_ranks = check_tp_ranks(params, cfg, device, card)
+    disagg = check_disagg(params, cfg, device, card, trace,
+                          engine.pop("tokens"))
     del params                        # the trainer needs the card's memory
     torch.cuda.empty_cache()
 
@@ -5103,6 +5893,7 @@ def main() -> int:
         LlamaConfig.llama3_8b(), n_layers=TRAIN["layers"]), card)
     torch.cuda.empty_cache()           # the MoE model needs 47 GB of it
     moe = check_moe(device, card)
+    sp17 = check_sp_kernels(device, card)
     moe_cases = moe["grouped"] + moe["ep_rows"]
     gg_main = {r["kernel"]: r for r in moe_cases
                if r["dtype"] == "bfloat16" and r["shape"] == "decode"}
@@ -5208,7 +5999,7 @@ def main() -> int:
             ("slot_reduce", "triton_dist_tpu/ops/gemm_reduce_scatter.py:88",
              tp["layers"]["slot_reduce"], [tp["layers"]["slot_reduce"]]))]
         + slice6 + slice7 + tp_ranks_kernels(tp_ranks)
-        + ep_kernels(moe["ep"])}))
+        + ep_kernels(moe["ep"]) + sp_modes_kernels(sp17, moe, disagg)}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -151,26 +151,21 @@ def _raising_calls():
     ported slices, on a 2- or 4-rank context (the TP overlap ops over tuple
     axes and inside a multi-axis mesh)."""
     from triton_dist_tpu_torch.models import llama as tl
-    from triton_dist_tpu_torch.models.moe import MoEConfig, init_moe_params
     from triton_dist_tpu_torch.ops import allgather_gemm as tagg
     from triton_dist_tpu_torch.ops import flash_decode as tfd
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as tgrs
     from triton_dist_tpu_torch.ops import moe as tmoe
     from triton_dist_tpu_torch.parallel.train import (ParallelPlan,
                                                       make_train_step)
-    from triton_dist_tpu_torch.serving.sharded import (ShardedServingEngine,
-                                                       serving_mesh)
 
     ctx = initialize_distributed(("x",), (N,), device="cpu")
     ctx2d = initialize_distributed(("a", "b"), (2, 2), device="cpu")
     a, b = torch.zeros(8, 8), torch.zeros(8, 8)
     tp6 = 'item 6 "TP overlap across ranks"'
     moe7 = 'item 7 "MoE / EP across ranks"'
-    sp8 = 'item 8 "SP decode and sharded serving across ranks"'
     coll5 = 'item 5 "collectives"'
     cfg = dataclasses.replace(tl.LlamaConfig.tiny(n_layers=1),
                               dtype=torch.float32)
-    mcfg = MoEConfig.tiny(n_layers=1, num_experts=4)
     ids = torch.zeros(8, dtype=torch.int32)
     q = torch.zeros(2, 4, 32)
     return [
@@ -191,16 +186,15 @@ def _raising_calls():
             ctx, a, ids, torch.zeros(4, 8, 8)), moe7),
         ("moe_reduce_rs", lambda: tmoe.moe_reduce_rs(
             ctx, a, ids, torch.ones(4, 2), torch.zeros(4, 8, 8)), moe7),
-        ("flash_decode_dist", lambda: tfd.flash_decode_dist(
-            ctx, q, None, None, None, None, None, None, None, axis="x"), sp8),
+        ("ag_moe_group_gemm over two axes", lambda: tmoe.ag_moe_group_gemm(
+            ctx2d, a, ids, torch.zeros(4, 8, 8), axis=("a", "b")), moe7),
         ("train plan", lambda: make_train_step(cfg, ParallelPlan(cp="cp"),
                                                device="cpu",
                                                mesh={"cp": 2}),
          'item 9 "training and CP across ranks"'),
-        ("sharded engine, overlap ep+sp", lambda: ShardedServingEngine(
-            init_moe_params(mcfg, seed=0, device="cpu"), mcfg,
-            ctx=serving_mesh(sp=2), prefill_chunk=16, overlap="ep+sp",
-            device="cpu"), sp8),
+        ("moe_reduce_rs over two axes", lambda: tmoe.moe_reduce_rs(
+            ctx2d, a, ids, torch.ones(4, 2), torch.zeros(4, 8, 8),
+            axis=("a", "b")), moe7),
         ("all_gather ring_2d", lambda: tag.all_gather(ctx, a,
                                                       method="ring_2d"),
          coll5),

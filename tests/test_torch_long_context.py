@@ -187,11 +187,6 @@ def test_flash_decode_dist_one_rank_matches_jax(one_device_mesh, parked):
         torch.float32))
 
 
-def test_flash_decode_dist_more_ranks_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tfd.flash_decode_dist(serving_mesh(1, 2, 1), *([None] * 8))
-
-
 @pytest.mark.parametrize("sp", [1, 2, 4])
 @pytest.mark.parametrize("layout", ["blocked", "interleaved"])
 def test_device_layout_matches_jax(sp, layout):

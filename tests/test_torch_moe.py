@@ -268,17 +268,19 @@ def test_ffn_hook_needs_prefill_chunk(micro):
     ({"ctx": serving_mesh(ep=2)}, {"mesh_desc": "1x1x2"}),
     ({"wire_dtype": "auto"}, {"mesh_desc": "1x1x1"}),
     ({"wire_dtype": torch.float8_e4m3fn}, {"wire_dtype": "float8_e4m3fn"}),
-    ({"overlap": "ep+sp"}, None),
-    ({"long_context": True, "ctx": serving_mesh(sp=2)}, None),
+    ({"overlap": "ep+sp"}, {"overlap": "ep+sp", "overlap_microbatches": 2}),
+    ({"long_context": True, "ctx": serving_mesh(sp=2)},
+     {"mesh_desc": "1x2x1", "long_context": True}),
     ({"speculate": 4}, None),
     ({"tp_impl": "ag_gemm"}, {"mesh_desc": "1x1x1"})],
     ids=["tp2", "sp2", "ep2", "wire-auto", "wire-fp8", "overlap",
          "long-context", "speculate", "tp-ag-gemm"])
 def test_multi_rank_options_raise(micro, kw, built):
-    """The options across ranks: the meshes, the wires and ``tp_impl``
-    build the engine now (``test_torch_sharded_ranks.py`` serves them);
-    ``overlap="ep+sp"`` (B6), ``long_context`` at sp > 1 (B8) and
-    ``speculate`` still raise, naming their ROADMAP item."""
+    """The options across ranks: the meshes, the wires, ``tp_impl``,
+    ``overlap="ep+sp"`` (B6) and ``long_context`` at sp > 1 (B8) build the
+    engine now (``test_torch_sharded_ranks.py`` and
+    ``test_torch_sp_modes.py`` serve them); ``speculate`` still raises,
+    naming its ROADMAP item."""
     _, _, tcfg, tparams = micro
     if built is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -111,7 +111,8 @@ def test_tp_column_linear_across_ranks(n, impl):
 @pytest.mark.parametrize("n", [2, 4])
 def test_sp_paged_attend_write_across_ranks(n):
     """The pool sharded over n SP ranks: the same pools and bitwise the
-    same attention as one rank, close to JAX's at n ranks."""
+    same attention as one rank (with B9's gather or B6's), close to JAX's
+    at n ranks."""
     B, Hq, Hkv, D, ps, pages = 3, 4, 2, 32, 8, 8
     rs = np.random.RandomState(11)
     q = rs.randn(B, Hq, D).astype(np.float32)
@@ -142,10 +143,12 @@ def test_sp_paged_attend_write_across_ranks(n):
     np.testing.assert_allclose(outs[n][0].numpy(), np.asarray(jo),
                                atol=1e-5, rtol=0)
     np.testing.assert_array_equal(outs[n][1].numpy(), np.asarray(jk))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tfd.sp_paged_attend_write(ctx, _t(q), _t(kn), _t(vn), _t(kp),
-                                  _t(vp), _t(bt), _t(pos), _t(kv),
-                                  overlap=True)
+    # the start-local gather (B6) gives the same pools and attention
+    tk, tv = _t(kp), _t(vp)
+    over = tfd.sp_paged_attend_write(ctx, _t(q), _t(kn), _t(vn), tk, tv,
+                                     _t(bt), _t(pos), _t(kv), axis="sp",
+                                     active=_t(active), overlap=True)
+    assert all(torch.equal(a, b) for a, b in zip(over, outs[n]))
 
 
 @pytest.fixture(scope="module")
@@ -283,11 +286,9 @@ def test_pool_is_padded_and_the_padding_never_handed_out(micro):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"overlap": "ep+sp"}, "item 8"),
-    ({"long_context": True, "ctx": serving_mesh(sp=2)}, "item 8"),
     ({"speculate": 4}, "item 10"),
     ({"journal": object()}, "item 10")],
-    ids=["overlap-ep+sp", "long-context-sp2", "speculate", "journal"])
+    ids=["speculate", "journal"])
 def test_modes_outside_the_slice_raise(micro, kw, item):
     _, _, tcfg, tparams = micro
     with pytest.raises(NotImplementedError, match=item):

@@ -26,7 +26,7 @@ _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "_build"
 SOURCES = ("flash_decode_paged", "flash_decode", "ring_attention", "group_gemm",
            "all_to_all", "allgather", "gemm", "flash_decode_dist", "shmem",
-           "reduce_scatter", "tp_overlap")
+           "reduce_scatter", "tp_overlap", "pool_ag", "page_migrate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

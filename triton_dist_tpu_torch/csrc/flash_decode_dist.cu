@@ -2,9 +2,10 @@
 // for Hopper (sm_90a).
 //
 // Replaces the TPU kernel triton_dist_tpu/ops/flash_decode.py::_fd_page_partials
-// (the pallas_call at :810 over _fd_partial_kernel :746), and runs the n = 1
+// (the pallas_call at :810 over _fd_partial_kernel :746), runs the n = 1
 // route of flash_decode_dist (:970-976), which folds those partials with the
-// XLA scan _fd_fold (:840-862).
+// XLA scan _fd_fold (:840-862), and replaces B8, flash_decode_dist's fold
+// across ranks (the pallas_call at :1023 over _fd_fold_kernel :865).
 //
 //   fd_page_partials_kernel  one independent softmax partial per (row, page,
 //                            kv head): out [B, S, Hq, D] f32 and lse [B, S, Hq]
@@ -24,6 +25,23 @@
 //                            device memory. It stops after the last live page:
 //                            the pages past it are neutral entries, exact
 //                            no-ops of the fold.
+//   fd_fold_dist_kernel      B8, the fold across n SP ranks: one cooperative
+//                            launch over every rank of the mesh. Each rank's
+//                            slab (B7 over its slice of the pool) is announced
+//                            to the members of its group with one counted
+//                            signal; after n - 1 announcements every rank
+//                            folds every member's slab in the one fold order,
+//                            page-major and rank-minor, reading each peer's
+//                            slab in place through the PeerTable (the one-card
+//                            form of the JAX kernel's put), and an exit barrier
+//                            keeps a slab alive until every reader is done. At
+//                            each page one rank's entry is real; an empty entry
+//                            (lse <= FD_EMPTY) leaves the carry untouched and
+//                            its out is never read. The fold's arithmetic is
+//                            the fused kernel's, operation for operation (expf,
+//                            __fmul_rn, __fadd_rn, __fdiv_rn), and a real
+//                            entry's out is B7's pv / l, so the result is the
+//                            fused n = 1 kernel's bit for bit at every n.
 //
 // A partial: scores = q . k in f32 times sm_scale, keys at or past kv_len
 // masked to NEG_INF; m = max, p = exp(scores - m), l = sum p; p is cast to v's
@@ -50,10 +68,20 @@
 // cores, are later work; neither changes a row's bits. Instantiated for
 // head dim 128 and page size 16 with 1, 2, 4 or 8 query heads per kv head
 // (the Llama and Mixtral presets).
+//
+// B8 is bound by the slabs' bytes: each rank reads every member's live
+// entries (n x the live partials of its rows, 4 (D + 1) bytes each) and
+// writes its [B, Hq, D] result. Its walk is a chain of dependent steps per
+// (row, head), so its design hides the latency: each warp loads 32 steps'
+// lse at once (one a lane), finds the real entries by a ballot, loads up to
+// four of their D-wide outs together, then folds them in order; a block
+// folds four (row, head) pairs at once, a thread one element of D.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "shmem.cuh"
 
 namespace {
 
@@ -270,7 +298,7 @@ __global__ void __launch_bounds__(kThreads)
                             const T* __restrict__ v_pages, const int* __restrict__ block_table,
                             const int* __restrict__ kv_len, float* __restrict__ out,
                             float* __restrict__ lse, int Hkv, int p_local, int n_cols,
-                            int rank, float sm_scale) {
+                            int rank, float sm_scale, int neutral_out) {
   const int h = blockIdx.x;
   const int s = blockIdx.y;
   const int b = blockIdx.z;
@@ -285,7 +313,8 @@ __global__ void __launch_bounds__(kThreads)
   float* o = out + (row * Hq + (size_t)h * S::G) * S::D;
   float* ls = lse + row * Hq + (size_t)h * S::G;
   if (!live) {  // the neutral entry, by a select: no K/V is read
-    for (int i = tid; i < S::G * S::D; i += kThreads) o[i] = 0.f;
+    if (neutral_out)  // B8 reads no out of an entry whose lse is empty
+      for (int i = tid; i < S::G * S::D; i += kThreads) o[i] = 0.f;
     if (tid < S::G) ls[tid] = kNegInf;
     return;
   }
@@ -393,6 +422,105 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// B8: (row, head) pairs a block folds at once, D = 128 threads each
+constexpr int kFoldD = 128;
+constexpr int kFoldPairs = 4;
+constexpr int kFoldThreads = kFoldD * kFoldPairs;
+constexpr int kFoldAhead = 4;  // real entries whose outs are loaded together
+
+// Grid (lanes, N): every rank of the mesh. outs / lses: each group index's
+// slab, out [rows, S, Hq, D] f32 (read only where lse is real) and lse
+// [rows, S, Hq] f32, the ranks of one group index sharing one buffer; res:
+// each rank's [rows, Hq, D] in T. Pad words: [0, lanes) the entry barrier,
+// [lanes, 2 lanes) the slabs' announcements, [2 lanes, 3 lanes) the exit
+// barrier.
+template <typename T>
+__global__ void __launch_bounds__(kFoldThreads)
+    fd_fold_dist_kernel(tdt_shmem::PeerTable outs, tdt_shmem::PeerTable lses,
+                        tdt_shmem::PeerTable res, const int* __restrict__ kv_len, int rows,
+                        int n_cols, int Hq, int ps, tdt_shmem::PeerTable pads,
+                        tdt_shmem::Group G, tdt_shmem::Launch L) {
+  using namespace tdt_shmem;
+  const int lane = blockIdx.x;
+  const int lanes = gridDim.x;
+  const int me = group_me(G);
+  const int n = group_n(G);
+  if (!barrier_group_block(pads, lane, G, L)) return;
+  // my slab is ready: one counted announcement to every member, then wait
+  // for theirs (consumed, so the pad is zero after the call)
+  __syncthreads();
+  int ok = 1;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    for (int p = 0; p < n; ++p)
+      if (p != me) signal_op(symm_at<int>(pads, group_pe(G, p)) + lanes + lane, 1);
+    ok = signal_wait_until(symm_at<int>(pads, my_pe()) + lanes + lane, n - 1, true, L,
+                           lanes + lane);
+  }
+  if (!__syncthreads_and(ok)) return;
+
+  const float* o_r[kMaxPes];
+  const float* l_r[kMaxPes];
+#pragma unroll
+  for (int r = 0; r < kMaxPes; ++r) {
+    o_r[r] = r < n ? symm_at<const float>(outs, group_pe(G, r)) : nullptr;
+    l_r[r] = r < n ? symm_at<const float>(lses, group_pe(G, r)) : nullptr;
+  }
+  T* mine = symm_at<T>(res, my_pe());
+  const int d = threadIdx.x % kFoldD;
+  const int wl = threadIdx.x % 32;
+  for (int pair = lane * kFoldPairs + threadIdx.x / kFoldD; pair < rows * Hq;
+       pair += lanes * kFoldPairs) {
+    const int b = pair / Hq;
+    const int h = pair - b * Hq;
+    const int len = kv_len[b];
+    int n_live = len > 0 ? (len + ps - 1) / ps : 0;
+    if (n_live > n_cols) n_live = n_cols;
+    const int steps = n_live * n;  // step t: page t / n, rank t % n
+    const size_t row0 = (size_t)b * n_cols;
+    float acc = 0.f, m = kNegInf, den = 0.f;
+    for (int t0 = 0; t0 < steps; t0 += 32) {
+      float lse = kNegInf;
+      if (t0 + wl < steps) {
+        const int s = (t0 + wl) / n;
+        lse = __ldcg(l_r[t0 + wl - s * n] + (row0 + s) * Hq + h);
+      }
+      unsigned real = __ballot_sync(0xffffffffu, lse > kFdEmpty);
+      while (real) {
+        int k[kFoldAhead];
+        float xl[kFoldAhead], xo[kFoldAhead];
+#pragma unroll
+        for (int i = 0; i < kFoldAhead; ++i) {
+          k[i] = real ? __ffs(real) - 1 : -1;
+          real &= real ? real - 1 : 0u;
+          xl[i] = __shfl_sync(0xffffffffu, lse, k[i] < 0 ? 0 : k[i]);
+          xo[i] = 0.f;
+          if (k[i] >= 0) {
+            const int t = t0 + k[i];
+            const int s = t / n;
+            xo[i] = __ldcg(o_r[t - s * n] + ((row0 + s) * Hq + h) * kFoldD + d);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kFoldAhead; ++i) {
+          if (k[i] < 0) break;
+          // _fd_fold's step, as the fused kernel takes it
+          const float new_m = fmaxf(m, xl[i]);
+          const float sc = expf(m - new_m);
+          const float w = expf(xl[i] - new_m);
+          acc = __fadd_rn(__fmul_rn(acc, sc), __fmul_rn(xo[i], w));
+          den = __fadd_rn(__fmul_rn(den, sc), w);
+          m = new_m;
+        }
+      }
+    }
+    mine[((size_t)b * Hq + h) * kFoldD + d] =
+        from_float<T>(__fdiv_rn(acc, den > 0.f ? den : 1.f));
+  }
+  // every member has read my slab before the next call may rewrite it
+  barrier_group_block(pads, 2 * lanes + lane, G, L);
+}
+
 // The instantiated shapes: head dim 128, page size 16, G query heads per kv
 // head. Calls fn with the Shape type, or returns false for another shape.
 template <typename T, typename F>
@@ -410,7 +538,8 @@ bool with_shape(int G, int D, int PS, F&& fn) {
 template <typename T>
 int launch_partials(const void* q, const void* kp, const void* vp, const void* bt,
                     const void* kv_len, void* out, void* lse, int B, int Hq, int Hkv, int D,
-                    int ps, int p_local, int n_cols, int rank, float sm_scale, void* stream) {
+                    int ps, int p_local, int n_cols, int rank, float sm_scale, int neutral_out,
+                    void* stream) {
   if (B <= 0 || n_cols <= 0 || n_cols > 65535 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
@@ -419,7 +548,7 @@ int launch_partials(const void* q, const void* kp, const void* vp, const void* b
     fd_page_partials_kernel<S, T><<<dim3(Hkv, n_cols, B), kThreads, 0, (cudaStream_t)stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
         static_cast<const int*>(bt), static_cast<const int*>(kv_len), static_cast<float*>(out),
-        static_cast<float*>(lse), Hkv, p_local, n_cols, rank, sm_scale);
+        static_cast<float*>(lse), Hkv, p_local, n_cols, rank, sm_scale, neutral_out);
     err = cudaGetLastError();
   });
   return ok ? (int)err : (int)cudaErrorInvalidValue;
@@ -443,6 +572,26 @@ int launch_fold(const void* q, const void* kp, const void* vp, const void* bt,
   return ok ? (int)err : (int)cudaErrorInvalidValue;
 }
 
+template <typename T>
+int launch_fold_dist(const void* const* outs, const void* const* lses, const void* const* res,
+                     const void* kv_len, int rows, int n_cols, int Hq, int D, int ps, int lanes,
+                     const void* const* pads, int n, const void* group, void* claim,
+                     void* report, unsigned long long budget_ns, void* stream) {
+  using namespace tdt_shmem;
+  if (n < 2 || n > kMaxPes || rows < 1 || n_cols < 1 || Hq < 1 || D != kFoldD || ps < 1 ||
+      lanes < 1 || group == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Group G = *static_cast<const Group*>(group);
+  if (G.n < 2 || G.n > n) return (int)cudaErrorInvalidValue;
+  lanes = resident_lanes(fd_fold_dist_kernel<T>, kFoldThreads, lanes, n);
+  if (lanes < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  return launch_cooperative(fd_fold_dist_kernel<T>, dim3(lanes, n), dim3(kFoldThreads), 0,
+                            stream, make_table(outs, n), make_table(lses, n),
+                            make_table(res, n), static_cast<const int*>(kv_len), rows, n_cols,
+                            Hq, ps, make_table(pads, n), G,
+                            make_launch(claim, report, budget_ns, kFdFoldDist));
+}
+
 }  // namespace
 
 extern "C" {
@@ -452,17 +601,17 @@ extern "C" {
 int tdt_fd_page_partials_f32(const void* q, const void* kp, const void* vp, const void* bt,
                              const void* kv_len, void* out, void* lse, int B, int Hq, int Hkv,
                              int D, int ps, int p_local, int S, int rank, float sm_scale,
-                             void* stream) {
+                             int neutral_out, void* stream) {
   return launch_partials<float>(q, kp, vp, bt, kv_len, out, lse, B, Hq, Hkv, D, ps, p_local,
-                                S, rank, sm_scale, stream);
+                                S, rank, sm_scale, neutral_out, stream);
 }
 
 int tdt_fd_page_partials_bf16(const void* q, const void* kp, const void* vp, const void* bt,
                               const void* kv_len, void* out, void* lse, int B, int Hq, int Hkv,
                               int D, int ps, int p_local, int S, int rank, float sm_scale,
-                              void* stream) {
+                              int neutral_out, void* stream) {
   return launch_partials<bf16>(q, kp, vp, bt, kv_len, out, lse, B, Hq, Hkv, D, ps, p_local, S,
-                               rank, sm_scale, stream);
+                               rank, sm_scale, neutral_out, stream);
 }
 
 // The same inputs over the whole pool of P pages -> out [B, Hq, D] in q's
@@ -479,6 +628,29 @@ int tdt_fd_partials_fold_bf16(const void* q, const void* kp, const void* vp, con
                               int ps, int P, int S, float sm_scale, void* stream) {
   return launch_fold<bf16>(q, kp, vp, bt, kv_len, out, B, Hq, Hkv, D, ps, P, S, sm_scale,
                            stream);
+}
+
+// B8 across n ranks. outs / lses: n pointers, each rank's group's slab (out
+// [rows, S, Hq, D] f32, lse [rows, S, Hq] f32); res: n pointers to each
+// rank's [rows, Hq, D] result; kv_len [rows]; pads: n pointers to pads of
+// >= 3 * lanes zero words; group: the fold's groups (size >= 2). `lanes`
+// is cut to what the card keeps resident at once.
+int tdt_fd_fold_dist_f32(const void* const* outs, const void* const* lses,
+                         const void* const* res, const void* kv_len, int rows, int S, int Hq,
+                         int D, int ps, int lanes, const void* const* pads, int n,
+                         const void* group, void* claim, void* report,
+                         unsigned long long budget_ns, void* stream) {
+  return launch_fold_dist<float>(outs, lses, res, kv_len, rows, S, Hq, D, ps, lanes, pads, n,
+                                 group, claim, report, budget_ns, stream);
+}
+
+int tdt_fd_fold_dist_bf16(const void* const* outs, const void* const* lses,
+                          const void* const* res, const void* kv_len, int rows, int S, int Hq,
+                          int D, int ps, int lanes, const void* const* pads, int n,
+                          const void* group, void* claim, void* report,
+                          unsigned long long budget_ns, void* stream) {
+  return launch_fold_dist<bf16>(outs, lses, res, kv_len, rows, S, Hq, D, ps, lanes, pads, n,
+                                group, claim, report, budget_ns, stream);
 }
 
 const char* tdt_cuda_error_string(int code) {

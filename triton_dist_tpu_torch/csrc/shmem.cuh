@@ -65,6 +65,9 @@ enum Kernel : int {
   kGemmRs = 8,
   kA2aPush = 9,
   kA2aSeg = 10,
+  kFdFoldDist = 11,
+  kPoolAg = 12,
+  kPagedTransport = 13,
 };
 
 // The n base pointers of one symmetric buffer, rank r's at ptr[r].

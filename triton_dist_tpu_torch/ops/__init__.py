@@ -13,7 +13,12 @@ from triton_dist_tpu_torch.ops.flash_decode import (
     fd_partials_fold, fd_partials_fold_plain, flash_decode_dist,
     gqa_decode_paged, gqa_decode_paged_plain, gqa_decode_partial,
     gqa_decode_partial_plain, ll_ag_merge, ll_ag_merge_plain, ll_merge,
-    ll_merge_plain, paged_kv_write, sp_gqa_flash_decode)
+    ll_merge_plain, paged_kv_write, pool_ag_start_local,
+    pool_ag_start_local_plain, sp_gqa_flash_decode)
+from triton_dist_tpu_torch.ops.lend_pages import lend_pages
+from triton_dist_tpu_torch.ops.page_migrate import (migrate_pages,
+                                                    paged_transport,
+                                                    paged_transport_plain)
 from triton_dist_tpu_torch.ops.gemm import (GemmConfig, matmul, matmul_plain,
                                             slot_reduce, slot_reduce_plain)
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import (
@@ -46,7 +51,10 @@ __all__ = ["AgGemmContext", "FD_EMPTY", "GemmConfig", "GemmRsContext",
            "fd_partials_fold_plain", "flash_decode_dist",
            "gqa_decode_paged", "gqa_decode_paged_plain",
            "gqa_decode_partial", "gqa_decode_partial_plain",
-           "ll_ag_merge", "ll_ag_merge_plain", "ll_merge", "ll_merge_plain",
+           "lend_pages", "ll_ag_merge", "ll_ag_merge_plain", "ll_merge",
+           "ll_merge_plain", "migrate_pages", "paged_transport",
+           "paged_transport_plain", "pool_ag_start_local",
+           "pool_ag_start_local_plain",
            "grouped_gemm",
            "grouped_gemm_gated", "grouped_gemm_gated_plain",
            "grouped_gemm_plain", "moe_ffn_local", "moe_reduce_rs",

@@ -21,19 +21,24 @@ wrappers, each with its plain PyTorch version beside it:
   independent softmax partial per block-table page, and ``fd_partials_fold``,
   the n = 1 route of ``flash_decode_dist``: the same per-page partials folded
   in page order (``_fd_fold``) inside the kernel, with no slab in device
-  memory. ``csrc/flash_decode_dist.cu``.
+  memory; ``fd_fold_dist`` (``_fd_fold_kernel``, B8), the fold of n SP
+  ranks' slabs across ranks. ``csrc/flash_decode_dist.cu``;
+- ``pool_ag_start_local`` (``_pool_ag_kernel``, B6): the start-local,
+  signal-gated gather of the K and V page pools across the SP ranks,
+  ``csrc/pool_ag.cu``.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises, and adds one to its ``launches`` count at
-each launch. ``ll_ag_merge`` and ``sp_gqa_flash_decode`` run at any rank
-count of the mesh (every rank on one card, see ``shmem/context.py``);
-``flash_decode_dist`` runs at one rank, where the page fold has one rank's
-slab to fold: its slab exchange across ranks (B8) waits for ROADMAP.md
-Queue A, item 8 "SP decode and sharded serving across ranks".
+each launch. ``ll_ag_merge``, ``sp_gqa_flash_decode``, ``flash_decode_dist``
+and ``pool_ag_start_local`` run at any rank count of the mesh (every rank
+on one card, see ``shmem/context.py``); the last two also over an axis
+inside a multi-axis mesh, in groups (``shmem.device.group_plan``).
+``flash_decode_dist`` at n > 1 runs B7 over each rank's slice of the pool,
+then B8, in blocks of rows that bound the slabs' memory.
 ``sp_paged_attend_write`` is the sharded serving engine's SP attention:
 the pool sharded on its page dim, gathered in page order through B9
-(``all_gather``) and walked by B1 at any SP size; its start-local form
-(B6, ``overlap=True``) waits for item 8.
+(``all_gather``), or with ``overlap=True`` through B6, and walked by B1 at
+any SP size.
 
 The TPU kernels return lse lane-broadcast as ``[B, Hq, 128]``, a tiling
 artifact of the TPU (every DMA slice stays 128 lanes wide), and the SP wire
@@ -50,7 +55,7 @@ import math
 import torch
 
 from triton_dist_tpu_torch import csrc
-from triton_dist_tpu_torch.ops.allgather import all_gather
+from triton_dist_tpu_torch.ops.allgather import all_gather, lanes_for
 from triton_dist_tpu_torch.ops.common import family_pad, spans_every_rank
 from triton_dist_tpu_torch.shmem import device as shd
 
@@ -200,9 +205,6 @@ def paged_kv_write(k_pages, v_pages, k_new, v_new, block_table, pos,
     return k_pages, v_pages
 
 
-SP_ITEM = 'ROADMAP.md Queue A, item 8 "SP decode and sharded serving across ranks"'
-
-
 def sp_paged_attend_write(ctx, q, k_new, v_new, k_pages, v_pages,
                           block_table, pos, kv_len, axis: str = "sp",
                           active=None, overlap: bool = False):
@@ -224,25 +226,99 @@ def sp_paged_attend_write(ctx, q, k_new, v_new, k_pages, v_pages,
     rank it is that write and walk. Returns (attn [B, Hq, D], k_pages,
     v_pages), the pools updated in place.
 
-    ``overlap=True`` (the start-local gather, B6) raises
-    ``NotImplementedError``."""
-    if overlap:
-        raise NotImplementedError(
-            "sp_paged_attend_write(overlap=True): the start-local pool "
-            f"gather (B6, pool_ag_start_local) is not ported yet: {SP_ITEM}")
+    ``overlap=True`` gathers the pools with the start-local kernel
+    (``pool_ag_start_local``, B6) instead of B9: each rank's own slice lands
+    with no gate, the remote slices behind counted signals. The gathered
+    pools are the same page-order concatenation, so the attention is
+    bitwise ``overlap=False``'s."""
     n = ctx.axis_size(axis)
     paged_kv_write(k_pages, v_pages, k_new, v_new, block_table, pos,
                    active=active)
     if n == 1:
         return gqa_decode_paged(q, k_pages, v_pages, block_table,
                                 kv_len)[0], k_pages, v_pages
+    _check_pool_split(k_pages, n, axis)
+    if overlap:
+        kf, vf = pool_ag_start_local(ctx, k_pages, v_pages, axis=axis)
+    else:
+        kf = all_gather(ctx, k_pages, axis=axis)
+        vf = all_gather(ctx, v_pages, axis=axis)
+    out = gqa_decode_paged(q, kf[0], vf[0], block_table, kv_len)[0]
+    return out, k_pages, v_pages
+
+
+def _check_pool_split(k_pages, n: int, axis) -> None:
     if k_pages.shape[0] % n:
         raise ValueError(f"pool pages {k_pages.shape[0]} do not split over "
                          f"|{axis}| = {n}: pad the pool (shard_pool_arrays)")
-    kf = all_gather(ctx, k_pages, axis=axis)
-    vf = all_gather(ctx, v_pages, axis=axis)
-    out = gqa_decode_paged(q, kf[0], vf[0], block_table, kv_len)[0]
-    return out, k_pages, v_pages
+
+
+_POOL_AG_SIG = [_P, _P, _P, _P, ctypes.c_longlong, _I, _P, _I, _P] \
+    + shd.LAUNCH_SIG              # kin vin kout vout nbytes lanes pads n group
+
+
+def pool_ag_start_local_plain(k_pages, v_pages, ranks: int = 1):
+    """The plain version of ``pool_ag_start_local``: every rank's replica
+    of the full pools, ``[ranks, P, ...]`` each (the pools themselves at
+    one rank)."""
+    if ranks == 1:
+        return k_pages, v_pages
+    rep = (ranks,) + tuple(k_pages.shape)
+    return (k_pages.unsqueeze(0).expand(rep).clone(),
+            v_pages.unsqueeze(0).expand(rep).clone())
+
+
+def pool_ag_start_local(ctx, k_pages, v_pages, axis: str = "sp"):
+    """The start-local gather of the K and V page pools over ``axis`` (TPU
+    kernel B6, ``_pool_ag_kernel``). ``k_pages`` / ``v_pages`` [P, Hkv,
+    page_size, D] are the global views of pools sharded on the page dim
+    (index r of a group holds pages ``[r * P / n, (r + 1) * P / n)``) and
+    replicated over the mesh's other axes. At one rank along ``axis`` it
+    returns the pools and launches nothing. At n it returns every rank of
+    the mesh's replicas of the full pools, ``([N, P, ...], [N, P, ...])``,
+    each the page-order concatenation of its group's slices bit for bit
+    (B9's gather's bits).
+
+    A CUDA tensor launches ``csrc/pool_ag.cu`` once for both pools (one
+    cooperative launch over every rank; each rank's own slice first, with
+    no gate, then its puts and one counted signal per peer), adding one to
+    ``pool_ag_start_local.launches``; a CPU tensor runs the plain
+    version."""
+    n, group, _, _ = shd.group_plan(ctx, axis)
+    if n == 1:
+        return k_pages, v_pages
+    if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"pool_ag_start_local: the pools differ: "
+                         f"{tuple(k_pages.shape)} {k_pages.dtype} against "
+                         f"{tuple(v_pages.shape)} {v_pages.dtype}")
+    _check_pool_split(k_pages, n, axis)
+    N = ctx.num_ranks
+    if k_pages.device.type == "cpu":
+        return pool_ag_start_local_plain(k_pages, v_pages, N)
+    shd.cuda_checks("pool_ag_start_local", k_pages, v_pages)
+    nbytes = k_pages.numel() // n * k_pages.element_size()
+    if nbytes % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("pool_ag_start_local: a slice must be a 16-byte "
+                         "multiple on a 16-byte boundary")
+    kf = torch.empty((N,) + tuple(k_pages.shape), dtype=k_pages.dtype,
+                     device=k_pages.device)
+    vf = torch.empty_like(kf)
+    lanes = lanes_for(nbytes)
+    pad = family_pad(ctx, "pool_ag", axis, 2 * lanes)
+    kin = shd.group_table(ctx, k_pages.view(n, -1), axis)
+    vin = shd.group_table(ctx, v_pages.view(n, -1), axis)
+    kout, vout, pads = shd.tables(ctx, kf, vf, pad)
+    lib = csrc.load("pool_ag", {"tdt_pool_ag": _POOL_AG_SIG})
+    args = shd.launch_args(ctx)
+    with csrc.current_on(kf.device):
+        rc = lib.tdt_pool_ag(kin, vin, kout, vout, nbytes, lanes, pads, N,
+                             ctypes.byref(group), *args)
+    csrc.check(lib, rc, "pool_ag_start_local")
+    pool_ag_start_local.launches += 1
+    return kf, vf
+
+
+pool_ag_start_local.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -727,7 +803,12 @@ FD_EMPTY = NEG_INF / 2
 
 _FDD_PARTIAL_SIG = [_P, _P, _P, _P, _P, _P, _P,      # q k v bt kv_len out lse
                     _I, _I, _I, _I, _I, _I,          # B Hq Hkv D ps p_local
-                    _I, _I, ctypes.c_float, _P]      # S rank sm_scale stream
+                    _I, _I, ctypes.c_float, _I, _P]  # S rank sm_scale
+                                                     # neutral_out stream
+# outs lses res kv_len rows S Hq D ps lanes pads n group, then the shmem
+# layer's launch arguments
+_FDD_DIST_SIG = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P] \
+    + shd.LAUNCH_SIG
 _FDD_FOLD_SIG = [_P, _P, _P, _P, _P, _P,             # q k v bt kv_len out
                  _I, _I, _I, _I, _I, _I, _I,         # B Hq Hkv D ps P S
                  ctypes.c_float, _P]                 # sm_scale stream
@@ -735,16 +816,25 @@ _FDD_PARTIAL_ENTRIES = {torch.float32: "tdt_fd_page_partials_f32",
                         torch.bfloat16: "tdt_fd_page_partials_bf16"}
 _FDD_FOLD_ENTRIES = {torch.float32: "tdt_fd_partials_fold_f32",
                      torch.bfloat16: "tdt_fd_partials_fold_bf16"}
+_FDD_DIST_ENTRIES = {torch.float32: "tdt_fd_fold_dist_f32",
+                     torch.bfloat16: "tdt_fd_fold_dist_bf16"}
+# (row, head) pairs one block of B8 folds at once (csrc kFoldPairs)
+_FOLD_PAIRS = 4
+# the most bytes of slabs (every rank's partials and lses) one block of
+# rows of flash_decode_dist holds at n > 1
+FD_SLAB_BYTES = 4 << 30
 # block-table columns per step of the plain partials (bounds its memory)
 _PLAIN_PAGES = 64
-# query heads per kv head the kernels are instantiated for (head dim 128,
-# page size 16: the Llama and Mixtral presets)
+# query heads per kv head and the page size the kernels are instantiated
+# for (with head dim 128: the Llama and Mixtral presets)
 _FDD_GROUPS = (1, 2, 4, 8)
+_FDD_PAGE = 16
 
 
 def _fdd_lib():
     sigs = {**{n: _FDD_PARTIAL_SIG for n in _FDD_PARTIAL_ENTRIES.values()},
-            **{n: _FDD_FOLD_SIG for n in _FDD_FOLD_ENTRIES.values()}}
+            **{n: _FDD_FOLD_SIG for n in _FDD_FOLD_ENTRIES.values()},
+            **{n: _FDD_DIST_SIG for n in _FDD_DIST_ENTRIES.values()}}
     return csrc.load("flash_decode_dist", sigs)
 
 
@@ -807,7 +897,7 @@ def _fdd_checks(name: str, q, k_pages, v_pages, block_table, kv_len):
     if block_table.dtype != torch.int32 or kv_len.dtype != torch.int32:
         raise TypeError(f"{name}: block_table and kv_len must be int32")
     if (Dk != D or v_pages.shape != k_pages.shape or Hq % Hkv
-            or Hq // Hkv not in _FDD_GROUPS or D != 128 or ps != 16
+            or Hq // Hkv not in _FDD_GROUPS or D != 128 or ps != _FDD_PAGE
             or block_table.dim() != 2 or block_table.shape[0] != B
             or kv_len.shape != (B,) or B < 1 or block_table.shape[1] < 1
             or B > 65535):
@@ -851,20 +941,31 @@ def fd_page_partials(q, k_pages, v_pages, block_table, kv_len, rank: int = 0,
     if S > 65535:
         raise ValueError(f"fd_page_partials: {S} block-table columns; the "
                          "kernel takes at most 65535")
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty(B, S, Hq, D, dtype=torch.float32, device=q.device)
     lse = torch.empty(B, S, Hq, dtype=torch.float32, device=q.device)
+    _partials_into(q, k_pages, v_pages, block_table, kv_len, rank, sm_scale,
+                   out, lse, neutral_out=True)
+    return out, lse
+
+
+def _partials_into(q, k_pages, v_pages, block_table, kv_len, rank: int,
+                   sm_scale, out, lse, neutral_out: bool) -> None:
+    """Launch B7 into ``out`` / ``lse`` (checked by the caller). Without
+    ``neutral_out`` a neutral entry writes its lse alone: B8 never reads
+    the out of an empty entry, so its bytes need not be written."""
+    B, Hq, D = q.shape
+    p_local, Hkv, ps, _ = k_pages.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     lib = _fdd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with csrc.current_on(q.device):
         rc = getattr(lib, _FDD_PARTIAL_ENTRIES[q.dtype])(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Hq, Hkv, D, ps, p_local, S, rank, scale,
-            stream)
+            lse.data_ptr(), B, Hq, Hkv, D, ps, p_local,
+            block_table.shape[1], rank, scale, int(neutral_out), stream)
     csrc.check(lib, rc, "fd_page_partials")
     fd_page_partials.launches += 1
-    return out, lse
 
 
 fd_page_partials.launches = 0
@@ -949,39 +1050,165 @@ def fd_partials_fold(q, k_pages, v_pages, block_table, kv_len,
 fd_partials_fold.launches = 0
 
 
-def flash_decode_dist(ctx, q, k_new, v_new, k_pages, v_pages, block_table,
-                      pos, kv_len, axis: str = "sp", active=None):
-    """Distributed flash-decode over a page pool sharded on ``axis``, at one
-    rank: ``paged_kv_write`` of the new (k, v) rows (``active`` parks frozen
-    rows' writes on the scratch page), then ``fd_partials_fold`` over the
-    pool. q [B, Hq, D]; k/v_new [B, Hkv, D]; k/v_pages [P, Hkv, page_size,
-    D]; block_table [B, S] device rows; pos / kv_len [B] int32. Returns
-    ``(attn [B, Hq, D] in q's type, k_pages, v_pages)``, the pools updated
-    in place.
+def fd_fold_dist_plain(outs, lses, out_dtype):
+    """The plain version of ``fd_fold_dist``: the slabs of n ranks, outs
+    [n, B, S, Hq, D] f32 and lses [n, B, S, Hq] f32, stacked in the one
+    fold order (page-major, rank-minor) and folded by ``fd_fold_plain``:
+    [B, Hq, D] in ``out_dtype``."""
+    n, B, S, Hq, D = outs.shape
+    return fd_fold_plain(outs.permute(1, 2, 0, 3, 4).reshape(B, S * n, Hq, D),
+                         lses.permute(1, 2, 0, 3).reshape(B, S * n, Hq),
+                         out_dtype)
 
-    The fold visits pages in block-table order and a page's partial is a
-    pure function of the row and the page, so the result does not depend on
-    the pool's layout. More ranks (each rank's slab put to its peers, then
-    the page-major, rank-minor fold: B8) raise ``NotImplementedError``."""
+
+def fd_fold_dist(ctx, outs, lses, kv_len, out_dtype, axis: str = "sp",
+                 replicas: bool = False):
+    """The fold of n SP ranks' partials slabs across ranks (TPU kernel B8,
+    ``_fd_fold_kernel``). ``outs`` [n, B, S, Hq, D] f32 and ``lses`` [n, B,
+    S, Hq] f32 hold the slab of each index r of a group along ``axis`` (B7
+    over rank r's slice of the pool; the ranks that share an index share
+    its slab); ``kv_len`` [B] int32 bounds each row's live pages. Every
+    rank folds its group's slabs in the one fixed order, page-major and
+    rank-minor, an empty entry (``lse <= FD_EMPTY``) leaving the carry
+    untouched, so the result is the n = 1 fold of the same partials bit for
+    bit. Returns [B, Hq, D] in ``out_dtype`` (rank 0's), or with
+    ``replicas`` every rank of the mesh's, [N, B, Hq, D].
+
+    A CUDA tensor (head dim 128, ``out_dtype`` bf16 or f32) launches
+    ``csrc/flash_decode_dist.cu``'s B8 once over every rank of the mesh:
+    each rank announces its slab with one counted signal, every rank reads
+    its members' slabs in place after n - 1 announcements, and an exit
+    barrier keeps each slab until its readers are done. It reads an entry's
+    out only where its lse is real. Each launch adds one to
+    ``fd_fold_dist.launches``. A CPU tensor runs the plain version."""
+    n, group, _, _ = shd.group_plan(ctx, axis)
+    N = ctx.num_ranks
+    if outs.dim() != 5 or outs.shape[0] != n or lses.shape != outs.shape[:4]:
+        raise ValueError(f"fd_fold_dist: the slabs of {n} ranks are [n, B, "
+                         f"S, Hq, D] and [n, B, S, Hq], got "
+                         f"{tuple(outs.shape)} / {tuple(lses.shape)}")
+    if outs.device.type == "cpu":
+        res = fd_fold_dist_plain(outs, lses, out_dtype)
+        return (res.unsqueeze(0).expand((N,) + tuple(res.shape)).clone()
+                if replicas else res)
+    _, B, S, Hq, D = outs.shape
+    shd.cuda_checks("fd_fold_dist", outs, lses, kv_len)
+    if outs.dtype != torch.float32 or lses.dtype != torch.float32 \
+            or out_dtype not in _FDD_DIST_ENTRIES \
+            or kv_len.dtype != torch.int32:
+        raise TypeError(f"fd_fold_dist: the slabs are f32, kv_len int32 and "
+                        f"the output bf16 or f32, got {outs.dtype}, "
+                        f"{lses.dtype}, {kv_len.dtype} -> {out_dtype}")
+    if n < 2 or D != 128 or kv_len.shape != (B,):
+        raise ValueError(f"fd_fold_dist: the kernel folds 2..8 ranks at head "
+                         f"dim 128, got {n} ranks, D {D}, kv_len "
+                         f"{tuple(kv_len.shape)}")
+    res = torch.empty(N, B, Hq, D, dtype=out_dtype, device=outs.device)
+    lanes = -(-B * Hq // _FOLD_PAIRS)
+    pad = family_pad(ctx, "fd_fold", axis, 3 * lanes)
+    outs_t = shd.group_table(ctx, outs, axis)
+    lses_t = shd.group_table(ctx, lses, axis)
+    res_t, pads = shd.tables(ctx, res, pad)
+    lib = _fdd_lib()
+    args = shd.launch_args(ctx)
+    with csrc.current_on(res.device):
+        rc = getattr(lib, _FDD_DIST_ENTRIES[out_dtype])(
+            outs_t, lses_t, res_t, kv_len.data_ptr(), B, S, Hq, D,
+            _FDD_PAGE, lanes, pads, N, ctypes.byref(group), *args)
+    csrc.check(lib, rc, "fd_fold_dist")
+    fd_fold_dist.launches += 1
+    return res if replicas else res[0]
+
+
+fd_fold_dist.launches = 0
+
+
+def fd_row_block(n: int, S: int, Hq: int, D: int) -> int:
+    """Rows of one block of ``flash_decode_dist`` at n > 1 ranks: the
+    largest power of two whose n slabs (S pages x Hq heads x (D + 1) f32 a
+    row) fit in ``FD_SLAB_BYTES``, at least 1. A row's fold does not depend
+    on the other rows, so the blocks change no bit."""
+    per_row = n * S * Hq * (D + 1) * 4
+    rows = 1
+    while 2 * rows * per_row <= FD_SLAB_BYTES:
+        rows *= 2
+    return rows
+
+
+def flash_decode_dist(ctx, q, k_new, v_new, k_pages, v_pages, block_table,
+                      pos, kv_len, axis: str = "sp", active=None,
+                      replicas: bool = False):
+    """Distributed flash-decode over a page pool sharded on ``axis``:
+    ``paged_kv_write`` of the new (k, v) rows (``active`` parks frozen rows'
+    writes on the scratch page), then the page fold. q [B, Hq, D]; k/v_new
+    [B, Hkv, D]; k/v_pages [P, Hkv, page_size, D], the global view of a pool
+    sharded on its page dim (index r of a group owns pages ``[r * P / n, (r
+    + 1) * P / n)``); block_table [B, S] device rows; pos / kv_len [B]
+    int32. Returns ``(attn [B, Hq, D] in q's type, k_pages, v_pages)``, the
+    pools updated in place; with ``replicas`` attn is every rank of the
+    mesh's, [N, B, Hq, D] (at one rank [1, B, Hq, D]).
+
+    Every rank's masked write together is one scatter of every row (the
+    slices are disjoint rows of the one pool), which is how it runs. At one
+    rank the fold is ``fd_partials_fold``. At n ranks each index r's slab is
+    ``fd_page_partials`` over its slice at ``rank=r`` and ``fd_fold_dist``
+    (B8) folds the n slabs page-major, rank-minor: a page's partial is a
+    pure function of the row and the page and one rank's entry is real at
+    each page, so the result is the n = 1 fold's bit for bit, whatever the
+    pool's layout. The rows go through in blocks of ``fd_row_block`` rows
+    (B7 n times and B8 once a block), which bounds the slabs to
+    ``FD_SLAB_BYTES``. A pool whose pages do not split over the axis
+    raises ``ValueError``."""
     n = ctx.axis_size(axis)
-    if n != 1:
-        raise NotImplementedError(
-            f"flash_decode_dist over {n} ranks is not ported yet: the slab "
-            "exchange and its fold (B8, _fd_fold_kernel) wait for ROADMAP.md "
-            "Queue A, item 8 \"SP decode and sharded serving across ranks\"")
     paged_kv_write(k_pages, v_pages, k_new, v_new, block_table, pos,
                    active=active)
-    attn = fd_partials_fold(q, k_pages, v_pages, block_table, kv_len,
-                            q.dtype)
+    if n == 1:
+        attn = fd_partials_fold(q, k_pages, v_pages, block_table, kv_len,
+                                q.dtype)
+        return (attn[None] if replicas else attn), k_pages, v_pages
+    _check_pool_split(k_pages, n, axis)
+    B, Hq, D = q.shape
+    S = block_table.shape[1]
+    p_local = k_pages.shape[0] // n
+    slices = [(k_pages[r * p_local:(r + 1) * p_local],
+               v_pages[r * p_local:(r + 1) * p_local]) for r in range(n)]
+    if q.device.type == "cpu":
+        parts = [fd_page_partials_plain(q, kp, vp, block_table, kv_len, r)
+                 for r, (kp, vp) in enumerate(slices)]
+        attn = fd_fold_dist(ctx, torch.stack([o for o, _ in parts]),
+                            torch.stack([l for _, l in parts]), kv_len,
+                            q.dtype, axis=axis, replicas=replicas)
+        return attn, k_pages, v_pages
+    _fdd_checks("flash_decode_dist", q, k_pages, v_pages, block_table, kv_len)
+    rb = fd_row_block(n, S, Hq, D)
+    blocks = []
+    for b0 in range(0, B, rb):
+        b1 = min(B, b0 + rb)
+        outs = torch.empty(n, b1 - b0, S, Hq, D, dtype=torch.float32,
+                           device=q.device)
+        lses = torch.empty(n, b1 - b0, S, Hq, dtype=torch.float32,
+                           device=q.device)
+        for r, (kp, vp) in enumerate(slices):
+            _partials_into(q[b0:b1], kp, vp, block_table[b0:b1],
+                           kv_len[b0:b1], r, None, outs[r], lses[r],
+                           neutral_out=False)
+        blocks.append(fd_fold_dist(ctx, outs, lses, kv_len[b0:b1], q.dtype,
+                                   axis=axis, replicas=replicas))
+        del outs, lses
+    attn = blocks[0] if len(blocks) == 1 else torch.cat(
+        blocks, dim=1 if replicas else 0)
     return attn, k_pages, v_pages
 
 
-__all__ = ["AG_METHODS", "FD_EMPTY", "NEG_INF", "SPLIT_KEYS",
-           "decode_combine", "decode_combine_plain", "fd_fold_plain",
+__all__ = ["AG_METHODS", "FD_EMPTY", "FD_SLAB_BYTES", "NEG_INF",
+           "SPLIT_KEYS", "decode_combine", "decode_combine_plain",
+           "fd_fold_dist", "fd_fold_dist_plain", "fd_fold_plain",
            "fd_page_partials", "fd_page_partials_plain", "fd_partials_fold",
-           "fd_partials_fold_plain", "flash_decode_dist", "gqa_decode_paged",
+           "fd_partials_fold_plain", "fd_row_block", "flash_decode_dist",
+           "gqa_decode_paged",
            "gqa_decode_paged_plain", "gqa_decode_partial",
            "gqa_decode_partial_plain", "ll_ag_merge", "ll_ag_merge_plain",
-           "ll_merge", "ll_merge_plain", "paged_kv_write", "SP_ITEM",
+           "ll_merge", "ll_merge_plain", "paged_kv_write",
+           "pool_ag_start_local", "pool_ag_start_local_plain",
            "sp_gqa_flash_decode", "sp_local_lens", "sp_paged_attend_write",
            "split_count"]

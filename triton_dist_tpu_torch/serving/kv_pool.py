@@ -10,9 +10,11 @@ Counterpart of ``triton_dist_tpu/serving/kv_pool.py``:
   deterministic: replaying a trace allocates the same pages. It carries the
   reference's SP device layout (``sp_ranks``, ``layout``, ``device_row``,
   ``page_shard``): the map from ledger ids to rows of the device pool, and
-  its ``digest``. The prefix-cache refcounts, snapshots, and the migration
-  and lending checks of the reference ledger belong to later slices and are
-  not here.
+  its ``digest``, and the disaggregated engine's migration checks
+  (``check_migratable``, ``landed_row``). The prefix-cache refcounts, the
+  copy-on-write path, snapshots and the lending check (``check_lendable``)
+  of the reference ledger belong to a later slice (ROADMAP.md Queue A,
+  item 10) and are not here.
 - **device memory**: ``models.llama.init_page_pool`` tensors. Nothing in the
   ledger looks at their values. ``cache_to_pages`` / ``pages_to_cache``
   move whole pages between the head-major contiguous ``init_kv_cache``
@@ -220,6 +222,55 @@ class KVPagePool:
         for p in sorted(p for pages in self._owned.values() for p in pages):
             h = _fnv1a(h, p, 1)
         return _fnv1a(_fnv1a(h, 0), 0)     # no cached, no cacheable pages
+
+    # -- migration (the disaggregated engine) ------------------------------
+    def check_migratable(self, seq_id, page_ids) -> None:
+        """Migration precondition: every id in ``page_ids`` is owned by
+        ``seq_id``, is not a reserved scratch page (parked rows write to it
+        every dispatch, so it would plant changing garbage in the peer's
+        pool) and is a real page below ``num_pages`` (an SP padding row is
+        never exposed by a block table). Raises ``PageLedgerError``. Each
+        page has one owner here (no prefix-cache sharing), which is the
+        reference's sole-ownership clause."""
+        owned = set(self._owned.get(seq_id, ()))
+        for p in page_ids:
+            if p < self.reserved:
+                raise PageLedgerError(
+                    f"page {p} is a reserved scratch page — scratch pages "
+                    f"are never migrated (seq {seq_id!r})")
+            if p >= self.num_pages:
+                raise PageLedgerError(
+                    f"page {p} is an SP padding/out-of-range id (real pages "
+                    f"end at {self.num_pages}, the device pool pads to "
+                    f"{self.device_pages}) — padding pages are never "
+                    f"migrated (seq {seq_id!r})")
+            if p not in owned:
+                raise PageLedgerError(
+                    f"page {p} is not owned by seq {seq_id!r} — refusing "
+                    "to migrate a foreign page")
+
+    def landed_row(self, seq_id, covered, pages_per_seq: int,
+                   fill: int = 0) -> list[int]:
+        """Block-table row exposing only the landed prefix of ``seq_id``'s
+        pages: page i holds tokens ``[i * page_size, (i + 1) * page_size)``,
+        so it is usable only when it and every page before it are in
+        ``covered`` (the ids whose delivery signals have fired). Entries
+        past the prefix are ``fill``, the scratch page: the decode side
+        never reads a page before its signal."""
+        row: list[int] = []
+        for p in self._owned.get(seq_id, []):
+            if p not in covered:
+                break
+            row.append(p)
+        if len(row) > pages_per_seq:
+            raise PageLedgerError(
+                f"seq {seq_id!r} landed {len(row)} pages > pages_per_seq "
+                f"{pages_per_seq}")
+        return row + [fill] * (pages_per_seq - len(row))
+
+    def holds(self, seq_id) -> bool:
+        """Whether ``seq_id`` owns any page."""
+        return seq_id in self._owned
 
     def block_table_row(self, seq_id, pages_per_seq: int,
                         fill: int = 0) -> list[int]:

@@ -8,9 +8,11 @@ same code at every mesh size:
 - attention (SP): the page pool is sharded on its page dim over ``sp``
   (padded to a multiple of |sp|; the allocator never hands out a padding
   page) and each layer runs ``ops.flash_decode.sp_paged_attend_write``:
-  the masked writes, the page-order pool gather through B9 and the
-  replicated B1 walk. ``long_context=True`` swaps in ``flash_decode_dist``
-  over an interleaved layout (at sp = 1).
+  the masked writes, the page-order pool gather through B9 (through the
+  start-local gather B6 with ``overlap="ep+sp"``) and the replicated B1
+  walk. ``long_context=True`` swaps in ``flash_decode_dist`` over an
+  interleaved layout: at sp = 1 the fused page fold, at sp > 1 each rank's
+  per-page partials over its slice (B7) and the fold across ranks (B8).
 - projections (TP): ``ops.allgather_gemm.tp_column_linear``, each rank's
   column block (B2 on the card, a fixed per-element order of the sum) and
   the column gather through B9 (``tp_impl="ag_gemm"``: through B15,
@@ -19,7 +21,8 @@ same code at every mesh size:
   ``EPAll2AllLayer``s (decode rows and chunk rows): B21's dispatch, each
   rank's local experts (B18, B17), B21's combine; ``wire_dtype`` fp8 or
   int8 quantises the wire, and ``overlap="ep"`` microbatches the block over
-  B22, the segmented wire.
+  B22, the segmented wire (``overlap="ep+sp"``: the same, and B6 on the
+  attention leg).
 
 Every rank of the mesh runs in this one process on one card (see
 ``shmem/context.py``); each collective is one launch over every rank, and
@@ -32,7 +35,9 @@ identical at every mesh size, because (1) a column block's product is its
 columns of the whole product and the gather concatenates; (2) each row's
 dispatch, quantisation round trip, expert FFN and k-order fold do not
 depend on which rank computed it (the 1×1×1 engine runs the same wire,
-quantiser included); (3) the pool gather is a page-order concatenation.
+quantiser included); (3) the pool gather (B9 or B6) is a page-order
+concatenation, and the long-context fold visits pages in block-table
+order, ranks interleaved at each page, one entry real.
 No floating-point sum crosses ranks, which is why ``tp_impl="gemm_rs"`` is
 refused.
 
@@ -44,11 +49,11 @@ injects a divergence for the tests). Without a journal a divergence raises
 ``ReplicatedDecisionError``, as the reference does; its restore rung waits
 for ROADMAP.md Queue A, item 10.
 
-Still raising ``NotImplementedError``: ``long_context`` at sp > 1 (B8) and
-``overlap="ep+sp"`` (B6), both item 8; ``speculate`` and ``journal``, item
-10; the tuned microbatch registry (item 11) is not consulted. The modelled
-long-context attention split (``fd_attn_split_us``) is not ported (item 8):
-its two observations stay 0.
+Still raising ``NotImplementedError``: ``speculate`` and ``journal``, item
+10; the tuned microbatch registry (item 11) is not consulted. In
+long-context mode the modelled attention split (``fd_attn_split_us``, over
+this card's ``FD_FIT``) is observed every step as ``attn_local_us`` and
+``attn_fold_wait_us``; they are 0 otherwise.
 """
 
 from __future__ import annotations
@@ -81,7 +86,6 @@ CHUNK_BLOCK_M = 64
 # the default microbatches of overlap="ep" (double buffering)
 OVERLAP_MICROBATCHES = 2
 
-_SP = 'item 8 "SP decode and sharded serving across ranks"'
 _SERVING = 'item 10 "the rest of the single-device serving tier"'
 
 
@@ -89,6 +93,37 @@ class ReplicatedDecisionError(AssertionError):
     """The ranks' control-plane digests diverged: some rank's allocator or
     scheduler decided otherwise than rank 0's, and the block tables are
     about to disagree."""
+
+
+# The fit t = t0 + bytes / rate of the long-context fold across ranks (B8)
+# that ``fd_attn_split_us`` prices with: chip_smoke.py phase 17a's
+# least-squares fit of B8's kernel-alone times (``torch.profiler``) at 2 and
+# 4 ranks on the 16384-token prompt's decode rows (8) and chunk rows (one
+# block of 64 or 32), bytes the remote slabs a rank folds ((n - 1) x rows x
+# pages x Hq x (D + 1) f32). On one NVIDIA H100 80GB HBM3 at a 700 W power
+# limit, every rank on the one card (emulated ranks, not NVLink).
+FD_FIT = {"t0_us": 169.01, "gb_per_s": 760.54}
+
+
+def fd_attn_split_us(n_sp: int, n_layers: int, slots: int, steps: int,
+                     page_kv_bytes: int, slab_row_bytes: int,
+                     fit: dict | None = None) -> tuple[float, float]:
+    """The modelled attention split of a long-context decode step (the
+    reference's ``fd_attn_split_us``), priced on ``fit`` (t = t0 + bytes /
+    rate; this card's ``FD_FIT`` by default): ``attn_local_us``, each
+    rank's walk of its own slice of a slot's ``steps`` block-table pages
+    (``ceil(steps / n_sp)`` pages of ``page_kv_bytes`` a slot and layer),
+    and ``attn_fold_wait_us``, the fold's wait on the n - 1 remote slabs
+    (``slots x steps x slab_row_bytes`` each, one t0 a layer), 0 at one
+    rank. A model, not a measurement."""
+    fit = fit or FD_FIT
+    bw = fit["gb_per_s"] * 1e3          # bytes a microsecond
+    local = n_layers * slots * (-(-steps // n_sp)) * page_kv_bytes / bw
+    if n_sp == 1:
+        return local, 0.0
+    fold = n_layers * (fit["t0_us"]
+                       + (n_sp - 1) * slots * steps * slab_row_bytes / bw)
+    return local, fold
 
 
 def serving_mesh(tp: int = 1, sp: int = 1, ep: int = 1) -> ShmemContext:
@@ -112,10 +147,13 @@ class ShardedServingEngine(ServingEngine):
     ``d_model`` must be a multiple of 128. ``wire_dtype`` is None (the
     plain wire, the port's default), ``"auto"`` (``pick_wire_dtype`` over
     the card's ``WIRE_FIT``), ``torch.float8_e4m3fn`` or ``torch.int8``.
-    ``tp_impl`` is "xla" or "ag_gemm". ``overlap`` is "off" or "ep" (with
-    ``overlap_microbatches``, 2 by default). ``moe_block_m`` sets both
-    programs' aligned row block (``DECODE_BLOCK_M`` / ``CHUNK_BLOCK_M`` by
-    default). ``digest_every=k`` checks the replicated decisions every k-th
+    ``tp_impl`` is "xla" or "ag_gemm". ``overlap`` is "off", "ep" (with
+    ``overlap_microbatches``, 2 by default) or "ep+sp" (the same, and the
+    pool gathered by B6). ``long_context`` serves through
+    ``flash_decode_dist`` over an interleaved pool at any SP size.
+    ``moe_block_m`` sets both programs' aligned row block
+    (``DECODE_BLOCK_M`` / ``CHUNK_BLOCK_M`` by default).
+    ``digest_every=k`` checks the replicated decisions every k-th
     productive step (0: never)."""
 
     def __init__(self, params: dict, cfg: MoEConfig, ctx=None,
@@ -149,11 +187,6 @@ class ShardedServingEngine(ServingEngine):
         if overlap not in ("off", "ep", "ep+sp"):
             raise ValueError(f"overlap must be 'off', 'ep' or 'ep+sp', got "
                              f"{overlap!r}")
-        if overlap == "ep+sp":
-            _later('overlap="ep+sp" (the start-local pool gather, B6)', _SP)
-        if long_context and n_sp > 1:
-            _later(f"long_context at sp = {n_sp} (the slab exchange, B8)",
-                   _SP)
         if tp_impl not in ("xla", "ag_gemm"):      # raises with its reason
             tp_column_linear(ctx, None, None, impl=tp_impl)
         if num_slots % n_ep or prefill_chunk % n_ep:
@@ -176,7 +209,7 @@ class ShardedServingEngine(ServingEngine):
 
         self.overlap = overlap
         mb = 1
-        if overlap == "ep":
+        if overlap != "off":
             mb = int(overlap_microbatches or OVERLAP_MICROBATCHES)
             if mb < 1 or (num_slots // n_ep) % mb or \
                     (prefill_chunk // n_ep) % mb:
@@ -207,9 +240,12 @@ class ShardedServingEngine(ServingEngine):
                 return flash_decode_dist(ctx, q, k, v, kp, vp, bt, pos,
                                          kv_len, axis="sp", active=active)
         else:
+            sp_overlap = overlap == "ep+sp"
+
             def attn_io(q, k, v, kp, vp, bt, pos, kv_len, active):
                 return sp_paged_attend_write(ctx, q, k, v, kp, vp, bt, pos,
-                                             kv_len, axis="sp", active=active)
+                                             kv_len, axis="sp", active=active,
+                                             overlap=sp_overlap)
 
         def linear(h, w, name):
             return tp_column_linear(ctx, h, w, axis="tp", impl=tp_impl,
@@ -218,6 +254,14 @@ class ShardedServingEngine(ServingEngine):
         self._pool_sp_ranks = n_sp
         self._exposed_comm_us, self._overlapped_comm_us = \
             self._comm_split_us(cfg.base.n_layers, mb)
+        base = cfg.base
+        self._attn_local_us, self._attn_fold_wait_us = (
+            fd_attn_split_us(
+                n_sp, base.n_layers, num_slots, pages_per_seq,
+                2 * base.n_kv_heads * page_size * base.head_dim
+                * base.dtype.itemsize,
+                base.n_heads * (base.head_dim + 1) * 4)
+            if long_context else (0.0, 0.0))
         super().__init__(params, cfg.base, num_slots=num_slots,
                          page_size=page_size, num_pages=num_pages,
                          pages_per_seq=pages_per_seq,
@@ -286,12 +330,12 @@ class ShardedServingEngine(ServingEngine):
         divergence raises."""
         self.metrics.observe("exposed_comm_us", self._exposed_comm_us)
         self.metrics.observe("overlapped_comm_us", self._overlapped_comm_us)
-        self.metrics.observe("attn_local_us", 0.0)
-        self.metrics.observe("attn_fold_wait_us", 0.0)
+        self.metrics.observe("attn_local_us", self._attn_local_us)
+        self.metrics.observe("attn_fold_wait_us", self._attn_fold_wait_us)
         if self.digest_every and self._steps % self.digest_every == 0:
             self.check_replicated_decisions()
 
 
-__all__ = ["CHUNK_BLOCK_M", "DECODE_BLOCK_M", "MESH_AXES",
+__all__ = ["CHUNK_BLOCK_M", "DECODE_BLOCK_M", "FD_FIT", "MESH_AXES",
            "OVERLAP_MICROBATCHES", "ReplicatedDecisionError",
-           "ShardedServingEngine", "serving_mesh"]
+           "ShardedServingEngine", "fd_attn_split_us", "serving_mesh"]
