@@ -91,12 +91,21 @@ Phases, each printing its lines:
    and the plain engine (in bf16 the streams equal up to each one's first
    divergence, which must be a near-tie of both engines' logits; in f32 at
    full width, the depth cut to 2 layers, equal);
-13. the MoE tensor-parallel block at one rank on layer 0's experts at 8,
-   256 and 4096 tokens: ``ag_moe_group_gemm`` (B19), ``moe_reduce_rs``
+13. the MoE tensor-parallel block on layer 0's experts at 8, 256 and 4096
+   tokens: at one rank ``ag_moe_group_gemm`` (B19), ``moe_reduce_rs``
    (B20) and B20's grouped GEMM from bf16 into f32 against their plain
    versions (padding rows, bitwise repeat), ``moe_mlp_tp_overlap`` against a
    plain per-expert block written out in this script, each timed beside its
-   bound, plain version and ``torch._grouped_mm``, and the block's launches.
+   bound, plain version and ``torch._grouped_mm``, and the block's launches;
+   across ranks, at 2 and 4 (``csrc/moe_tp.cu``): B19 and B20 bitwise their
+   composition from the one-rank kernels (B17 by column block; B17's f32
+   partials by K block through the slot reduction) on a rerun and 5 fresh
+   calls, within tolerance of their plain versions, padding rows zero,
+   every pad zero, a call whose rank 1 never signals raising within 2 s and
+   the next call bitwise; the block against the plain block and the
+   one-rank block; timed beside the bound over all ranks' work, the plain
+   version, the one-rank op and ``torch._grouped_mm``; the block's launches
+   at each n (one B19, one B20, two B9 gathers a call).
 14. the shmem layer across ranks, every rank of a mesh on the one card
    (inside phase 5's lifetime, on its 32-layer bf16 params): tutorial 01's
    ring ping and the barrier (``barrier_all_op``, B14) at 2 and 4 ranks
@@ -185,6 +194,17 @@ Phases, each printing its lines:
    every request bitwise the colocated engine's, the decode worker's
    prompt tokens 0, each prompt page migrated once; tok/s, TTFT, B23's
    launches and pages, and one step under the profiler.
+
+18. the SP + EP MoE decode step (inside phase 9's lifetime, on its
+   Mixtral weights): ``moe_decode_step_sp`` at 1, 2 and 4 ranks, B = 8
+   rows, a cache of 4096 slots sharded on S, a 64-token prompt
+   teacher-forced through the step and 32 greedy steps (the largest rank
+   count twice): replicas bitwise, the rerun bitwise, the tokens n = 1's up
+   to each row's first near-tie, B3, B5, B21 (twice), B18 and B17 launched
+   once a layer-step; ms a step and one step under the profiler. In f32 at
+   full width, the depth cut to 2 and 32 slots, the logits at 2 and 4 ranks
+   within 1e-5 of one rank's scale, and one rank's within 1e-3 of a dense
+   golden (``decode_step`` with a plain per-expert FFN written out here).
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -1485,7 +1505,13 @@ def check_long_context_and_moe_tp(params, cfg, device, card: str) -> dict:
     moe_tp = check_moe_tp(params, cfg, device)
     moe_tp["seconds"] = time.perf_counter() - t13
     log(f"phase 13 took {moe_tp['seconds']:.1f} s")
-    return {"fd": fd_kernels, "long": long, "moe_tp": moe_tp}
+    t13 = time.perf_counter()
+    moe_tp_ranks = check_moe_tp_ranks(params, cfg, device)
+    log(f"phase 13 across ranks took {time.perf_counter() - t13:.1f} s")
+    torch.cuda.empty_cache()
+    moe_sp = check_moe_decode_sp(params, cfg, device, card)
+    return {"fd": fd_kernels, "long": long, "moe_tp": moe_tp,
+            "moe_tp_ranks": moe_tp_ranks, "moe_sp": moe_sp}
 
 
 # ---------------------------------------------------------------------------
@@ -3391,6 +3417,563 @@ def long_moe_tp_kernels(later: dict) -> list[dict]:
              mtp["launches"]["grouped_gemm_bf16_f32"], {},
              main_rec(mtp["grouped_gemm_bf16_f32"], tokens=4096),
              mtp["grouped_gemm_bf16_f32"]))]
+
+
+# ---------------------------------------------------------------------------
+# phase 13 across ranks: B19 and B20 at 2 and 4 ranks on one card, and
+# phase 18: the SP + EP MoE decode step at full width
+# ---------------------------------------------------------------------------
+
+# ranks of the MoE-TP meshes (every rank on the one card)
+MOE_TP_RANKS = (2, 4)
+# the token count of the hang checks
+MOE_TP_HANG_TOKENS = 256
+
+
+def moe_tp_compositions(ctx1, rep, ids, tw, h, wu_blocks, wd_blocks,
+                        block_m: int):
+    """B19 and B20 at n ranks (n = the blocks given) from the one-rank
+    kernels: B19 the one-rank ``ag_moe_group_gemm`` (B17) of every row
+    against each rank's columns ``wu_blocks[r]``, column block by column
+    block; B20 each rank's f32 partial of every row over its K block (B17
+    from bf16 into f32 on the rows aligned as one segment, against
+    ``wd_blocks[r]``), the n partials through the slot reduction
+    (``slot_reduce``) in slot order, unscrambled and folded over k in f32
+    in k order, cast once. Returns (B19's [T * topk, F], B20's [T, D])."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import gemm as gm
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe as mo
+
+    ag = torch.cat([mo.ag_moe_group_gemm(ctx1, rep, ids, w, block_m=block_m)
+                    for w in wu_blocks], 1)
+    n = len(wd_blocks)
+    Tk, K = h.shape
+    T, topk = tw.shape
+    kl = K // n
+    E = wd_blocks[0].shape[0]
+    bm = min(block_m, -(-Tk // 16) * 16)
+    gi, rv, be, nb, dest = gg.expert_alignment(ids, E, bm)
+    xs = torch.where(rv[:, None], h[gi.long()],
+                     torch.zeros((), dtype=h.dtype, device=h.device))
+    parts = torch.stack([gg.grouped_gemm(
+        xs[:, r * kl:(r + 1) * kl].contiguous(), w, be, block_m=bm,
+        n_blocks_used=nb, masked=False, out_dtype=torch.float32)
+        for r, w in enumerate(wd_blocks)])
+    red = gm.slot_reduce(parts, torch.float32)
+    P = red.shape[0]
+    dest = dest.long()
+    rows = torch.where((dest < P)[:, None], red[dest.clamp(max=P - 1)],
+                       torch.zeros((), dtype=red.dtype, device=red.device))
+    rows = rows.view(T, topk, -1)
+    w = tw.float()
+    folded = rows[:, 0] * w[:, 0:1]
+    for j in range(1, topk):
+        folded = folded + rows[:, j] * w[:, j:j + 1]
+    return ag, folded.to(h.dtype)
+
+
+def moe_tp_ranks_bound(ids, T: int, H: int, N: int, n: int, esize: int,
+                       dtype_name: str, rs: bool) -> tuple[float, str]:
+    """Least time of B19 (``rs`` False) or B20 at n ranks on one card: the
+    used experts' [H, N] weights once, the routed rows in (and B19's out,
+    B20's T folded rows), plus the protocol's bytes through the one HBM
+    (B19: n - 1 copies of each segment's rows; B20: n f32 partials of each
+    routed row), against 2 H N operations per routed row over the ranks."""
+    routed = ids[ids >= 0]
+    rows, used = int(routed.numel()), int(routed.unique().numel())
+    if rs:
+        nbytes = (used * H * N + rows * H + T * N) * esize + n * rows * N * 4
+    else:
+        nbytes = (used * H * N + rows * (H + N) + (n - 1) * rows * H) * esize
+    nbytes += 4 * ids.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * rows * H * N / PEAK_OPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_moe_tp_ranks(params, cfg, device, timed: bool = True,
+                       ranks=MOE_TP_RANKS, tokens=MOE_TP_TOKENS,
+                       block_m: int = MOE_TP_BLOCK_M,
+                       fresh: int | None = None, seed: int = 13) -> dict:
+    """Phase 13 across ranks on layer 0's experts: at each of ``ranks`` and
+    ``tokens``, the block's inputs routed top-2 (two pairs turned into -1
+    padding rows); B19 (``ag_moe_group_gemm``) and B20 (``moe_reduce_rs``)
+    bitwise their one-rank composition (``moe_tp_compositions``) on a rerun
+    and on ``fresh`` calls with fresh data, within ``GG_TOL`` of their plain
+    versions, padding rows zero, every signal pad zero after the calls; a
+    call whose rank 1 never signals raising ``ShmemError`` within
+    ``HANG_LIMIT_S`` and the next call bitwise; ``moe_mlp_tp_overlap``
+    against ``moe_tp_reference`` and the one-rank block. Then the main path
+    at each n: the counts set to 0, the block run once at each token count,
+    the counts read (one B19, one B20 and two B9 gathers a call). With
+    ``timed``, each op beside its bound, plain version, the one-rank op and
+    ``torch._grouped_mm`` of the whole product. Raises on any failure.
+    ``fresh`` is ``FRESH_CALLS`` by default."""
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import moe_mlp_tp_overlap
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import gemm as gm
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe as mo
+    from triton_dist_tpu_torch.shmem import ShmemError, check_errors
+    from triton_dist_tpu_torch.shmem.context import initialize_distributed
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    p = {k: v[0] for k, v in params["blocks"].items()}
+    wr, wu, wd = p["w_router"], p["we_up"], p["we_down"]
+    E, Dm, F = wu.shape
+    topk = cfg.topk
+    dtype = cfg.base.dtype
+    name = str(dtype).split(".")[-1]
+    ctx1 = initialize_distributed(("tp",), device=device)
+
+    def inputs(T, g):
+        x = torch.randn(T, Dm, generator=g, device=device,
+                        dtype=torch.float32).to(dtype)
+        tw, ids = _route(x, wr, topk)
+        ids[[1, ids.numel() - 2]] = -1
+        rep = x.repeat_interleave(topk, 0)
+        h = torch.nn.functional.silu(torch.randn(
+            T * topk, F, generator=g, device=device)).to(dtype)
+        return x, tw, ids, rep, h
+
+    fresh = FRESH_CALLS if fresh is None else fresh
+    records = {"ag_moe_group_gemm": [], "moe_reduce_rs": [], "block": [],
+               "hang": [], "launches": {}}
+    for n in ranks:
+        ctx = _mesh(n, device)
+        nl, kl = F // n, F // n
+        wu_blocks = [wu[:, :, r * nl:(r + 1) * nl].contiguous()
+                     for r in range(n)]
+        wd_blocks = [wd[:, r * kl:(r + 1) * kl].contiguous()
+                     for r in range(n)]
+        for T in tokens:
+            gen = torch.Generator(device=device).manual_seed(seed + T + n)
+            x, tw, ids, rep, h = inputs(T, gen)
+            calls = {
+                "ag_moe_group_gemm": lambda rep=rep, ids=ids, **kw:
+                    mo.ag_moe_group_gemm(ctx, rep, ids, wu, block_m=block_m,
+                                         **kw),
+                "moe_reduce_rs": lambda h=h, ids=ids, tw=tw, **kw:
+                    mo.moe_reduce_rs(ctx, h, ids, tw, wd, block_m=block_m,
+                                     **kw)}
+            plains = {
+                "ag_moe_group_gemm": lambda: mo.ag_moe_group_gemm_plain(
+                    ctx, rep, ids, wu, block_m=block_m),
+                "moe_reduce_rs": lambda: mo.moe_reduce_rs_plain(
+                    ctx, h, ids, tw, wd, block_m=block_m)}
+            ones = {
+                "ag_moe_group_gemm": lambda: mo.ag_moe_group_gemm(
+                    ctx1, rep, ids, wu, block_m=block_m),
+                "moe_reduce_rs": lambda: mo.moe_reduce_rs(
+                    ctx1, h, ids, tw, wd, block_m=block_m)}
+            comp = dict(zip(calls, moe_tp_compositions(
+                ctx1, rep, ids, tw, h, wu_blocks, wd_blocks, block_m)))
+            fresh_ok = {k: [] for k in calls}
+            for i in range(fresh):
+                g = torch.Generator(device=device).manual_seed(
+                    seed + 1000 * (i + 1) + T + n)
+                _, tw_i, ids_i, rep_i, h_i = inputs(T, g)
+                want = dict(zip(calls, moe_tp_compositions(
+                    ctx1, rep_i, ids_i, tw_i, h_i, wu_blocks, wd_blocks,
+                    block_m)))
+                fresh_ok["ag_moe_group_gemm"].append(bool(torch.equal(
+                    calls["ag_moe_group_gemm"](rep_i, ids_i),
+                    want["ag_moe_group_gemm"])))
+                fresh_ok["moe_reduce_rs"].append(bool(torch.equal(
+                    calls["moe_reduce_rs"](h_i, ids_i, tw_i),
+                    want["moe_reduce_rs"])))
+            for kname, call in calls.items():
+                got, again = call(), call()
+                check_errors(ctx)
+                pads_zero = _pads_zero(ctx)
+                ref = plains[kname]()
+                rs = kname == "moe_reduce_rs"
+                rec = {"kernel": kname, "n": n, "dtype": name, "tokens": T,
+                       "case": f"{name} n={n} T={T} top-{topk} E={E} "
+                               f"D={Dm} F={F} block_m={block_m} (2 padding "
+                               f"rows)",
+                       **_kernel_vs_plain(got, again, ref), "tol": GG_TOL[name],
+                       "bitwise_composition": bool(torch.equal(got,
+                                                               comp[kname])),
+                       "fresh_calls_bitwise": all(fresh_ok[kname]),
+                       "pads_zero_after": pads_zero and _pads_zero(ctx),
+                       "padding_rows_zero": (None if rs else bool(
+                           not got[ids < 0].any()))}
+                if timed:
+                    routed = ids[ids >= 0]
+                    bound = moe_tp_ranks_bound(
+                        ids, T, F if rs else Dm, Dm if rs else F, n, 2,
+                        name, rs)
+                    rec.update(_timings(
+                        call, plains[kname], None,
+                        ("moe_rs_kernel" if rs else "ag_moe_kernel",), bound))
+                    rec["one_rank_ms"] = perf_func(ones[kname])[1]
+                    rows = h[ids >= 0] if rs else rep[ids >= 0]
+                    fn, why = (grouped_mm_f32_call(rows, routed, wd) if rs
+                               else grouped_mm_call(rows, routed, wu))
+                    rec["library_ms"] = perf_func(fn)[1] if fn else None
+                    rec["library_call"] = (
+                        "torch._grouped_mm of the whole gathered product"
+                        + (" into f32 (no top-k fold)" if rs else ""))
+                    if why:
+                        rec["library_none_because"] = why
+                    rec["note"] = TP_RANKS_NOTE
+                log(f"kernel {kname} n={n}", json.dumps(rec))
+                if not (rec["bitwise_composition"] and rec["bitwise_repeat"]
+                        and rec["fresh_calls_bitwise"]
+                        and rec["pads_zero_after"]
+                        and rec["rel_err"] <= rec["tol"]
+                        and rec["padding_rows_zero"] is not False):
+                    raise AssertionError(f"{kname} across ranks failed: "
+                                         f"{rec}")
+                records[kname].append(rec)
+                del got, again, ref
+            if T == MOE_TP_HANG_TOKENS and device.type == "cuda":
+                for kname, call in calls.items():
+                    t0 = time.perf_counter()
+                    raised = False
+                    try:
+                        call(silent_rank=1)
+                        check_errors(ctx)
+                    except ShmemError as e:
+                        raised = True
+                        log(f"{kname} n={n} starved signal raised: {e}")
+                    waited = time.perf_counter() - t0
+                    after = bool(torch.equal(call(), comp[kname]))
+                    check_errors(ctx)
+                    rec = {"kernel": kname, "n": n, "raised": raised,
+                           "seconds": waited, "limit_s": HANG_LIMIT_S,
+                           "next_call_bitwise": after,
+                           "pads_zero_after": _pads_zero(ctx)}
+                    log("moe-tp hang check", json.dumps(rec))
+                    if not (raised and waited < HANG_LIMIT_S and after
+                            and rec["pads_zero_after"]):
+                        raise AssertionError(f"a starved {kname} signal did "
+                                             f"not raise within its budget: "
+                                             f"{rec}")
+                    records["hang"].append(rec)
+
+            out = moe_mlp_tp_overlap(ctx, x, wr, wu, wd, topk,
+                                     block_m=block_m)
+            out2 = moe_mlp_tp_overlap(ctx, x, wr, wu, wd, topk,
+                                      block_m=block_m)
+            one = moe_mlp_tp_overlap(ctx1, x, wr, wu, wd, topk,
+                                     block_m=block_m)
+            ref = moe_tp_reference(x, wr, wu, wd, topk)
+            check_errors(ctx)
+            rec = {"n": n, "tokens": T, "dtype": name, "block_m": block_m,
+                   "rel_err": _rel(out, ref), "rel_err_one_rank": _rel(out,
+                                                                       one),
+                   "tol": GG_TOL[name],
+                   "finite": bool(torch.isfinite(out).all()),
+                   "bitwise_repeat": bool(torch.equal(out, out2))}
+            if timed:
+                rec["ms"] = perf_func(lambda: moe_mlp_tp_overlap(
+                    ctx, x, wr, wu, wd, topk, block_m=block_m))[1]
+                rec["one_rank_ms"] = perf_func(lambda: moe_mlp_tp_overlap(
+                    ctx1, x, wr, wu, wd, topk, block_m=block_m))[1]
+                rec["note"] = TP_RANKS_NOTE
+            log(f"moe-tp block n={n} vs reference", json.dumps(rec))
+            if not (rec["finite"] and rec["bitwise_repeat"]
+                    and rec["rel_err"] <= rec["tol"]
+                    and rec["rel_err_one_rank"] <= rec["tol"]):
+                raise AssertionError(f"moe_mlp_tp_overlap at {n} ranks "
+                                     f"disagrees: {rec}")
+            records["block"].append(rec)
+            del x, rep, h, out, out2, one, ref, comp
+        del wu_blocks, wd_blocks
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # the main path at n ranks: the block at each token count, counted
+        counted = (mo.ag_moe_group_gemm, mo.moe_reduce_rs, gg.grouped_gemm,
+                   gm.slot_reduce, ag.all_gather)
+        xs = [torch.randn(T, Dm, generator=torch.Generator(
+            device=device).manual_seed(seed + T), device=device,
+            dtype=torch.float32).to(dtype) for T in tokens]
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        for k in counted:
+            k.launches = 0
+        for x in xs:
+            moe_mlp_tp_overlap(ctx, x, wr, wu, wd, topk, block_m=block_m)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        check_errors(ctx)
+        launches = {k.__name__: k.launches for k in counted}
+        log(f"moe-tp main path launches n={n}", json.dumps(launches))
+        c = len(tokens)
+        if device.type == "cuda" and launches != {
+                "ag_moe_group_gemm": c, "moe_reduce_rs": c,
+                "grouped_gemm": 0, "slot_reduce": 0, "all_gather": 2 * c}:
+            raise AssertionError(f"the MoE-TP block at {n} ranks did not "
+                                 f"launch its kernels: {launches}")
+        records["launches"][n] = launches
+    return records
+
+
+def moe_tp_ranks_kernels(rk: dict) -> list[dict]:
+    """The ``kernels`` line's entries of B19 and B20 at each rank count of
+    phase 13 across ranks, headed by the 4096-token case."""
+    out = []
+    for kname, replaces in (("ag_moe_group_gemm",
+                             "triton_dist_tpu/ops/moe.py:215"),
+                            ("moe_reduce_rs",
+                             "triton_dist_tpu/ops/moe.py:405")):
+        for n, launches in rk["launches"].items():
+            cases = [r for r in rk[kname] if r["n"] == n]
+            main = next(r for r in cases if r["tokens"] == max(
+                c["tokens"] for c in cases))
+            out.append({
+                "name": f"{kname}_x{n}", "route": "cuda",
+                "source": "triton_dist_tpu_torch/csrc/moe_tp.cu",
+                "replaces": replaces, "ranks": n,
+                "launches": launches[kname],
+                "max_abs_err": max(r["max_abs_err"] for r in cases),
+                **{k: main.get(k) for k in (
+                    "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "one_rank_ms", "case",
+                    "note")},
+                "cases": cases})
+    return out
+
+
+# phase 18: moe_decode_step_sp on phase 9's bf16 Mixtral weights: B rows
+# (max_tokens B / n a rank), the cache of S slots sharded on S, a prompt
+# teacher-forced through the step, then greedy steps
+MOE_SP = dict(B=8, prompt=64, steps=32, max_seq=4096, ranks=(1, 2, 4))
+# the f32 check at full width, the depth cut to 2: teacher-forced tokens,
+# the logits at n ranks within tol of n = 1's scale, n = 1 within
+# MODEL_TOL of a dense golden (decode_step with a plain per-expert FFN).
+# 32 slots put the prompt on ranks 0-1 of 4 and the steps on rank 2 (at
+# 4096 every key would sit in rank 0's shard and the merge be exact)
+MOE_SP_F32 = dict(layers=2, prompt=16, steps=8, max_seq=32, tol=1e-5)
+
+
+def _moe_sp_launch_counters():
+    from triton_dist_tpu_torch.ops import all_to_all as ea
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+
+    return (fd.gqa_decode_partial, fd.ll_merge, fd.ll_ag_merge,
+            ag.all_gather, ea.all_to_all_push, ea.ep_dispatch,
+            ea.ep_combine, gg.grouped_gemm_gated, gg.grouped_gemm)
+
+
+def _moe_sp_run(params, cfg, device, n: int, prompt, steps: int,
+                max_seq: int, teacher=None) -> dict:
+    """``moe_decode_step_sp`` at n ranks: the prompt [B, P] teacher-forced
+    through the step from position 0, then ``steps`` steps of the tokens
+    ``teacher`` [B, steps] (or greedy ones), every layer's replicas compared
+    in the first ``SP_REPLICA_STEPS``. Returns each step's logits after the
+    prompt, the tokens, the seconds of the stepped part between device
+    synchronisations, the launches and whether the replicas agreed."""
+    import torch
+
+    from triton_dist_tpu_torch.layers import EPAll2AllLayer
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.models.moe import moe_decode_step_sp
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    B, P = prompt.shape
+    ctx = _mesh(n, device)
+    layer = EPAll2AllLayer.create(ctx, B // n, cfg.base.d_model, cfg.topk,
+                                  cfg.num_experts, axis="x",
+                                  dtype=cfg.base.dtype)
+    cache = llama.init_kv_cache(cfg.base, B, max_seq, device=device)
+    if n > 1:
+        cache = llama.shard_kv_cache(cache, n)
+
+    def step(tok, pos, checks=None):
+        return moe_decode_step_sp(ctx, layer, params, tok, pos, cfg, cache,
+                                  sp_axis="x", replica_checks=checks)[0]
+
+    checks = []
+    for i in range(P):
+        logits = step(prompt[:, i].contiguous(), i, checks)
+    token = logits.argmax(-1).to(torch.int32)
+    counters = _moe_sp_launch_counters()
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    sync()
+    for k in counters:
+        k.launches = 0
+    toks, logits_all = [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if teacher is not None:
+            token = teacher[:, i].contiguous()
+        logits = step(token, P + i, checks if i < SP_REPLICA_STEPS else None)
+        token = logits.argmax(-1).to(torch.int32)
+        toks.append(token)
+        logits_all.append(logits)
+    sync()
+    seconds = time.perf_counter() - t0
+    check_errors(ctx)
+    return {"tokens": torch.stack(toks, 1), "logits": logits_all,
+            "seconds": seconds, "step": lambda: step(token, P + steps),
+            "launches": {k.__name__: k.launches for k in counters},
+            "replicas_equal": bool(torch.stack(checks).all())}
+
+
+def _moe_sp_want(L: int, steps: int, n: int) -> dict:
+    """The launches of ``steps`` steps of ``moe_decode_step_sp`` at n
+    ranks over L layers: a layer-step runs B3's partial once, B5 once (its
+    merge ``ll_merge`` at one rank, ``ll_ag_merge`` at n), B21's wire twice
+    (``all_to_all_push``) with the one-rank slot gather and fold
+    (``ep_dispatch``, ``ep_combine``), B18 and B17 once each; no B9."""
+    s = L * steps
+    return {"gqa_decode_partial": s, "ll_merge": s if n == 1 else 0,
+            "ll_ag_merge": 0 if n == 1 else s, "all_gather": 0,
+            "all_to_all_push": 2 * s, "ep_dispatch": s, "ep_combine": s,
+            "grouped_gemm_gated": s, "grouped_gemm": s}
+
+
+def check_moe_decode_f32(device, cfg, spec=MOE_SP_F32, seed: int = 18
+                         ) -> dict:
+    """``moe_decode_step_sp`` in f32 at Mixtral-8x7B's width, the depth cut
+    to ``spec["layers"]``, fed the same teacher-forced tokens at 1, 2 and 4
+    ranks: the logits at n ranks within ``tol`` of n = 1's scale, and n = 1
+    within ``MODEL_TOL`` of the dense golden (``decode_step`` with
+    ``moe_block_reference`` as its FFN). Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.models.moe import init_moe_params
+
+    cfg32 = dataclasses.replace(cfg, base=dataclasses.replace(
+        cfg.base, n_layers=spec["layers"], dtype=torch.float32))
+    params = init_moe_params(cfg32, seed=3, device=device)
+    B, S = MOE_SP["B"], spec["max_seq"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompt = torch.randint(1, cfg.base.vocab_size, (B, spec["prompt"]),
+                           generator=gen, device=device, dtype=torch.int32)
+    teacher = torch.randint(1, cfg.base.vocab_size, (B, spec["steps"]),
+                            generator=gen, device=device, dtype=torch.int32)
+    runs = {n: _moe_sp_run(params, cfg32, device, n, prompt, spec["steps"],
+                           S, teacher) for n in MOE_SP["ranks"]}
+
+    def dense_ffn(h, p):
+        return moe_block_reference(h, p["w_router"], p["we_gate"],
+                                   p["we_up"], p["we_down"], cfg.topk)
+
+    cache = llama.init_kv_cache(cfg32.base, B, S, device=device)
+    toks = torch.cat([prompt, teacher], 1)
+    golden = []
+    for i in range(toks.shape[1]):
+        lg, cache = llama.decode_step(params, toks[:, i].contiguous(), i,
+                                      cfg32.base, cache, ffn=dense_ffn)
+        if i >= spec["prompt"]:
+            golden.append(lg)
+    one = runs[1]["logits"]
+    rec = {"dtype": "float32", "layers": spec["layers"], "B": B,
+           "prompt": spec["prompt"], "steps": spec["steps"], "max_seq": S,
+           "tol": spec["tol"], "golden_tol": MODEL_TOL["float32"],
+           "n1_vs_golden": max(_rel(a, b) for a, b in zip(one, golden)),
+           "vs_n1": {n: max(_rel(a, b) for a, b in zip(r["logits"], one))
+                     for n, r in runs.items() if n > 1},
+           "replicas_equal": all(r["replicas_equal"] for r in runs.values())}
+    log("moe sp decode f32", json.dumps(rec))
+    del params, runs, cache, golden
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    if not (rec["replicas_equal"]
+            and rec["n1_vs_golden"] <= rec["golden_tol"]
+            and all(v <= rec["tol"] for v in rec["vs_n1"].values())):
+        raise AssertionError(f"moe_decode_step_sp in f32 disagrees: {rec}")
+    return rec
+
+
+def check_moe_decode_sp(params, cfg, device, card: str, spec=MOE_SP,
+                        seed: int = 18) -> dict:
+    """Phase 18 on phase 9's bf16 params: at each rank count, a seeded
+    prompt teacher-forced through ``moe_decode_step_sp`` and ``steps``
+    greedy steps (the largest rank count twice): replicas bitwise, the
+    rerun bitwise, the tokens at n ranks n = 1's up to each row's first
+    near-tie, each kernel of the path launched its count a layer-step; ms a
+    step, and one step under the profiler (device time by family, idle
+    share). Then ``check_moe_decode_f32``. Raises on any failure."""
+    import torch
+
+    B, P, steps = spec["B"], spec["prompt"], spec["steps"]
+    L = cfg.base.n_layers
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompt = torch.randint(1, cfg.base.vocab_size, (B, P), generator=gen,
+                           device=device, dtype=torch.int32)
+    t18 = time.perf_counter()
+    rec = {"card": card, "B": B, "prompt": P, "steps": steps,
+           "max_seq": spec["max_seq"], "layers": L, "ranks": {}}
+    one, ok = None, True
+    for n in spec["ranks"]:
+        run = _moe_sp_run(params, cfg, device, n, prompt, steps,
+                          spec["max_seq"])
+        r = {"decode_ms_per_step": run["seconds"] / steps * 1e3,
+             "replicas_equal": run["replicas_equal"],
+             "launches": run["launches"],
+             "launches_as_expected": (device.type != "cuda"
+                                      or run["launches"]
+                                      == _moe_sp_want(L, steps, n))}
+        if n == max(spec["ranks"]):
+            again = _moe_sp_run(params, cfg, device, n, prompt, steps,
+                                spec["max_seq"])
+            r["rerun_bitwise"] = all(torch.equal(a, b) for a, b in zip(
+                run["logits"], again["logits"]))
+            del again
+        if one is None:
+            one = run
+            clear = _near_tie_steps(one["logits"])
+            rec["compared_until"] = clear
+        else:
+            r["first_divergence"] = _first_divergence(run["tokens"],
+                                                      one["tokens"])
+            r["tokens_equal_n1_until_near_tie"] = all(
+                torch.equal(run["tokens"][b, :clear[b]],
+                            one["tokens"][b, :clear[b]]) for b in range(B))
+            r["tokens_equal_n1_all"] = bool(torch.equal(run["tokens"],
+                                                        one["tokens"]))
+        if device.type == "cuda":
+            fams, ops = device_time_by_family(
+                run["step"], True,
+                (("decode_partial", ("decode_partial_kernel",)),
+                 ("merge", ("merge_kernel",)),
+                 ("ep_wire", ("a2a",)),
+                 ("ep_slots", ("ep_dispatch", "ep_combine")),
+                 ("grouped_gemm", ("grouped_gemm",))))
+            run["step"]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run["step"]()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            busy = sum(fams.values())
+            r["profile"] = {"wall_s": wall, "device_busy_s": busy,
+                            "device_idle_share": 1 - busy / wall,
+                            "device_s_by_family": fams, "device_ops": ops}
+        r["note"] = TP_RANKS_NOTE if n > 1 else None
+        ok &= (r["replicas_equal"] and r["launches_as_expected"]
+               and r.get("rerun_bitwise", True)
+               and r.get("tokens_equal_n1_until_near_tie", True))
+        rec["ranks"][n] = r
+        log(f"moe sp decode n={n}", json.dumps(r))
+        del run
+    rec["first_tokens"] = one["tokens"][:, :8].tolist()
+    del one
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"moe_decode_step_sp failed its checks: {rec}")
+    rec["f32"] = check_moe_decode_f32(device, cfg)
+    rec["seconds"] = time.perf_counter() - t18
+    log("moe sp decode", json.dumps({k: v for k, v in rec.items()
+                                     if k != "ranks"}))
+    log(f"phase 18 took {rec['seconds']:.1f} s")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -5916,7 +6499,8 @@ def main() -> int:
                    "ll_merge": decode_step_rec["launches"]["ll_merge"]}
     slice7 = sp_kernels(sp, dec["all_gather"],
                         decode_step_rec["launches"]["all_gather"])
-    slice6 = long_moe_tp_kernels(moe)
+    slice6 = long_moe_tp_kernels(moe) + moe_tp_ranks_kernels(
+        moe["moe_tp_ranks"])
     ring_main = ring[0]               # bf16 S=4096 causal, the training shape
     ring_source = "triton_dist_tpu_torch/csrc/ring_attention.cu"
     log(json.dumps({"kernels": [{

@@ -146,6 +146,31 @@ def test_reduce_scatter_at_one_rank_is_the_contribution():
     assert torch.equal(trs.reduce_scatter(ctx, x), x)
 
 
+def test_all_gather_without_axis_on_a_2d_mesh_raises():
+    """With ``axis=None`` on a mesh of two axes the reference's ``auto``
+    gathers over every axis (its 2-D gathers, not ported: item 5) and an
+    explicit ``push`` or ``ring`` asks for ``axis=``; neither gathers over
+    the first axis alone. A one-axis mesh still gathers with no axis."""
+    ctx2d = initialize_distributed(("a", "b"), (2, 2), device="cpu")
+    x = torch.arange(8.).reshape(8, 1)
+    with pytest.raises(NotImplementedError, match='item 5 .collectives.'):
+        tag.all_gather(ctx2d, x)
+    with pytest.raises(NotImplementedError, match='item 5 .collectives.'):
+        AllGatherLayer(ctx2d)(x)
+    for method in ("push", "ring"):
+        with pytest.raises(ValueError, match="axis="):
+            tag.all_gather(ctx2d, x, method=method)
+    for fn in (AllGatherLayer(ctx2d).forward_push,
+               AllGatherLayer(ctx2d).forward_ring):
+        with pytest.raises(ValueError, match="axis="):
+            fn(x)
+    # an explicit axis still gathers in groups
+    got = tag.all_gather(ctx2d, x[:4], axis="a")
+    assert got.shape == (4, 4, 1) and torch.equal(got[0], x[:4])
+    ctx1 = initialize_distributed(("x",), (4,), device="cpu")
+    assert torch.equal(tag.all_gather(ctx1, x)[2], x)
+
+
 def _raising_calls():
     """(name, call, what the message names) of every op or form outside the
     ported slices, on a 2- or 4-rank context (the TP overlap ops over tuple
@@ -182,10 +207,12 @@ def _raising_calls():
             torch.float32, axis="a"), coll5),
         ("mlp_tp_overlap inside a 2-D mesh", lambda: tl.mlp_tp_overlap(
             ctx2d, a, a, a, a, axis="b"), tp6),
-        ("ag_moe_group_gemm", lambda: tmoe.ag_moe_group_gemm(
-            ctx, a, ids, torch.zeros(4, 8, 8)), moe7),
-        ("moe_reduce_rs", lambda: tmoe.moe_reduce_rs(
-            ctx, a, ids, torch.ones(4, 2), torch.zeros(4, 8, 8)), moe7),
+        ("ag_moe_group_gemm inside a 2-D mesh", lambda: tmoe.
+         ag_moe_group_gemm(ctx2d, a, ids, torch.zeros(4, 8, 8), axis="a"),
+         moe7),
+        ("moe_reduce_rs inside a 2-D mesh", lambda: tmoe.moe_reduce_rs(
+            ctx2d, a, ids, torch.ones(4, 2), torch.zeros(4, 8, 8),
+            axis="b"), moe7),
         ("ag_moe_group_gemm over two axes", lambda: tmoe.ag_moe_group_gemm(
             ctx2d, a, ids, torch.zeros(4, 8, 8), axis=("a", "b")), moe7),
         ("train plan", lambda: make_train_step(cfg, ParallelPlan(cp="cp"),

@@ -41,14 +41,15 @@ CASES = ((4096, 4096, 6144, "bfloat16", False, False, 128),
          (1000, 512, 700, "float32", True, True, 128))
 
 
-def _other_library(src_dir: Path) -> ctypes.CDLL:
+def other_library(src_dir: Path, name: str = "gemm") -> ctypes.CDLL:
+    """``<name>.cu`` of ``src_dir`` built (once) and loaded."""
     from triton_dist_tpu_torch import csrc
 
-    source = src_dir / "gemm.cu"
+    source = src_dir / f"{name}.cu"
     digest = hashlib.sha256(source.read_bytes())
     for header in sorted(src_dir.glob("*.cuh")):
         digest.update(header.read_bytes())
-    lib = csrc.BUILD_DIR / f"libgemm_other_{digest.hexdigest()[:16]}.so"
+    lib = csrc.BUILD_DIR / f"lib{name}_other_{digest.hexdigest()[:16]}.so"
     if not lib.exists():
         csrc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([csrc._nvcc(), *csrc.NVCC_FLAGS, "-o", str(lib),
@@ -71,7 +72,7 @@ def main() -> int:
         print("compare_gemm: CUDA is not available", file=sys.stderr)
         return 2
     mine = csrc.load("gemm", tg._SIGNATURES)
-    other = _other_library(Path(sys.argv[1]).resolve())
+    other = other_library(Path(sys.argv[1]).resolve())
     for fn, argtypes in tg._SIGNATURES.items():
         if not hasattr(other, fn):    # an entry the other build lacks
             continue

@@ -5,9 +5,10 @@ Each ``<name>.cu`` beside this file is compiled by ``nvcc`` for Hopper
 ``ctypes``. Nothing is built when the package is imported: the first CUDA
 launch of a kernel builds its library, under ``_build/`` (ignored by git),
 named by the hash of its source and of every header it includes from this
-directory (``shmem.cuh``, ``gemm_tile.cuh``), so an edited source or header
-is rebuilt and a finished build is reused. ``build()`` compiles several
-sources in parallel, one ``nvcc`` process each.
+directory (``shmem.cuh``, ``gemm_tile.cuh``, ``group_gemm_tile.cuh``), so
+an edited source or header is rebuilt and a finished build is reused.
+``build()`` compiles several sources in parallel, one ``nvcc`` process
+each.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "_build"
 SOURCES = ("flash_decode_paged", "flash_decode", "ring_attention", "group_gemm",
            "all_to_all", "allgather", "gemm", "flash_decode_dist", "shmem",
-           "reduce_scatter", "tp_overlap", "pool_ag", "page_migrate")
+           "reduce_scatter", "tp_overlap", "pool_ag", "page_migrate",
+           "moe_tp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

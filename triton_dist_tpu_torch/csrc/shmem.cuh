@@ -68,6 +68,8 @@ enum Kernel : int {
   kFdFoldDist = 11,
   kPoolAg = 12,
   kPagedTransport = 13,
+  kAgMoe = 14,
+  kMoeRs = 15,
 };
 
 // The n base pointers of one symmetric buffer, rank r's at ptr[r].
@@ -127,16 +129,19 @@ constexpr int kLaneBlocksPerSm = 2;
 // `lanes` cut to what a grid (lanes, n) of `kernel` can keep resident on
 // the current device (its SM count times the blocks of `threads`, each with
 // `smem` bytes of dynamic shared memory, an SM holds at once, at most
-// kLaneBlocksPerSm); 0 when not one lane fits or the device cannot be asked.
+// `per_sm_cap`: kLaneBlocksPerSm for a collective beside compute, more for
+// a kernel whose lanes are the compute); 0 when not one lane fits or the
+// device cannot be asked.
 template <typename K>
-inline int resident_lanes(K kernel, int threads, int lanes, int n, size_t smem = 0) {
+inline int resident_lanes(K kernel, int threads, int lanes, int n, size_t smem = 0,
+                          int per_sm_cap = kLaneBlocksPerSm) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
           cudaSuccess)
     return 0;
-  const int fit = sms * (per_sm < kLaneBlocksPerSm ? per_sm : kLaneBlocksPerSm) / n;
+  const int fit = sms * (per_sm < per_sm_cap ? per_sm : per_sm_cap) / n;
   return lanes < fit ? lanes : fit;
 }
 
@@ -366,6 +371,40 @@ __device__ __forceinline__ bool barrier_pair_block(const PeerTable& pads, int wo
     ok = signal_wait_until(symm_at<int>(pads, my_pe()) + word, 1, true, L, word);
   }
   return __syncthreads_and(ok);
+}
+
+// ---------------------------------------------------------------------------
+// counted arrivals and the finish word of the overlap kernels
+// ---------------------------------------------------------------------------
+
+// The pad of an overlap kernel (grid (lanes, n)): words [0, lanes) are the
+// entry barrier (consumed by its wait), [lanes + s] counts arrivals for
+// segment s, and [lanes + n] is the rank's finish word. Many blocks wait on
+// one count, so no wait consumes it: each block, once it reads no count any
+// more, adds one to the finish word, and the last block of the rank waits
+// for every count to be complete, consumes it and zeroes the finish word,
+// so the pad is zero again after the call.
+__device__ __forceinline__ int count_word(int s) { return gridDim.x + s; }
+__device__ __forceinline__ int finish_word() { return gridDim.x + gridDim.y; }
+
+// The end of the call for one block, which reads no count of its rank's pad
+// any more: the last block of the rank to get here waits until the count of
+// every segment but `skip` holds `value`, consumes them all and zeroes the
+// finish word. All threads call it; false on error.
+__device__ __noinline__ bool finish_block(int* pad, int value, int skip, const Launch& L) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(pad + finish_word(), 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return true;
+  for (int s = 0; s < (int)gridDim.y; ++s)
+    if (s != skip && !wait_block(pad + count_word(s), value, true, L, count_word(s)))
+      return false;
+  if (threadIdx.x == 0) atomicExch(pad + finish_word(), 0);
+  return true;
 }
 
 }  // namespace tdt_shmem

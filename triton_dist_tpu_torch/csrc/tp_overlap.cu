@@ -45,7 +45,8 @@
 // at 74-80 KiB of shared memory each for bf16); a grid that cannot be
 // resident is refused.
 //
-// Signals: pad words [lane] are the entry barrier (consumed by its wait);
+// Signals (shmem.cuh's count_word, finish_word and finish_block): pad
+// words [lane] are the entry barrier (consumed by its wait);
 // [lanes + s] count arrivals for segment s: in AG-GEMM one per lane of rank
 // s whose share of the puts is stored, in GEMM-RS one per tile of rank s's
 // partial of my segment. Many blocks wait on one count, so no wait consumes
@@ -99,30 +100,6 @@ __device__ __forceinline__ void tile(const In* A, int lda, const In* B, int ldb,
   else
     gemm_tile_f32<kBT, true>(A, lda, B, ldb, C, ldc, M, N, K, row0, col0,
                              reinterpret_cast<float*>(smem));
-}
-
-// pad words: the count of segment s, and the rank's finish word
-__device__ __forceinline__ int count_word(int s) { return gridDim.x + s; }
-__device__ __forceinline__ int finish_word() { return gridDim.x + gridDim.y; }
-
-// The end of the call for one block, which reads no count of its rank's pad
-// any more: the last block of the rank to get here waits until the count of
-// every segment but `skip` holds `value`, consumes them all and zeroes the
-// finish word. All threads call it; false on error.
-__device__ __noinline__ bool finish_block(int* pad, int value, int skip, const Launch& L) {
-  __shared__ int last;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(pad + finish_word(), 1) == (int)gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return true;
-  for (int s = 0; s < (int)gridDim.y; ++s)
-    if (s != skip && !wait_block(pad + count_word(s), value, true, L, count_word(s)))
-      return false;
-  if (threadIdx.x == 0) atomicExch(pad + finish_word(), 0);
-  return true;
 }
 
 // grid (lanes, n), rank me = blockIdx.y. a [n * m_local, K], rank r's shard

@@ -47,6 +47,9 @@ class AllGatherLayer:
         _two_d("push_2d")
 
     def __call__(self, x):
+        """``auto``: with no ``axis`` on a multi-axis mesh the reference
+        gathers over every axis (the 2-D gathers), so this raises as
+        ``all_gather`` does."""
         return all_gather(self.ctx, x, axis=self.axis, method="auto")
 
 

@@ -7,11 +7,12 @@ Counterpart of ``triton_dist_tpu/models/moe.py``. Its inference block
 microbatched schedule) to the ranks that hold their experts, runs each
 rank's local experts (``ops.group_gemm``: B18 then B17) and combines the
 rows back, at any EP size, one rank included. The tensor-parallel block
-``moe_mlp_tp_overlap`` runs at one rank over the MoE-TP ops of ``ops.moe``
-(B19, B20). The TP block over more ranks, the expert-major layout and the
-GShard training path
-(``moe_mlp_gshard``, ``moe_forward``) wait for ROADMAP.md Queue A, item 7
-"MoE / EP across ranks".
+``moe_mlp_tp_overlap`` runs over the MoE-TP ops of ``ops.moe`` (B19, B20)
+at any TP size, and ``moe_decode_step_sp`` is the serving decode step that
+puts sequence-parallel attention and this EP FFN on one axis. The
+expert-major layout and the GShard training path (``moe_mlp_gshard``,
+``moe_forward``) wait for ROADMAP.md Queue A, item 7 "MoE / EP across
+ranks".
 """
 
 from __future__ import annotations
@@ -20,8 +21,10 @@ import dataclasses
 
 import torch
 
-from triton_dist_tpu_torch.models.llama import LlamaConfig, init_params
+from triton_dist_tpu_torch.models.llama import (LlamaConfig, decode_step_sp,
+                                                init_params)
 from triton_dist_tpu_torch.ops.all_to_all import _cap_round
+from triton_dist_tpu_torch.ops.allgather import all_gather
 from triton_dist_tpu_torch.ops.group_gemm import (apply_grouped, grouped_gemm,
                                                   grouped_gemm_gated)
 from triton_dist_tpu_torch.ops.moe import ag_moe_group_gemm, moe_reduce_rs
@@ -188,27 +191,67 @@ def moe_mlp_ep_overlap(ctx, a2a_layer, x2d, router_w, we_gate, we_up,
 def moe_mlp_tp_overlap(ctx, x2d, router_w, we_up, we_down, topk: int,
                        axis: str | None = None, block_m: int = 128):
     """The MoE tensor-parallel inference block (the JAX
-    ``moe_mlp_tp_overlap``) at one rank: x2d [T, D] -> [T, D] in x2d's
-    type.
+    ``moe_mlp_tp_overlap``) over the TP axis ``axis`` of n ranks: x2d
+    [T, D], rank r's T / n rows at block r -> [T, D] in x2d's type, the
+    same layout.
 
     The router in f32 (``x2d.float() @ router_w``), softmax, top-k and the
     renormalised top-k weights; one row per (token, k) pair, the rows of a
     token adjacent; ``ag_moe_group_gemm`` (the token all-gather with the
-    grouped up-projection, we_up [E, D, F]); ``silu`` in f32, cast to x2d's
-    type; then ``moe_reduce_rs`` (the grouped down-projection, we_down
-    [E, F, D], into the f32 slot, its reduction and the top-k fold). The
-    second stage takes the replicated row-to-expert map, which the JAX
-    block all-gathers with XLA; at one rank it is the rows' own ids. This
-    block has no gate projection, unlike ``moe_mlp_ep_overlap``.
-    ``block_m`` is the aligned row block of both grouped GEMMs."""
+    grouped up-projection, we_up [E, D, F] column-sharded: rank r's columns
+    at block r); ``silu`` in f32, cast to x2d's type; then ``moe_reduce_rs``
+    (the grouped down-projection, we_down [E, F, D] row-sharded, into the
+    f32 slots, their reduce-scatter and the top-k fold). The second stage
+    takes the replicated row-to-expert map: at n ranks B9's push gathers
+    the ranks' ids over ``axis`` (the JAX block gathers them with XLA); at
+    one rank it is the rows' own ids. This block has no gate projection,
+    unlike ``moe_mlp_ep_overlap``. ``block_m`` is the aligned row block of
+    both grouped GEMMs."""
+    axis = axis or ctx.axis_names[0]
     gate_vals, gate_ids = router_topk(x2d, router_w, topk)
     rep = x2d.repeat_interleave(topk, 0)
-    ids = gate_ids.reshape(-1).to(torch.int32)
+    ids = gate_ids.reshape(-1).to(torch.int32).contiguous()
     h = ag_moe_group_gemm(ctx, rep, ids, we_up, axis=axis, block_m=block_m)
     h = torch.nn.functional.silu(h.float()).to(x2d.dtype)
+    if ctx.axis_size(axis) > 1:
+        ids = all_gather(ctx, ids, axis=axis, method="push")[0]
     return moe_reduce_rs(ctx, h, ids, gate_vals, we_down, axis=axis,
                          block_m=block_m)
 
 
-__all__ = ["MoEConfig", "init_moe_params", "moe_mlp_ep_overlap",
-           "moe_mlp_tp_overlap", "router_topk"]
+def moe_decode_step_sp(ctx, a2a_layer, params: dict, token, pos,
+                       cfg: MoEConfig, cache: dict,
+                       sp_axis: str | None = None, ag_method: str = "fused",
+                       replica_checks: list | None = None):
+    """The DeepSeek-style serving decode step (the JAX
+    ``moe_decode_step_sp``): sequence-parallel attention over the KV cache
+    sharded on ``sp_axis`` and the expert-parallel MoE FFN through the EP
+    dispatch and combine, on one axis (the SP decode ranks are the EP
+    ranks). A composition over ``llama.decode_step_sp``'s ``ffn`` hook with
+    ``moe_mlp_ep_overlap`` as the FFN; it adds no kernel.
+
+    ``token`` [B] int32 with B = n * ``a2a_layer.a2a.max_tokens``; ``pos``
+    an int; ``cache`` from ``init_kv_cache(cfg.base, B, S)``, at n > 1
+    sharded on S with ``shard_kv_cache``, updated in place. Returns
+    (logits [B, V] f32, cache). ``replica_checks`` as in
+    ``decode_step_sp``."""
+    a2a = a2a_layer.a2a
+    if a2a.num_experts != cfg.num_experts:
+        raise AssertionError(
+            f"a2a layer built for {a2a.num_experts} experts but cfg routes "
+            f"over {cfg.num_experts}: gate ids would address nonexistent "
+            "ranks/slots")
+    if a2a.topk != cfg.topk:
+        raise AssertionError((a2a.topk, cfg.topk))
+
+    def moe_ffn(h, p):
+        return moe_mlp_ep_overlap(ctx, a2a_layer, h, p["w_router"],
+                                  p["we_gate"], p["we_up"], p["we_down"])
+
+    return decode_step_sp(ctx, params, token, pos, cfg.base, cache,
+                          axis=sp_axis, ag_method=ag_method, ffn=moe_ffn,
+                          replica_checks=replica_checks)
+
+
+__all__ = ["MoEConfig", "init_moe_params", "moe_decode_step_sp",
+           "moe_mlp_ep_overlap", "moe_mlp_tp_overlap", "router_topk"]

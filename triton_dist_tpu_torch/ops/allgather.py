@@ -83,13 +83,27 @@ def all_gather(ctx, x, axis: str | None = None, method: str = "auto"):
     A CPU tensor runs the plain version. A CUDA tensor (contiguous, 16-byte
     aligned, any type) launches the kernel, adding one to
     ``all_gather.launches``, or raises. Methods other than ``auto``,
-    ``push`` and ``ring`` raise ``NotImplementedError``."""
-    axis = axis or ctx.axis_names[0]
+    ``push`` and ``ring`` raise ``NotImplementedError``. With ``axis=None``
+    on a mesh of two or more axes, ``push`` and ``ring`` raise
+    ``ValueError`` (they need ``axis=``, as the reference's do) and
+    ``auto`` raises ``NotImplementedError``: the reference's gathers over
+    every axis (``push_2d`` / ``ring_2d``) are not ported."""
     if method not in METHODS:
         raise NotImplementedError(
             f"all_gather: method {method!r} is not ported (the port takes "
             f"{METHODS}; the low-latency, 2-D and broadcast gathers wait for "
             f"{COLLECTIVES})")
+    if axis is None and len(ctx.axis_names) > 1:
+        # the reference's auto picks push_2d / ring_2d over every axis
+        if method == "auto":
+            raise NotImplementedError(
+                f"all_gather(axis=None) on the multi-axis mesh "
+                f"{tuple(ctx.axis_names)} gathers over every axis (push_2d /"
+                f" ring_2d), not ported yet: {COLLECTIVES}")
+        raise ValueError(
+            f"all_gather(method={method!r}) on a multi-axis mesh "
+            f"{tuple(ctx.axis_names)} requires an explicit axis=")
+    axis = axis or ctx.axis_names[0]
     n, group, _, _ = group_plan(ctx, axis)
     N = ctx.num_ranks
     if method == "auto":

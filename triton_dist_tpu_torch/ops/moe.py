@@ -1,80 +1,116 @@
-"""The MoE tensor-parallel ops, in their one-rank form.
+"""The MoE tensor-parallel ops (TPU kernels B19 and B20).
 
 Counterpart of ``triton_dist_tpu/ops/moe.py``:
 
-- ``ag_moe_group_gemm`` (TPU kernel B19, ``_ag_moe_kernel``): the token
-  all-gather over the TP axis overlapped with the grouped up-projection of
-  the expert-aligned segments as they arrive. At one rank there is one
-  segment, the rank's own: the routing ids go through the port's one-rank
-  push ``all_gather`` (B9's copy, as the JAX op gathers them), the tokens
-  are aligned by expert on the sender side, the bounded grouped GEMM of
-  ``csrc/group_gemm.cu`` (B17's kernel) runs the segment, and the rows go
-  back to token order.
+- ``ag_moe_group_gemm`` (B19, ``_ag_moe_kernel``): the token all-gather
+  over the TP axis overlapped with the grouped up-projection of the
+  expert-aligned segments as they arrive.
 - ``moe_reduce_rs`` (B20, ``_moe_rs_kernel``): the grouped down-projection
-  per output segment into f32 slots, the ring reduce-scatter of the slots
-  and their reduction, then the unscramble and the top-k fold. At one rank:
-  the grouped GEMM from bf16 into the f32 slot (its sums never rounded to
-  bf16, as the TPU's ``emit_grouped_gemm`` writes the f32 workspace), the
-  slot reduction of ``csrc/gemm.cu`` (``ops.gemm.slot_reduce``), the
-  unscramble, and the top-k fold in f32, cast once.
+  of every segment over the rank's K shard into f32 slots, the
+  reduce-scatter of the slots to their owners and their reduction, then the
+  unscramble and the top-k fold in f32, cast once.
 
-Both unscramble by a gather through the inverse permutation
-(``expert_alignment``'s ``dest_row``), where the TPU scatter-adds the
-aligned rows into zeros: the two agree except that a -0.0 keeps its sign
-here. A row with id -1 (padding) goes to no expert and comes back zero.
+Inputs and outputs are the JAX package's global views. B19: tokens [T, H]
+rank-major (rank r's rows at block r), ids [T], weights [E, H, N] with rank
+r's columns at block r; it returns [T, N], rank r's columns at block r
+(``P(None, axis)``). B20: tokens [T * topk, K] with rank r's K columns at
+block r, ids replicated, topk_weights [T, topk], weights [E, K, N] with rank
+r's K rows at block r; it returns [T, N], rank r's T / n rows at block r
+(``P(axis)``).
+
+Routing, as the reference does it: B19's ids are gathered with B9's push
+(``ops.allgather``), and every rank's alignment of every segment comes from
+the gathered ids (``expert_alignment``); B20's ids are replicated already.
+The sender-side gather of the aligned rows and the unscramble through the
+inverse permutation (``dest_row``) are torch ops, as they are XLA in the
+reference; the unscramble gathers routed rows, so rows past a segment's
+used blocks (never written) are never read. A row with id -1 (padding) goes
+to no expert and comes back zero; a -0.0 keeps its sign here where the TPU
+scatter-adds into zeros.
+
+- At one rank, B19 is the bounded grouped GEMM of ``csrc/group_gemm.cu``
+  (B17's kernel) on the one segment, and B20 the grouped GEMM from bf16
+  into the f32 slot with the slot reduction of ``csrc/gemm.cu``.
+- At n ranks, over an axis that spans the whole mesh, every rank runs on
+  the one card and one cooperative launch of ``csrc/moe_tp.cu`` covers them
+  all (``tdt_ag_moe``, ``tdt_moe_rs``), its workspace a symmetric tensor
+  and its signal pad its family's (``ag_moe``, ``moe_rs``). B19 at n ranks
+  is bitwise B17 of each gathered segment against rank r's columns; B20 is
+  bitwise the slot reduction of the n one-rank f32 partials.
 
 On a CPU tensor every kernel runs its plain version; on a CUDA tensor each
 launches or raises, and each op adds one to its ``launches`` count when it
-runs on the card. Tuple (2-tier) axes, and more ranks than one, raise
-``NotImplementedError``; the port's mesh has no slice-crossing axis, so the
-TPU's XLA route for those (``_ag_moe_xla``, ``_moe_rs_xla``) has no
-counterpart yet either.
+runs on the card, at every n. A tuple (2-tier) axis and a group inside a
+multi-axis mesh raise ``NotImplementedError`` (ROADMAP.md Queue A, item 7);
+the port's mesh has no slice-crossing axis, so the reference's XLA route
+for one (``_ag_moe_xla``, ``_moe_rs_xla``) has no counterpart.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from triton_dist_tpu_torch import csrc
 from triton_dist_tpu_torch.ops.allgather import all_gather, all_gather_plain
+from triton_dist_tpu_torch.ops.common import family_pad, spans_every_rank
 from triton_dist_tpu_torch.ops.gemm import slot_reduce, slot_reduce_plain
-from triton_dist_tpu_torch.ops.group_gemm import (MIN_BLOCK_M,
+from triton_dist_tpu_torch.ops.group_gemm import (MIN_BLOCK_M, TILE_K,
                                                   expert_alignment,
                                                   grouped_gemm,
                                                   grouped_gemm_plain)
+from triton_dist_tpu_torch.shmem import device as shd
+
+MOE_EP = 'ROADMAP.md Queue A, item 7 "MoE / EP across ranks"'
+_MULTI = "the 2-tier _moe_rs_2d_kernel and ag_overlap_protocol_2d"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# x w be nb out ws pads n P cols depth block_m E kind lanes silent ...
+_SIGNATURES = {name: [_P] * 7 + [_I] * 9 + shd.LAUNCH_SIG
+               for name in ("tdt_ag_moe", "tdt_moe_rs")}
+# the kernels' type codes
+_KINDS = {torch.bfloat16: 0, torch.float32: 1}
+# lanes a launch asks for; it is cut to what the card keeps resident over
+# the n ranks (a few hundred at most), so the pad is sized for these
+MAX_LANES = 512
+# columns of a rank's block go to the kernel 8 at a time (16 bytes of bf16)
+COL_ALIGN = 8
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def _one_rank_axis(ctx, axis, what: str) -> str:
-    """The axis name (the context's first by default), or raise for a tuple
-    axis or an axis above one rank."""
+def _moe_axis(ctx, axis, what: str) -> tuple[str, int]:
+    """(the axis name, its ranks): the context's first axis by default. A
+    tuple axis (the 2-tier path) or a group inside a multi-axis mesh raises
+    ``NotImplementedError``."""
     axis = axis or ctx.axis_names[0]
     if not isinstance(axis, str):
         raise NotImplementedError(
-            f"{what} over the tuple axis {tuple(axis)} (the 2-tier path) is "
-            "not ported yet: ROADMAP.md Queue A, item 7 \"MoE / EP across "
-            "ranks\"")
+            f"{what} over the tuple axis {tuple(axis)} ({_MULTI}) is not "
+            "ported yet: " + MOE_EP)
     n = ctx.axis_size(axis)
-    if n != 1:
-        raise NotImplementedError(
-            f"{what} over {n} ranks is not ported yet: ROADMAP.md Queue A, "
-            "item 7 \"MoE / EP across ranks\"")
-    return axis
+    if n > 1:
+        spans_every_rank(ctx, axis, what, MOE_EP)
+    return axis, n
 
 
 def _gather_ids(ctx, ids, axis: str, t_local: int, plain: bool = False):
-    """All-gather the [t_local] routing ids over ``axis`` as int32; returns
-    the [n, t_local] gathered ids. At one rank the gather is
-    ``all_gather``'s one-rank push (a copy), or with ``plain`` its plain
-    version."""
+    """All-gather the routing ids over ``axis`` as int32: the [n, t_local]
+    gathered ids (rank 0's replica; every rank's is the same). The gather
+    is ``all_gather``'s push (B9), or with ``plain`` its plain version."""
+    n = ctx.axis_size(axis)
     wire = ids.to(torch.int32).contiguous()
-    if wire.data_ptr() % 16:            # the copy kernel's alignment
+    if wire.data_ptr() % 16:            # the gather kernel's alignment
         wire = wire.clone()
-    g = all_gather_plain(wire) if plain else all_gather(ctx, wire, axis=axis,
-                                                        method="push")
-    return g.reshape(ctx.axis_size(axis), t_local)
+    if plain:
+        g = all_gather_plain(wire, 1 if n == 1 else ctx.num_ranks)
+    else:
+        g = all_gather(ctx, wire, axis=axis, method="push")
+    return (g if n == 1 else g[0]).reshape(n, t_local)
 
 
 def _segment_alignment(gids, num_experts: int, block_m: int):
@@ -87,26 +123,77 @@ def _segment_alignment(gids, num_experts: int, block_m: int):
     return tuple(torch.stack(t) for t in zip(*parts))
 
 
+def _aligned_rows(tokens, gi, rv, seg_rows: int):
+    """Every segment's aligned rows [n, P, ...]: segment s's row j is
+    ``tokens[s * seg_rows + gi[s, j]]`` where ``rv[s, j]``, else zeros."""
+    n = gi.shape[0]
+    base = torch.arange(n, device=tokens.device)[:, None] * seg_rows
+    rows = (base + gi.long()).clamp(0, tokens.shape[0] - 1)
+    return torch.where(rv[..., None], tokens[rows],
+                       torch.zeros((), dtype=tokens.dtype,
+                                   device=tokens.device))
+
+
 def _unscramble(y, dest):
-    """Aligned rows back to their rows' order: ``out[t] = y[dest[t]]``,
-    zeros where ``dest[t]`` is past the aligned rows (an id of -1)."""
-    P = y.shape[0]
+    """Aligned rows back to their rows' order: y [n, P, N], dest [n, t] ->
+    [n * t, N] with ``out[s * t + i] = y[s, dest[s, i]]``, zeros where
+    ``dest`` is past the aligned rows (an id of -1)."""
+    n, P, N = y.shape
     dest = dest.long()
-    return torch.where((dest < P)[:, None], y[dest.clamp(max=P - 1)],
+    flat = (torch.arange(n, device=y.device)[:, None] * P
+            + dest.clamp(max=P - 1)).reshape(-1)
+    return torch.where((dest < P).reshape(-1, 1), y.reshape(n * P, N)[flat],
                        torch.zeros((), dtype=y.dtype, device=y.device))
 
 
+def _kernel_call(ctx, axis: str, entry: str, family: str, x, weights, be,
+                 nb, out, ws, dims: tuple, block_m: int, silent_rank):
+    """One launch of ``csrc/moe_tp.cu``'s ``entry`` over every rank, its
+    workspace ``ws`` [n, n, ...] symmetric, its pad the family's."""
+    n = ctx.num_ranks
+    be, nb = be.contiguous(), nb.contiguous()
+    shd.cuda_checks(entry, x, weights, be, nb, out, ws)
+    pad = family_pad(ctx, family, axis, MAX_LANES + n + 1)
+    slots, pads = shd.tables(ctx, ws, pad)
+    lib = csrc.load("moe_tp", _SIGNATURES)
+    args = shd.launch_args(ctx)
+    with csrc.current_on(x.device):
+        rc = getattr(lib, entry)(
+            x.data_ptr(), weights.data_ptr(), be.data_ptr(), nb.data_ptr(),
+            out.data_ptr(), slots, pads, n, *dims, block_m, weights.shape[0],
+            _KINDS[x.dtype], MAX_LANES,
+            -1 if silent_rank is None else int(silent_rank), *args)
+    csrc.check(lib, rc, entry)
+    return out
+
+
+def _kernel_types(what: str, tokens, weights):
+    if tokens.dtype not in _KINDS or weights.dtype != tokens.dtype:
+        raise TypeError(f"{what}: tokens and weights share bf16 or f32, got "
+                        f"{tokens.dtype} and {weights.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# AG + grouped GEMM (B19)
+# ---------------------------------------------------------------------------
+
 def ag_moe_group_gemm(ctx, tokens, ids, weights, axis: str | None = None,
-                      block_m: int = 128, block_n: int | None = None):
-    """tokens [T, H] (this rank's rows); ids [T] int32, the expert of each
-    row (-1 for padding); weights [E, H, N] (this rank's column shard).
-    Returns every rank's rows through their experts' weights, [T * n, N] in
-    the tokens' type, rows in token order, padding rows zero. ``block_m`` is
-    the aligned row block (a row's result does not depend on it);
-    ``block_n``, the TPU's weight-tile width, has no counterpart (the kernel
-    tiles N by its own 128). At one rank; see the module docstring."""
+                      block_m: int = 128, block_n: int | None = None,
+                      silent_rank: int | None = None):
+    """tokens [T, H], rank r's T / n rows at block r; ids [T] int32, the
+    expert of each row (-1 for padding); weights [E, H, N], rank r's
+    columns at block r. Returns every rank's rows through their experts'
+    weights, [T, N] in the tokens' type with rank r's columns at block r,
+    rows in token order, padding rows zero. ``block_m`` is the aligned row
+    block (a row's result does not depend on it); ``block_n``, the TPU's
+    weight-tile width, has no counterpart (the kernels tile N by their own
+    128). ``silent_rank`` (n > 1, the card) names a rank that puts but
+    never signals: its peers' waits run out and the call raises
+    ``ShmemError`` (the hang check). Raises ``ValueError`` when T or N does
+    not split over the ranks."""
     del block_n
-    out = _ag_moe(ctx, tokens, ids, weights, axis, block_m, plain=False)
+    out = _ag_moe(ctx, tokens, ids, weights, axis, block_m, plain=False,
+                  silent_rank=silent_rank)
     if tokens.device.type == "cuda":
         ag_moe_group_gemm.launches += 1
     return out
@@ -117,41 +204,73 @@ ag_moe_group_gemm.launches = 0
 
 def ag_moe_group_gemm_plain(ctx, tokens, ids, weights,
                             axis: str | None = None, block_m: int = 128):
-    """The plain PyTorch version of ``ag_moe_group_gemm``: the same steps
-    with every kernel's plain version, on any device."""
+    """The plain PyTorch version of ``ag_moe_group_gemm``: B9's plain gather
+    of the ids, each segment's alignment, then per rank
+    ``grouped_gemm_plain`` of each segment against the rank's column block,
+    on any device."""
     return _ag_moe(ctx, tokens, ids, weights, axis, block_m, plain=True)
 
 
-def _ag_moe(ctx, tokens, ids, weights, axis, block_m: int, plain: bool):
-    axis = _one_rank_axis(ctx, axis, "ag_moe_group_gemm")
-    T = tokens.shape[0]
-    E = weights.shape[0]
-    gids = _gather_ids(ctx, ids, axis, T, plain)
+def _ag_moe(ctx, tokens, ids, weights, axis, block_m: int, plain: bool,
+            silent_rank=None):
+    axis, n = _moe_axis(ctx, axis, "ag_moe_group_gemm")
+    T, H = tokens.shape
+    E, _, N = weights.shape
+    if T % n or N % n:
+        raise ValueError(f"ag_moe_group_gemm: T={T} rows and N={N} columns "
+                         f"must split over {n} ranks")
+    t_local, nl = T // n, N // n
+    gids = _gather_ids(ctx, ids, axis, t_local, plain)
     gi, rv, be, nb, dest = _segment_alignment(gids, E, block_m)
-    # sender-side alignment of this rank's segment
-    x = torch.where(rv[0][:, None], tokens[gi[0].long()],
-                    torch.zeros((), dtype=tokens.dtype, device=tokens.device))
-    if plain:
-        y = grouped_gemm_plain(x, weights, be[0], block_m, nb[0])
+    x = _aligned_rows(tokens, gi, rv, t_local)               # [n, P, H]
+    P = x.shape[1]
+    if plain or tokens.device.type == "cpu":
+        y = torch.empty(n, P, N, dtype=tokens.dtype, device=tokens.device)
+        for r in range(n):
+            cols = slice(r * nl, (r + 1) * nl)
+            for s in range(n):
+                y[s, :, cols] = grouped_gemm_plain(x[s], weights[:, :, cols],
+                                                   be[s], block_m, nb[s])
+    elif n == 1:
+        y = grouped_gemm(x[0], weights, be[0], block_m=block_m,
+                         n_blocks_used=nb[0], masked=False)[None]
     else:
-        y = grouped_gemm(x, weights, be[0], block_m=block_m,
-                         n_blocks_used=nb[0], masked=False)
-    return _unscramble(y, dest[0])
+        _kernel_types("ag_moe_group_gemm", tokens, weights)
+        if block_m % MIN_BLOCK_M or H % TILE_K or nl % COL_ALIGN:
+            raise ValueError(
+                f"ag_moe_group_gemm: the kernel takes block_m % "
+                f"{MIN_BLOCK_M} == 0, H % {TILE_K} == 0 and a column block "
+                f"of a multiple of {COL_ALIGN}; got block_m {block_m}, H "
+                f"{H}, N / n = {nl}")
+        y = torch.empty(n, P, N, dtype=tokens.dtype, device=tokens.device)
+        ws = torch.empty(n, n, P, H, dtype=tokens.dtype,
+                         device=tokens.device)
+        _kernel_call(ctx, axis, "tdt_ag_moe", "ag_moe", x,
+                     weights.contiguous(), be, nb, y, ws, (P, H, nl),
+                     block_m, silent_rank)
+    return _unscramble(y, dest)
 
+
+# ---------------------------------------------------------------------------
+# grouped GEMM + top-k reduce + RS (B20)
+# ---------------------------------------------------------------------------
 
 def moe_reduce_rs(ctx, tokens, ids, topk_weights, weights,
-                  axis: str | None = None, block_m: int = 128):
+                  axis: str | None = None, block_m: int = 128,
+                  silent_rank: int | None = None):
     """tokens [T * topk, K] (the up-projection's activations, one row per
-    (token, k) pair, this rank's K shard); ids [T * topk] int32, each row's
-    expert (-1 for padding; replicated); topk_weights [T, topk]; weights
-    [E, K, N] (this rank's K shard). Returns this rank's tokens [T / n, N]
-    in the tokens' type: the grouped down-projection of each row, summed
-    over the ranks' K shards, folded over k with the top-k weights in f32
-    in k order and cast once. The aligned row block is ``block_m``, cut to
-    the rows of one segment rounded up to the kernel's 16. At one rank; see
-    the module docstring."""
+    (token, k) pair), rank r's K columns at block r; ids [T * topk] int32,
+    each row's expert (-1 for padding; replicated); topk_weights [T, topk];
+    weights [E, K, N], rank r's K rows at block r. Returns [T, N] in the
+    tokens' type, rank r's T / n rows at block r: the grouped
+    down-projection of each row, summed over the ranks' K shards in slot
+    order in f32, folded over k with the top-k weights in f32 in k order and
+    cast once. The aligned row block is ``block_m``, cut to the rows of one
+    segment rounded up to the kernels' 16. ``silent_rank`` as in
+    ``ag_moe_group_gemm``. Raises ``ValueError`` when T does not split over
+    the n ranks, or, at n > 1, K over 32 n (the kernel's K stage)."""
     out = _moe_rs(ctx, tokens, ids, topk_weights, weights, axis, block_m,
-                  plain=False)
+                  plain=False, silent_rank=silent_rank)
     if tokens.device.type == "cuda":
         moe_reduce_rs.launches += 1
     return out
@@ -162,37 +281,61 @@ moe_reduce_rs.launches = 0
 
 def moe_reduce_rs_plain(ctx, tokens, ids, topk_weights, weights,
                         axis: str | None = None, block_m: int = 128):
-    """The plain PyTorch version of ``moe_reduce_rs``: the same steps with
-    every kernel's plain version, on any device."""
+    """The plain PyTorch version of ``moe_reduce_rs``: each segment's
+    alignment; per rank, ``grouped_gemm_plain`` of every segment over the
+    rank's K block into f32 (the rank's partials); per segment
+    ``slot_reduce_plain`` of the n partials in slot order; the unscramble
+    and the fold; on any device."""
     return _moe_rs(ctx, tokens, ids, topk_weights, weights, axis, block_m,
                    plain=True)
 
 
 def _moe_rs(ctx, tokens, ids, topk_weights, weights, axis, block_m: int,
-            plain: bool):
-    axis = _one_rank_axis(ctx, axis, "moe_reduce_rs")
-    Tk, _ = tokens.shape
+            plain: bool, silent_rank=None):
+    axis, n = _moe_axis(ctx, axis, "moe_reduce_rs")
+    Tk, K = tokens.shape
     T, topk = topk_weights.shape
     if Tk != T * topk:
         raise ValueError(f"moe_reduce_rs: {Tk} rows for {T} tokens x top-"
                          f"{topk}")
-    E = weights.shape[0]
-    N = weights.shape[2]
-    bm = min(block_m, _round_up(Tk, MIN_BLOCK_M))
-    gi, rv, be, nb, dest = _segment_alignment(ids.reshape(1, Tk), E, bm)
-    x = torch.where(rv[0][:, None], tokens[gi[0].long().clamp(0, Tk - 1)],
-                    torch.zeros((), dtype=tokens.dtype, device=tokens.device))
-    # the grouped GEMM into this rank's f32 slot, then the slots' reduction
-    if plain:
-        slots = grouped_gemm_plain(x, weights, be[0], bm, nb[0],
-                                   out_dtype=torch.float32)
-        y = slot_reduce_plain(slots[None], torch.float32)
+    if T % n or (n > 1 and K % (TILE_K * n)):
+        raise ValueError(f"moe_reduce_rs: T={T} tokens must split over {n} "
+                         f"ranks, and K={K} over {TILE_K} x {n} (the "
+                         f"kernel's K stage of each rank)")
+    E, _, N = weights.shape
+    seg_rows = T // n * topk
+    kl = K // n
+    bm = min(block_m, _round_up(seg_rows, MIN_BLOCK_M))
+    gi, rv, be, nb, dest = _segment_alignment(ids.reshape(n, seg_rows), E,
+                                              bm)
+    x = _aligned_rows(tokens, gi, rv, seg_rows)              # [n, P, K]
+    P = x.shape[1]
+    f32 = torch.float32
+    if plain or tokens.device.type == "cpu":
+        # rank r's f32 partial of every segment over its K block, then each
+        # segment's n partials reduced in slot order
+        parts = [[grouped_gemm_plain(x[s, :, r * kl:(r + 1) * kl],
+                                     weights[:, r * kl:(r + 1) * kl], be[s],
+                                     bm, nb[s], out_dtype=f32)
+                  for s in range(n)] for r in range(n)]
+        y = torch.stack([slot_reduce_plain(
+            torch.stack([parts[r][s] for r in range(n)]), f32)
+            for s in range(n)])
+    elif n == 1:
+        slots = grouped_gemm(x[0], weights, be[0], block_m=bm,
+                             n_blocks_used=nb[0], masked=False, out_dtype=f32)
+        y = slot_reduce(slots[None], f32)[None]
     else:
-        slots = grouped_gemm(x, weights, be[0], block_m=bm,
-                             n_blocks_used=nb[0], masked=False,
-                             out_dtype=torch.float32)
-        y = slot_reduce(slots[None], torch.float32)
-    rows = _unscramble(y, dest[0]).view(T, topk, N)
+        _kernel_types("moe_reduce_rs", tokens, weights)
+        if N % COL_ALIGN:
+            raise ValueError(f"moe_reduce_rs: the kernel takes N % "
+                             f"{COL_ALIGN} == 0, got {N}")
+        y = torch.empty(n, P, N, dtype=f32, device=tokens.device)
+        ws = torch.empty(n, n, P, N, dtype=f32, device=tokens.device)
+        _kernel_call(ctx, axis, "tdt_moe_rs", "moe_rs",
+                     x.reshape(n * P, K), weights.contiguous(), be, nb, y, ws,
+                     (P, N, kl), bm, silent_rank)
+    rows = _unscramble(y, dest).view(T, topk, N)
     w = topk_weights.float()
     folded = rows[:, 0] * w[:, 0:1]
     for j in range(1, topk):
@@ -200,5 +343,5 @@ def _moe_rs(ctx, tokens, ids, topk_weights, weights, axis, block_m: int,
     return folded.to(tokens.dtype)
 
 
-__all__ = ["ag_moe_group_gemm", "ag_moe_group_gemm_plain", "moe_reduce_rs",
-           "moe_reduce_rs_plain"]
+__all__ = ["MOE_EP", "ag_moe_group_gemm", "ag_moe_group_gemm_plain",
+           "moe_reduce_rs", "moe_reduce_rs_plain"]

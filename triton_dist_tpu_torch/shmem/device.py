@@ -49,7 +49,8 @@ KERNELS = {1: "barrier_all_op", 2: "ring_ping", 3: "all_gather push",
            4: "all_gather ring", 5: "reduce_scatter ring", 6: "ll_ag_merge",
            7: "ag_gemm", 8: "gemm_rs", 9: "all_to_all_push",
            10: "all_to_all_push_seg", 11: "flash_decode_dist fold",
-           12: "pool_ag_start_local", 13: "paged_transport"}
+           12: "pool_ag_start_local", 13: "paged_transport",
+           14: "ag_moe_group_gemm", 15: "moe_reduce_rs"}
 _REPORT_WORDS = 4
 
 _P = ctypes.c_void_p
