@@ -205,6 +205,33 @@ Phases, each printing its lines:
    full width, the depth cut to 2 and 32 slots, the logits at 2 and 4 ranks
    within 1e-5 of one rank's scale, and one rank's within 1e-3 of a dense
    golden (``decode_step`` with a plain per-expert FFN written out here).
+19. the collectives in full across ranks (inside phase 5's lifetime, on
+   its 32-layer bf16 params): B11 (``all_gather`` ``push_2d``, the 2-tier
+   relay of ``csrc/ag_relay_2d.cuh``) and ``ring_2d`` on (2, 2), (2, 4) and
+   (2, 2, 2) meshes at AG-GEMM's input (4096 x 4096 bf16 in all) and the SP
+   wire at B = 8, beside ``Tensor.repeat`` and the flat 1-D B9 push over the
+   same ranks; B10 (``all_gather_ll``) at 2, 4 and 8 ranks at 4, 16 and 64
+   KiB a rank and the B = 1 SP wire, 6 calls through one ``AgLLContext``
+   (each parity three times, a barriered B9 push after the third), the
+   workspace's slots checked, timed beside B9's push at the same payload;
+   B12 (``broadcast``) at 2, 4 and 8 ranks, roots 0 and n - 1, 4 KiB and 32
+   MiB, and inside the groups of (2, 2), beside
+   ``x[root].expand(N, ...).clone()``; B13 over each axis's groups and as
+   ``ring_2d`` on (2, 2) and (2, 4) (GEMM-RS's f32 partial, bf16 too on
+   (2, 2)), every group's segments checked, beside ``torch.sum``; B5 over
+   the groups of (2, 2) at G-batch's and G-long's partials. Each bitwise
+   its plain version on a rerun and 5 fresh calls, every pad zero, a call
+   whose rank 1 never signals raising within 2 s and the next one bitwise.
+   Then the main path, launches counted: G-long (7936 tokens in 8192
+   slots), 16 greedy ``decode_step_sp`` steps on (2, 2) over ("a", "b")
+   (``push_2d``, ``ring_2d``, ``auto``) and over b's two groups (fused,
+   push, ring; the last twice), beside the 1-D runs at 4 ranks (push) and 2
+   (each method): replicas bitwise, the 2-D runs bitwise the 4-rank push,
+   the b runs bitwise the 2-rank runs, the rerun bitwise, the tokens one
+   rank's up to each row's first near-tie, each kernel its exact count a
+   layer-step; the collectives once each; one step under the profiler.
+   Beside phase 4 (f32, full width, depth 4) the same meshes and methods
+   within 1e-5 of ``decode_step``'s logit scale.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -6392,6 +6419,859 @@ def sp_modes_kernels(sp17: dict, moe: dict, disagg: dict) -> list[dict]:
         "cases": sp17["paged_transport"]}]
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the collectives in full across ranks (B10, B11, B12; B13 and B5
+# over groups; ring_2d) and SP decode over a 2-D mesh
+# ---------------------------------------------------------------------------
+
+# the 2-D meshes of B11 and ring_2d, (axes, shape), outer axis first
+MESHES_2D = {"2x2": (("a", "b"), (2, 2)), "2x4": (("a", "b"), (2, 4)),
+             "2x2x2": (("a", "b", "c"), (2, 2, 2))}
+# B10: f32 x 128 lanes of 4, 16 and 64 KiB a rank (bench.py's LL sizes) at
+# these rank counts, and the B = 1 SP wire; calls through one AgLLContext
+# (each parity three times), a barriered B9 push after the third
+LL_RANKS = (2, 4, 8)
+LL_KIB = (4, 16, 64)
+LL_CALLS = 6
+# B12: roots 0 and n - 1 at these rank counts, a block of each size
+BCAST_RANKS = (2, 4, 8)
+BCAST_BYTES = (4 << 10, 32 << 20)
+# B13 over each axis's groups and as ring_2d, f32 on these meshes, bf16 on
+# the first
+RS_2D_MESHES = ("2x2", "2x4")
+# the main path: G-long (one prompt of 7936 tokens in 8192 slots) on phase
+# 5's params, greedy steps of decode_step_sp on (2, 2) over both axes and
+# over b's two groups; the 1-D runs at 4 and 2 ranks are the references
+SP_2D = dict(B=1, prompt=7936, max_seq=8192, steps=16)
+SP_2D_RUNS = ((("a", "b"), "push_2d"), (("a", "b"), "ring_2d"),
+              (("a", "b"), "auto"), ("b", "fused"), ("b", "push"),
+              ("b", "ring"))
+COLL_2D_NOTE = ("every rank of the mesh shares the one card: times are the "
+                "kernels and their protocol on shared SMs and one HBM, not "
+                "NVLink transfers")
+
+
+def _mesh_2d(name: str, device):
+    from triton_dist_tpu_torch.shmem import initialize_distributed
+
+    return initialize_distributed(*MESHES_2D[name], device=device)
+
+
+def kernel_device_ms_per_call(fn, match: str, calls: int = 10) -> float:
+    """The device time a call of ``fn`` spends in the kernels whose name
+    holds ``match``, summed over its launches (``ring_2d``: one an axis),
+    over ``calls`` calls under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and match in e.name) / calls
+
+
+def _check_calls(name: str, ctx, call, plain, make, case: str,
+                 timed: bool, match: str | None = None, bound=None,
+                 library=None, library_call: str | None = None,
+                 extra=None, launches: int = 1) -> dict:
+    """One case of a collective against its plain version: ``call(x)`` on
+    ``make()``'s input, bitwise ``plain(x)`` on a rerun and on
+    ``FRESH_CALLS`` fresh inputs, every pad zero after each call; timed
+    beside its bound, plain version and ``library`` call (the kernel alone
+    summed over a call's ``launches``)."""
+    import torch
+
+    from triton_dist_tpu_torch.shmem import check_errors
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    x = make()
+    got, got2 = call(x), call(x)
+    check_errors(ctx)
+    want = plain(x)
+    pads = _pads_zero(ctx)
+    fresh = []
+    for _ in range(FRESH_CALLS):
+        xi = make()
+        fresh.append(bool(torch.equal(call(xi), plain(xi))))
+        pads &= _pads_zero(ctx)
+    check_errors(ctx)
+    rec = {"kernel": name, "case": case, "exact": bool(torch.equal(got, want)),
+           "bitwise_repeat": bool(torch.equal(got, got2)),
+           "fresh_calls_exact": all(fresh), "pads_zero_after": pads,
+           "max_abs_err": (got.float() - want.float()).abs().max().item()}
+    if extra is not None:
+        rec.update(extra(x, got))
+    if timed and ctx.device.type == "cuda":
+        rec["ms"] = perf_func(lambda: call(x))[1]
+        if match:
+            rec["kernel_device_ms"] = (
+                kernel_device_ms(lambda: call(x), match) if launches == 1
+                else kernel_device_ms_per_call(lambda: call(x), match))
+        rec["plain_ms"] = perf_func(lambda: plain(x))[1]
+        rec["bound_ms"], rec["bound_by"] = bound(x)
+        rec["library_ms"] = (perf_func(lambda: library(x))[1]
+                             if library is not None else None)
+        rec["library_call"] = library_call
+        rec["note"] = COLL_2D_NOTE
+    log(f"kernel {name}", json.dumps(rec))
+    failed = [k for k, v in rec.items() if v is False]
+    if failed:
+        raise AssertionError(f"{name} {case} failed {failed}: {rec}")
+    return rec
+
+
+def _hang_2d(name: str, ctx, call, want) -> dict:
+    """A call whose rank 1 never signals must raise ``ShmemError`` within
+    ``HANG_LIMIT_S``; the next call is bitwise ``want`` and the pads zero."""
+    import torch
+
+    from triton_dist_tpu_torch.shmem import ShmemError, check_errors
+
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        call(silent_rank=1)
+        check_errors(ctx)
+    except ShmemError as e:
+        raised = str(e)
+    seconds = time.perf_counter() - t0
+    after = bool(torch.equal(call(), want))
+    check_errors(ctx)
+    rec = {"kernel": name, "raised": raised, "seconds": seconds,
+           "limit_s": HANG_LIMIT_S, "next_call_bitwise": after,
+           "pads_zero_after": _pads_zero(ctx)}
+    log("collectives 2-D hang check", json.dumps(rec))
+    if not (raised and seconds < HANG_LIMIT_S and after
+            and rec["pads_zero_after"]):
+        raise AssertionError(f"a starved {name} did not raise in time: {rec}")
+    return rec
+
+
+def check_gathers_2d(device, timed: bool = True, meshes=MESHES_2D,
+                     ag_shape=TP_AG, wire_rows: int = 8,
+                     seed: int = 19) -> list[dict]:
+    """B11 (``push_2d``) and ``ring_2d`` on each 2-D mesh at AG-GEMM's input
+    (``ag_shape`` bf16 in all) and the SP wire at ``wire_rows``: every
+    replica bitwise the plain version on a rerun and fresh calls, pads zero;
+    timed beside the bound, the plain version, ``Tensor.repeat`` and the
+    flat 1-D B9 push over the same ranks and bytes."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    recs = []
+    for mesh in meshes:
+        ctx = _mesh_2d(mesh, device)
+        N = ctx.num_ranks
+        flat = _mesh(N, device)
+        for label, shape, dtype in (
+                ("AG-GEMM input", ag_shape, torch.bfloat16),
+                ("SP wire", (N, wire_rows, HQ, D + 1), torch.float32)):
+            def make(shape=shape, dtype=dtype):
+                return torch.randn(shape, generator=gen,
+                                   device=device).to(dtype)
+
+            def bound(x, N=N):
+                nbytes = x.numel() * x.element_size()
+                return collective_bound(nbytes, N * nbytes)
+
+            for method in ("push_2d", "ring_2d"):
+                def call(x, method=method, ctx=ctx):
+                    return ag.all_gather(ctx, x, method=method)
+
+                def flat_push(x, flat=flat):
+                    return ag.all_gather(flat, x, axis="x", method="push")
+
+                def extra(x, got, flat_push=flat_push, method=method):
+                    out = {}
+                    if timed and device.type == "cuda" \
+                            and method == "push_2d":
+                        out["flat_push_ms"] = perf_func(
+                            lambda: flat_push(x))[1]
+                        out["flat_push_kernel_device_ms"] = kernel_device_ms(
+                            lambda: flat_push(x), "ag_push_kernel")
+                    return out
+
+                recs.append(_check_calls(
+                    "all_gather_push_2d" if method == "push_2d"
+                    else "all_gather", ctx, call,
+                    lambda x, N=N: ag.all_gather_plain(x, N), make,
+                    f"{str(dtype).split('.')[-1]} {method} {mesh} {label} "
+                    f"{list(shape)}", timed,
+                    "ag_push_2d_kernel" if method == "push_2d"
+                    else "ag_ring_kernel", bound,
+                    lambda x, N=N: x.repeat((N,) + (1,) * x.dim()),
+                    "Tensor.repeat", extra,
+                    1 if method == "push_2d" else len(MESHES_2D[mesh][0])))
+    return recs
+
+
+def check_ll_gather(device, timed: bool = True, ranks=LL_RANKS,
+                    kib=LL_KIB, seed: int = 20) -> list[dict]:
+    """B10 through one ``AgLLContext`` a case: ``LL_CALLS`` consecutive calls
+    with fresh data (each parity three times), a barriered B9 push after
+    the third, every output bitwise the plain version, the workspace's
+    slots of each call's parity holding the foreign shards, a rerun
+    bitwise, pads zero; timed beside B9's push at the same payload (the
+    latency B10 exists to cut), the bound and ``Tensor.repeat``."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.shmem import check_errors
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    recs = []
+    cases = [(n, f"{k} KiB a rank", (n * k * 1024 // 512, 128))
+             for n in ranks for k in kib]
+    cases += [(n, "SP wire B=1", (n, 1, HQ, D + 1)) for n in ranks]
+    for n, label, shape in cases:
+        ctx = _mesh(n, device)
+        m = shape[0] // n
+        agc = ag.AgLLContext(ctx, m, shape[1:], torch.float32)
+
+        def make(shape=shape):
+            return torch.randn(shape, generator=gen, device=device)
+
+        outs, slots, barriered = [], [], None
+        for i in range(LL_CALLS):
+            x = make()
+            out = agc(x)
+            phase = i % 2
+            shards = x.view((n, m) + tuple(shape[1:]))
+            outs.append(bool(torch.equal(out, ag.all_gather_plain(x, n))))
+            slots.append(all(torch.equal(agc.ws[r, phase, s], shards[s])
+                             for r in range(n) for s in range(n) if s != r))
+            if i == 2:
+                barriered = bool(torch.equal(
+                    ag.all_gather(ctx, x, method="push"),
+                    ag.all_gather_plain(x, n)))
+        check_errors(ctx)
+        x = make()
+        rerun = bool(torch.equal(agc(x), agc(x)))
+        check_errors(ctx)
+        want = ag.all_gather_plain(x, n)
+        rec = {"kernel": "all_gather_ll", "case": f"float32 n={n} {label} "
+               f"{list(shape)}", "calls": LL_CALLS + 2,
+               "calls_exact": all(outs), "workspace_slots_exact": all(slots),
+               "barriered_b9_between_exact": barriered,
+               "bitwise_repeat": rerun, "pads_zero_after": _pads_zero(ctx),
+               "max_abs_err": 0.0}
+        if timed and device.type == "cuda":
+            rec["ms"] = perf_func(lambda: agc(x))[1]
+            rec["kernel_device_ms"] = kernel_device_ms(lambda: agc(x),
+                                                       "ag_ll_kernel")
+            rec["b9_push_ms"] = perf_func(
+                lambda: ag.all_gather(ctx, x, method="push"))[1]
+            rec["b9_push_kernel_device_ms"] = kernel_device_ms(
+                lambda: ag.all_gather(ctx, x, method="push"),
+                "ag_push_kernel")
+            rec["plain_ms"] = perf_func(lambda: ag.all_gather_plain(x, n))[1]
+            nbytes = x.numel() * x.element_size()
+            rec["bound_ms"], rec["bound_by"] = collective_bound(
+                nbytes, n * nbytes)
+            rec["library_ms"] = perf_func(
+                lambda: x.repeat((n,) + (1,) * x.dim()))[1]
+            rec["library_call"] = "Tensor.repeat"
+            rec["note"] = COLL_2D_NOTE
+        log("kernel all_gather_ll", json.dumps(rec))
+        if not all(rec[k] for k in ("calls_exact", "workspace_slots_exact",
+                                    "barriered_b9_between_exact",
+                                    "bitwise_repeat", "pads_zero_after")):
+            raise AssertionError(f"all_gather_ll failed: {rec}")
+        recs.append(rec)
+        if n == 4 and label.startswith("16") and device.type == "cuda":
+            recs.append(_hang_2d("all_gather_ll", ctx,
+                                 lambda silent_rank=None: agc(
+                                     x, silent_rank=silent_rank), want))
+    return recs
+
+
+def check_broadcast(device, timed: bool = True, ranks=BCAST_RANKS,
+                    sizes=BCAST_BYTES, seed: int = 21) -> list[dict]:
+    """B12 at each rank count, roots 0 and n - 1, and over the groups of a
+    (2, 2) mesh's two axes: every rank's copy bitwise ``x[root]`` on a
+    rerun and fresh calls, pads zero; timed (root 0) beside the bound, the
+    plain version and ``x[root].expand(N, ...).clone()``."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import allgather as ag
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    recs = []
+    meshes = [(str(n), _mesh(n, device), "x") for n in ranks]
+    meshes += [("2x2", _mesh_2d("2x2", device), a) for a in ("a", "b")]
+    for label, ctx, axis in meshes:
+        n, N = ctx.axis_size(axis), ctx.num_ranks
+        for nbytes in sizes:
+            shape = (n, nbytes // 4 // 1024, 1024) if nbytes >= 1 << 20 \
+                else (n, nbytes // 4)
+            for root in (0, n - 1):
+                def make(shape=shape):
+                    return torch.randn(shape, generator=gen, device=device)
+
+                def call(x, root=root, ctx=ctx, axis=axis, silent_rank=None):
+                    return ag.broadcast(ctx, x, axis=axis, root=root,
+                                        silent_rank=silent_rank)
+
+                def plain(x, root=root, N=N):
+                    return ag.broadcast_plain(x, root, N)
+
+                def library(x, root=root, N=N):
+                    return x[root].expand((N,) + tuple(x.shape[1:])).clone()
+
+                recs.append(_check_calls(
+                    "broadcast", ctx, call, plain, make,
+                    f"float32 {label} over {axis} root {root} {nbytes} bytes",
+                    timed and root == 0, "bcast_kernel",
+                    lambda x, N=N: collective_bound(
+                        x[0].numel() * 4, N * x[0].numel() * 4),
+                    library, "x[root].expand(N, ...).clone()"))
+        if label == "4" and device.type == "cuda":
+            x = torch.randn((n, 1024), generator=gen, device=device)
+            recs.append(_hang_2d(
+                "broadcast", ctx,
+                lambda silent_rank=None, x=x, ctx=ctx: ag.broadcast(
+                    ctx, x, root=1, silent_rank=silent_rank),
+                ag.broadcast_plain(x, 1, n)))
+    return recs
+
+
+def check_rs_2d(device, timed: bool = True, meshes=RS_2D_MESHES,
+                rs_shape=TP_RS, seed: int = 22) -> list[dict]:
+    """B13 over each axis's groups and as ``ring_2d`` on each mesh, GEMM-RS's
+    f32 partial (``rs_shape`` a rank; bf16 too on the first mesh): bitwise
+    the plain version (the rings' order, stage by stage for ``ring_2d``) on
+    a rerun and fresh calls, every group's segments too, pads zero; timed
+    beside the bound, the plain version and ``torch.sum`` over the
+    ranks."""
+    import importlib
+
+    import torch
+
+    from triton_dist_tpu_torch.shmem import device as shd
+
+    rs = importlib.import_module("triton_dist_tpu_torch.ops.reduce_scatter")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    recs = []
+    M, W = rs_shape
+    for mesh in meshes:
+        ctx = _mesh_2d(mesh, device)
+        N = ctx.num_ranks
+        for dtype in ((torch.float32, torch.bfloat16) if mesh == meshes[0]
+                      else (torch.float32,)):
+            name = str(dtype).split(".")[-1]
+            for axis in MESHES_2D[mesh][0] + (None,):
+                n = ctx.axis_size(axis)
+
+                def make(n=n, dtype=dtype):
+                    return torch.randn((n * M, W), generator=gen,
+                                       device=device).to(dtype)
+
+                def call(x, axis=axis, ctx=ctx, silent_rank=None):
+                    return rs.reduce_scatter(ctx, x, axis=axis,
+                                             silent_rank=silent_rank)
+
+                def plain(x, axis=axis, n=n, ctx=ctx):
+                    if axis is None:
+                        return rs.reduce_scatter_2d_plain(ctx, x)
+                    return rs.reduce_scatter_plain(x, n)
+
+                def bound(x, n=n, N=N):
+                    es = x.element_size()
+                    return collective_bound(N * M * W * es,
+                                            N * (M // n) * W * es)
+
+                def every_group(x, got, axis=axis, ctx=ctx, n=n):
+                    if axis is None or ctx.device.type != "cuda":
+                        return {}
+                    segs = rs._ring(ctx, shd.group_table(
+                        ctx, x.view(n, -1), axis), x.numel() // (n * n), x,
+                        axis, None)
+                    ref = rs.reduce_scatter_plain(x, n).view(n, -1)
+                    idx = shd.group_plan(ctx, axis)[2]
+                    return {"every_group_exact": all(
+                        torch.equal(segs[r], ref[idx[r]])
+                        for r in range(ctx.num_ranks))}
+
+                recs.append(_check_calls(
+                    "reduce_scatter", ctx, call, plain, make,
+                    f"{name} {'ring_2d' if axis is None else 'ring over ' + axis}"
+                    f" {mesh} [{M}, {W}] a rank", timed, "rs_ring_kernel",
+                    bound, lambda x, n=n: torch.sum(x.view(n, M, W), 0),
+                    "torch.sum over the ranks", every_group,
+                    1 if axis is not None else len(MESHES_2D[mesh][0])))
+        if mesh == meshes[0] and device.type == "cuda":
+            x = torch.randn((2 * 64, 128), generator=gen, device=device)
+            recs.append(_hang_2d(
+                "reduce_scatter", ctx,
+                lambda silent_rank=None, x=x, ctx=ctx: rs.reduce_scatter(
+                    ctx, x, axis="b", silent_rank=silent_rank),
+                rs.reduce_scatter_plain(x, 2)))
+    return recs
+
+
+def check_ll_ag_merge_groups(device, timed: bool = True,
+                             rows=(("G-batch", 8), ("G-long", 1)),
+                             seed: int = 23) -> list[dict]:
+    """B5 over the ``a`` and ``b`` groups of a (2, 2) mesh at the SP decode's
+    partials (one shard of row 0 empty): every rank's replica bitwise
+    ``ll_merge`` of its group's partials on a rerun and fresh calls, pads
+    zero; bf16 and f32 outputs, timed beside the bound and the plain
+    version."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import flash_decode as fd
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ctx = _mesh_2d("2x2", device)
+    recs = []
+    for label, B in rows:
+        for axis in ("a", "b"):
+            for out_dtype in (torch.bfloat16, torch.float32):
+                name = str(out_dtype).split(".")[-1]
+
+                def make(B=B):
+                    outs = torch.randn((2, B, HQ, D), generator=gen,
+                                       device=device)
+                    lses = torch.randn((2, B, HQ), generator=gen,
+                                       device=device) * 3
+                    outs[1, 0] = 0.0
+                    lses[1, 0] = fd.NEG_INF
+                    return torch.cat([outs, lses[..., None]], -1)
+
+                def call(x, axis=axis, out_dtype=out_dtype, silent_rank=None):
+                    return fd.ll_ag_merge(ctx, x[..., :D].contiguous(),
+                                          x[..., D].contiguous(), out_dtype,
+                                          axis, silent_rank=silent_rank)
+
+                def plain(x, out_dtype=out_dtype):
+                    merged = fd.ll_merge(x[..., :D].contiguous(),
+                                         x[..., D].contiguous(), out_dtype)
+                    return merged.unsqueeze(0).expand(
+                        (4,) + tuple(merged.shape)).clone()
+
+                def extra(x, got, out_dtype=out_dtype, name=name):
+                    ref = fd.ll_merge_plain(x[..., :D], x[..., D], out_dtype)
+                    return {"rel_err": _rel(got[0], ref),
+                            "within_atol": _rel(got[0], ref) <= OUT_ATOL[name]}
+
+                def bound(x, out_dtype=out_dtype):
+                    # every rank reads its group's two partials once and
+                    # writes its replica
+                    return collective_bound(
+                        2 * x.numel() * 4, 4 * x[0, ..., :D].numel()
+                        * torch.finfo(out_dtype).bits // 8)
+
+                recs.append(_check_calls(
+                    "ll_ag_merge", ctx, call, plain, make,
+                    f"float32 -> {name} {label} over {axis} of 2x2 rows={B}x"
+                    f"{HQ} D={D}", timed, "ll_ag_merge_kernel", bound,
+                    None, None, extra))
+    if device.type == "cuda":
+        x = torch.randn((2, 8, HQ, D + 1), generator=gen, device=device)
+        recs.append(_hang_2d(
+            "ll_ag_merge", ctx,
+            lambda silent_rank=None: fd.ll_ag_merge(
+                ctx, x[..., :D].contiguous(), x[..., D].contiguous(),
+                torch.float32, "b", silent_rank=silent_rank),
+            fd.ll_merge(x[..., :D].contiguous(), x[..., D].contiguous())
+            .unsqueeze(0).expand(4, 8, HQ, D)))
+    return recs
+
+
+def hang_push_2d(device) -> dict:
+    """B11's hang check on (2, 2)."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import allgather as ag
+
+    ctx = _mesh_2d("2x2", device)
+    x = torch.randn((4 * 64, 128), device=device)
+    return _hang_2d("all_gather_push_2d", ctx,
+                    lambda silent_rank=None: ag.all_gather(
+                        ctx, x, method="push_2d", silent_rank=silent_rank),
+                    ag.all_gather_plain(x, 4))
+
+
+def _sp_launch_counters():
+    import importlib
+
+    from triton_dist_tpu_torch.ops import allgather, flash_decode
+
+    rs = importlib.import_module("triton_dist_tpu_torch.ops.reduce_scatter")
+    return {"all_gather_push_2d": allgather.all_gather_push_2d,
+            "all_gather": allgather.all_gather,
+            "all_gather_ll": allgather.all_gather_ll,
+            "broadcast": allgather.broadcast,
+            "reduce_scatter": rs.reduce_scatter,
+            "ll_ag_merge": flash_decode.ll_ag_merge,
+            "gqa_decode_partial": flash_decode.gqa_decode_partial,
+            "decode_combine": flash_decode.decode_combine}
+
+
+def _sp_2d_ctx(axis, device):
+    """The mesh of a run: (2, 2) for the 2-D runs, ("x",) of n for the 1-D
+    references."""
+    if axis == "x2":
+        return _mesh(2, device), "x"
+    if axis == "x4":
+        return _mesh(4, device), "x"
+    return _mesh_2d("2x2", device), axis
+
+
+def _sp_2d_want(axis, method: str, L: int, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` SP steps of ``L`` layers: one B3
+    (and its combine of the split partials) a layer-step; B11 once for
+    ``push_2d`` (and ``auto`` at this wire), B9 twice for ``ring_2d`` (one
+    ring an axis) and once for ``push``/``ring``, B5 once (covering every
+    group) for ``fused``; the wire's merge one more combine."""
+    per = {k: 0 for k in _sp_launch_counters()}
+    per["gqa_decode_partial"] = 1
+    per["decode_combine"] = 1 + (method != "fused")
+    if method in ("push_2d", "auto"):
+        per["all_gather_push_2d"] = 1
+    elif method == "ring_2d":
+        per["all_gather"] = 2
+    elif method == "fused":
+        per["ll_ag_merge"] = 1
+    else:
+        per["all_gather"] = 1
+    return {k: v * L * steps for k, v in per.items()}
+
+
+def run_sp_decode_2d(params, cfg, device, card: str, spec=SP_2D,
+                     runs=SP_2D_RUNS, seed: int = 16) -> dict:
+    """The main path of phase 19: ``prefill`` of G-long's prompt, ``steps``
+    greedy ``decode_step``s at one rank, then ``decode_step_sp`` on (2, 2)
+    over ("a", "b") and over b's groups for each of ``runs`` (the last run
+    twice), and the 1-D references at 4 ranks (push) and 2 (each of b's
+    methods). Raises unless every layer's replicas agreed, each run's
+    logits are bitwise its 1-D reference's (over both axes the 4-rank
+    push, over b the 2-rank run of its method), the rerun was bitwise, the
+    tokens equal one rank's up to each row's first near-tie, and each
+    kernel ran its exact count a layer-step."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+
+    B, prompt, max_seq, steps = (spec[k] for k in ("B", "prompt", "max_seq",
+                                                   "steps"))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompts = torch.randint(1, cfg.vocab_size, (B, prompt), generator=gen,
+                            device=device)
+    cache = llama.init_kv_cache(cfg, B, max_seq, device=device)
+    logits, cache = llama.prefill(params, prompts, cfg, cache)
+    first = logits.argmax(-1).to(torch.int32)
+    del logits
+    sharded = {n: llama.shard_kv_cache(cache, n) for n in (2, 4)}
+    counters = _sp_launch_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    one = _greedy(params, cfg, cache, first, prompt, steps)
+    one_launches = {k: f.launches - before[k] for k, f in counters.items()}
+    del cache
+    clear = _near_tie_steps(one["logits"])
+    refs = [("x4", "push")] + [("x2", m) for a, m in runs if a == "b"]
+    order = refs + list(runs) + [runs[-1]]
+    out = {"card": card, "B": B, "prompt": prompt, "max_seq": max_seq,
+           "steps": steps, "compared_until": clear,
+           "n1": {"decode_ms_per_step": one["seconds"] / steps * 1e3,
+                  "launches": one_launches},
+           "runs": {}}
+    got = {}
+    for i, (axis, method) in enumerate(order):
+        ctx, ax = _sp_2d_ctx(axis, device)
+        n = ctx.axis_size(ax)
+        before = {k: f.launches for k, f in counters.items()}
+        r = _greedy_axis(params, cfg, sharded[n], first, prompt, steps, ctx,
+                         ax, method)
+        launches = {k: f.launches - before[k] for k, f in counters.items()}
+        want = _sp_2d_want(ax, method, cfg.n_layers, steps)
+        label = f"{axis if isinstance(axis, str) else '+'.join(axis)} {method}"
+        if i == len(order) - 1:
+            label += " rerun"
+        got[label] = r
+        ref = ("x4 push" if isinstance(axis, tuple)
+               else f"x2 {method}" if axis == "b" else None)
+        rec = {"decode_ms_per_step": r["seconds"] / steps * 1e3,
+               "replicas_equal": r["replicas_equal"],
+               "launches": launches,
+               "launches_exact": launches == want if device.type == "cuda"
+               else None,
+               "first_divergence": _first_divergence(r["tokens"],
+                                                     one["tokens"]),
+               "tokens_equal_n1_until_near_tie": all(
+                   torch.equal(r["tokens"][b, :clear[b]],
+                               one["tokens"][b, :clear[b]])
+                   for b in range(B)),
+               "step0_logit_rel_diff": _rel(r["logits"][0],
+                                            one["logits"][0])}
+        if ref is not None:
+            rec["bitwise_1d_reference"] = all(
+                torch.equal(a, b) for a, b in zip(r["logits"],
+                                                  got[ref]["logits"]))
+        if label.endswith("rerun"):
+            prev = label[:-len(" rerun")]
+            rec["rerun_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(r["logits"],
+                                                  got[prev]["logits"]))
+        out["runs"][label] = rec
+        log(f"sp decode 2-D {label}", json.dumps(rec))
+        bad = [k for k, v in rec.items() if v is False]
+        if bad:
+            raise AssertionError(f"sp decode 2-D {label} failed {bad}: {rec}")
+    out["first_tokens"] = one["tokens"][:, :8].tolist()
+    del sharded, got
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _greedy_axis(params, cfg, cache, token, pos0: int, steps: int, ctx,
+                 axis, method: str) -> dict:
+    """``_greedy`` over ``axis`` (every layer's replicas compared at every
+    step)."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    toks, logits_all, checks = [], [], []
+    sync = torch.cuda.synchronize if token.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = llama.decode_step_sp(
+            ctx, params, token, pos0 + i, cfg, cache, axis=axis,
+            ag_method=method, replica_checks=checks)
+        token = logits.argmax(-1).to(torch.int32)
+        toks.append(token)
+        logits_all.append(logits)
+    sync()
+    seconds = time.perf_counter() - t0
+    check_errors(ctx)
+    return {"tokens": torch.stack(toks, 1), "logits": logits_all,
+            "seconds": seconds,
+            "replicas_equal": bool(torch.stack(checks).all())}
+
+
+def check_sp_decode_2d_f32(params, cfg, device, spec=SP_F32,
+                           runs=SP_2D_RUNS, seed: int = 17) -> dict:
+    """``decode_step_sp`` on (2, 2) over both axes and over b's groups, each
+    of ``runs``, against ``decode_step`` in f32 (``check_sp_decode_f32``'s
+    prompt and steps: over both axes the keys sit on ranks 0-2 of 4): fed
+    one rank's greedy tokens, the logits within
+    ``SP_F32_TOL`` of one rank's logit scale at every step, every replica
+    bitwise equal. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    B, prompt_len, steps, max_seq = (spec[k] for k in ("B", "prompt",
+                                                       "steps", "max_seq"))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompts = torch.randint(1, cfg.vocab_size, (B, prompt_len),
+                            generator=gen, device=device)
+    cache = llama.init_kv_cache(cfg, B, max_seq, device=device)
+    logits, cache = llama.prefill(params, prompts, cfg, cache)
+    ctx = _mesh_2d("2x2", device)
+    sharded = {run: llama.shard_kv_cache(cache, ctx.axis_size(run[0]))
+               for run in runs}
+    token = logits.argmax(-1).to(torch.int32)
+    worst, replicas_ok = {}, True
+    for i in range(steps):
+        pos = prompt_len + i
+        ref, cache = llama.decode_step(params, token, pos, cfg, cache)
+        scale = ref.abs().max()
+        for run in runs:
+            checks = []
+            got, sharded[run] = llama.decode_step_sp(
+                ctx, params, token, pos, cfg, sharded[run], axis=run[0],
+                ag_method=run[1], replica_checks=checks)
+            replicas_ok &= bool(torch.stack(checks).all())
+            key = f"{'+'.join(run[0])} {run[1]}"
+            worst[key] = max(worst.get(key, 0.0),
+                             ((got - ref).abs().max() / scale).item())
+        check_errors(ctx)
+        token = ref.argmax(-1).to(torch.int32)
+    rec = {"dtype": str(cfg.dtype), "layers": cfg.n_layers, "B": B,
+           "prompt": prompt_len, "steps": steps, "mesh": "2x2",
+           "max_rel_logit_diff": worst, "tol": SP_F32_TOL,
+           "replicas_equal": replicas_ok}
+    log("sp decode 2-D f32", json.dumps(rec))
+    if not (replicas_ok and all(v <= SP_F32_TOL for v in worst.values())):
+        raise AssertionError(f"SP decode over 2-D meshes in f32 disagrees "
+                             f"with one rank: {rec}")
+    return rec
+
+
+def collectives_2d_path(device, ag_shape=TP_AG, rs_shape=TP_RS) -> None:
+    """The collectives of phase 19 off the SP step, once each through their
+    entry points: B10 through an ``AgLLContext`` on the B = 1 SP wire at 4
+    ranks (``LL_CALLS`` calls), B12 of AG-GEMM's input at 4 ranks and over
+    b's groups of (2, 2), B13 over b's groups and as ``ring_2d`` on (2, 2)
+    at TP width, B11 and ``ring_2d`` of AG-GEMM's input on (2, 2)."""
+    import importlib
+
+    import torch
+
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    rs = importlib.import_module("triton_dist_tpu_torch.ops.reduce_scatter")
+    ctx4, ctx = _mesh(4, device), _mesh_2d("2x2", device)
+    agc = ag.AgLLContext(ctx4, 1, (1, HQ, D + 1), torch.float32)
+    wire = torch.ones((4, 1, HQ, D + 1), device=device)
+    for _ in range(LL_CALLS):
+        agc(wire)
+    x = torch.ones(ag_shape, dtype=torch.bfloat16, device=device)
+    ag.broadcast(ctx4, x.view(4, -1), root=0)
+    ag.broadcast(ctx, x.view(2, -1), axis="b", root=1)
+    for method in ("push_2d", "ring_2d"):
+        ag.all_gather(ctx, x, method=method)
+    M, W = rs_shape
+    rs.reduce_scatter(ctx, torch.ones((2 * M, W), device=device), axis="b")
+    rs.reduce_scatter(ctx, torch.ones((4 * M, W), device=device))
+    check_errors(ctx)
+    check_errors(ctx4)
+
+
+# the launches of collectives_2d_path
+COLL_2D_PATH_LAUNCHES = {"all_gather_ll": LL_CALLS, "broadcast": 2,
+                         "all_gather_push_2d": 1, "all_gather": 2,
+                         "reduce_scatter": 3}
+
+
+def profile_sp_step_2d(params, cfg, device, spec=SP_2D) -> dict:
+    """One decode step at G-long's last position on (2, 2) over both axes
+    (``push_2d``) and over b (``fused``): the median wall of three runs,
+    then one under ``torch.profiler`` for the device time by family and the
+    idle share."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    B, S = spec["B"], spec["max_seq"]
+    kv = spec["prompt"] + spec["steps"]
+    token = torch.ones(B, dtype=torch.int32, device=device)
+    ctx = _mesh_2d("2x2", device)
+    recs = {}
+    for axis, method in ((("a", "b"), "push_2d"), ("b", "fused")):
+        cache = llama.shard_kv_cache(
+            llama.init_kv_cache(cfg, B, S, device=device),
+            ctx.axis_size(axis))
+
+        def step():
+            lg = llama.decode_step_sp(ctx, params, token, kv - 1, cfg, cache,
+                                      axis=axis, ag_method=method)[0]
+            return lg.argmax(-1).cpu()
+
+        step()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[1]
+        fams, ops = device_time_by_family(
+            step, True, (("decode_partial", ("decode_partial_kernel",)),
+                         ("decode_combine", ("combine_kernel",)),
+                         ("push_2d", ("ag_push_2d_kernel",)),
+                         ("ll_ag_merge", ("ll_ag_merge_kernel",))))
+        busy = sum(fams.values())
+        key = f"{'+'.join(axis)} {method}"
+        recs[key] = {"rows": B, "kv_len": kv, "max_seq": S, "wall_s": wall,
+                     "device_busy_s": busy,
+                     "device_idle_share": 1 - busy / wall if busy else None,
+                     "device_s_by_family": fams, "device_ops": ops}
+        check_errors(ctx)
+        log(f"profile sp decode 2-D step {key}", json.dumps(recs[key]))
+        del cache
+    return recs
+
+
+def check_collectives_2d(params, cfg, device, card: str) -> dict:
+    """Phase 19 on the 32-layer bf16 params: B11 and ``ring_2d``, B10, B12,
+    B13 and B5 over groups against their plain versions with their hang
+    checks; then the main path with the launch counts set to 0 just before
+    it and read just after: SP decode on (2, 2) and its 1-D references,
+    and the collectives once each; then one step under the profiler."""
+    import torch
+
+    t0 = time.perf_counter()
+    kernels = {"gathers": check_gathers_2d(device),
+               "ll": check_ll_gather(device),
+               "broadcast": check_broadcast(device),
+               "rs": check_rs_2d(device),
+               "ll_ag_merge": check_ll_ag_merge_groups(device),
+               "hang_push_2d": hang_push_2d(device)}
+    torch.cuda.empty_cache()
+    log(f"phase 19 checks took {time.perf_counter() - t0:.1f} s")
+    counters = _sp_launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    decode = run_sp_decode_2d(params, cfg, device, card)
+    collectives_2d_path(device)
+    launches = {k: f.launches for k, f in counters.items()}
+    # the collectives once each, every SP run at its exact count (checked
+    # run by run) and one rank's decode_step (B3 and its combine)
+    expect = {k: COLL_2D_PATH_LAUNCHES.get(k, 0) for k in counters}
+    for rec in list(decode["runs"].values()) + [decode["n1"]]:
+        for k, v in rec["launches"].items():
+            expect[k] += v
+    log("phase 19 launches", json.dumps({"launches": launches,
+                                         "expected": expect}))
+    if launches != expect or not all(
+            launches[k] for k in ("all_gather_push_2d", "all_gather_ll",
+                                  "broadcast", "reduce_scatter",
+                                  "ll_ag_merge")):
+        raise AssertionError(f"phase 19 launches {launches} != {expect}")
+    profile = profile_sp_step_2d(params, cfg, device)
+    seconds = time.perf_counter() - t0
+    log(f"phase 19 took {seconds:.1f} s")
+    return {"kernels": kernels, "decode": decode, "profile": profile,
+            "launches": launches, "seconds": seconds}
+
+
+def collectives_2d_kernels(c2d: dict) -> list[dict]:
+    """The ``kernels`` line's entries of phase 19: B10, B11 and B12, each
+    headed by its main case (B11: AG-GEMM's input on (2, 2); B10: 16 KiB a
+    rank at 4 ranks; B12: 32 MiB at 4 ranks, root 0)."""
+    k = c2d["kernels"]
+    entries = []
+    for name, source, replaces, cases, prefix in (
+            ("all_gather_push_2d", "allgather.cu",
+             "triton_dist_tpu/ops/allgather.py:377",
+             [r for r in k["gathers"] if r["kernel"] == "all_gather_push_2d"]
+             + [k["hang_push_2d"]], "bfloat16 push_2d 2x2 AG-GEMM"),
+            ("all_gather_ll", "allgather.cu",
+             "triton_dist_tpu/ops/allgather.py:188", k["ll"],
+             "float32 n=4 16 KiB"),
+            ("broadcast", "allgather.cu",
+             "triton_dist_tpu/ops/allgather.py:464", k["broadcast"],
+             f"float32 4 over x root 0 {32 << 20}")):
+        main = next(r for r in cases if r.get("case", "").startswith(prefix))
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"triton_dist_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": c2d["launches"][name],
+            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in cases),
+            **{key: main.get(key) for key in (
+                "ms", "kernel_device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "case")},
+            "ranks_note": COLL_2D_NOTE, "cases": cases})
+    return entries
+
+
 def main() -> int:
     try:
         import torch
@@ -6437,6 +7317,7 @@ def main() -> int:
     check_model(params32, cfg32, device)
     decode_step_rec = check_decode_step(params32, cfg32, device)
     check_sp_decode_f32(params32, cfg32, device)
+    check_sp_decode_2d_f32(params32, cfg32, device)
     check_tp_forward_f32(params32, cfg32, device)
     check_tp_ranks_f32(params32, cfg32, device)
     del params32
@@ -6458,6 +7339,7 @@ def main() -> int:
     generation = check_generation(params, cfg, device, card)
     tp = check_tp_overlap(params, cfg, device, card)
     sp = check_sp_and_collectives(params, cfg, device, card)
+    coll2d = check_collectives_2d(params, cfg, device, card)
     tp_ranks = check_tp_ranks(params, cfg, device, card)
     disagg = check_disagg(params, cfg, device, card, trace,
                           engine.pop("tokens"))
@@ -6499,6 +7381,20 @@ def main() -> int:
                    "ll_merge": decode_step_rec["launches"]["ll_merge"]}
     slice7 = sp_kernels(sp, dec["all_gather"],
                         decode_step_rec["launches"]["all_gather"])
+    # phase 19's group and ring_2d cases and main-path launches of B9, B5
+    # and B13
+    k19 = coll2d["kernels"]
+    for entry in slice7:
+        name = entry["name"]
+        more = {"all_gather": [r for r in k19["gathers"]
+                               if r["kernel"] == "all_gather"],
+                "ll_ag_merge": k19["ll_ag_merge"],
+                "reduce_scatter": k19["rs"]}.get(name)
+        if more is not None:
+            entry["cases"] = entry["cases"] + more
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+                r["max_abs_err"] for r in more if "max_abs_err" in r])
+            entry["launches"] += coll2d["launches"][name]
     slice6 = long_moe_tp_kernels(moe) + moe_tp_ranks_kernels(
         moe["moe_tp_ranks"])
     ring_main = ring[0]               # bf16 S=4096 causal, the training shape
@@ -6582,7 +7478,8 @@ def main() -> int:
              tp["layers"]["gemm_rs"], [tp["layers"]["gemm_rs"]]),
             ("slot_reduce", "triton_dist_tpu/ops/gemm_reduce_scatter.py:88",
              tp["layers"]["slot_reduce"], [tp["layers"]["slot_reduce"]]))]
-        + slice6 + slice7 + tp_ranks_kernels(tp_ranks)
+        + slice6 + slice7 + collectives_2d_kernels(coll2d)
+        + tp_ranks_kernels(tp_ranks)
         + ep_kernels(moe["ep"]) + sp_modes_kernels(sp17, moe, disagg)}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """The port's collectives across ranks against the JAX package on the same
 numpy inputs: the push and ring ``all_gather`` (B9) and the ring
-``reduce_scatter`` (B13) at 4 ranks, and the ops outside the ported
-slices, which still refuse more than one rank (the gather and the barrier
-over a group inside a multi-axis mesh run now:
-``test_torch_ep_ranks.py``).
+``reduce_scatter`` (B13) at 4 ranks; the ops outside the ported slices,
+which still refuse more than one rank; and the group and 2-D forms of the
+collectives, which run (against JAX: ``test_torch_collectives_2d.py``; the
+gather and the barrier over a group: ``test_torch_ep_ranks.py``).
 
 On the CPU each wrapper runs its plain PyTorch version (copies; the ring's
 sums in its order and rounding); the JAX side runs its Pallas kernels in
@@ -148,15 +148,16 @@ def test_reduce_scatter_at_one_rank_is_the_contribution():
 
 def test_all_gather_without_axis_on_a_2d_mesh_raises():
     """With ``axis=None`` on a mesh of two axes the reference's ``auto``
-    gathers over every axis (its 2-D gathers, not ported: item 5) and an
-    explicit ``push`` or ``ring`` asks for ``axis=``; neither gathers over
-    the first axis alone. A one-axis mesh still gathers with no axis."""
+    gathers over every axis (its 2-D gathers: ``push_2d`` for a small
+    shard) and an explicit ``push`` or ``ring`` asks for ``axis=``; neither
+    gathers over the first axis alone. A one-axis mesh still gathers with no
+    axis."""
     ctx2d = initialize_distributed(("a", "b"), (2, 2), device="cpu")
     x = torch.arange(8.).reshape(8, 1)
-    with pytest.raises(NotImplementedError, match='item 5 .collectives.'):
-        tag.all_gather(ctx2d, x)
-    with pytest.raises(NotImplementedError, match='item 5 .collectives.'):
-        AllGatherLayer(ctx2d)(x)
+    assert tag.auto_method(ctx2d, x, None) == "push_2d"
+    for got in (tag.all_gather(ctx2d, x), AllGatherLayer(ctx2d)(x)):
+        assert got.shape == (4, 8, 1)
+        assert all(torch.equal(g, x) for g in got)
     for method in ("push", "ring"):
         with pytest.raises(ValueError, match="axis="):
             tag.all_gather(ctx2d, x, method=method)
@@ -177,22 +178,18 @@ def _raising_calls():
     axes and inside a multi-axis mesh)."""
     from triton_dist_tpu_torch.models import llama as tl
     from triton_dist_tpu_torch.ops import allgather_gemm as tagg
-    from triton_dist_tpu_torch.ops import flash_decode as tfd
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as tgrs
     from triton_dist_tpu_torch.ops import moe as tmoe
     from triton_dist_tpu_torch.parallel.train import (ParallelPlan,
                                                       make_train_step)
 
-    ctx = initialize_distributed(("x",), (N,), device="cpu")
     ctx2d = initialize_distributed(("a", "b"), (2, 2), device="cpu")
     a, b = torch.zeros(8, 8), torch.zeros(8, 8)
     tp6 = 'item 6 "TP overlap across ranks"'
     moe7 = 'item 7 "MoE / EP across ranks"'
-    coll5 = 'item 5 "collectives"'
     cfg = dataclasses.replace(tl.LlamaConfig.tiny(n_layers=1),
                               dtype=torch.float32)
     ids = torch.zeros(8, dtype=torch.int32)
-    q = torch.zeros(2, 4, 32)
     return [
         ("ag_gemm over two axes", lambda: tagg.ag_gemm(
             ctx2d, a, b, axis=("a", "b")), tp6),
@@ -202,9 +199,6 @@ def _raising_calls():
             ctx2d, a, b, axis=("a", "b")), tp6),
         ("gemm_rs_ws inside a 2-D mesh", lambda: tgrs.create_gemm_rs_workspace(
             ctx2d, 2, 8, axis="a"), tp6),
-        ("ll_ag_merge inside a 2-D mesh", lambda: tfd.ll_ag_merge(
-            ctx2d, torch.zeros(2, 2, 4, 32), torch.zeros(2, 2, 4),
-            torch.float32, axis="a"), coll5),
         ("mlp_tp_overlap inside a 2-D mesh", lambda: tl.mlp_tp_overlap(
             ctx2d, a, a, a, a, axis="b"), tp6),
         ("ag_moe_group_gemm inside a 2-D mesh", lambda: tmoe.
@@ -222,34 +216,89 @@ def _raising_calls():
         ("moe_reduce_rs over two axes", lambda: tmoe.moe_reduce_rs(
             ctx2d, a, ids, torch.ones(4, 2), torch.zeros(4, 8, 8),
             axis=("a", "b")), moe7),
-        ("all_gather ring_2d", lambda: tag.all_gather(ctx, a,
-                                                      method="ring_2d"),
-         coll5),
-        ("all_gather push_2d", lambda: AllGatherLayer(ctx).forward_push_2d(
-            a), coll5),
-        ("all_gather ll", lambda: tag.all_gather(ctx, a, method="ll"), coll5),
-        ("broadcast", lambda: tag.all_gather(ctx, a, method="broadcast"),
-         coll5),
-        ("reduce_scatter inside a 2-D mesh", lambda: trs.reduce_scatter(
-            ctx2d, a, axis="b"), coll5),
-        ("reduce_scatter ring_2d", lambda: trs.reduce_scatter(
-            ctx2d, a, method="ring_2d"), coll5),
-        ("reduce_scatter xla", lambda: trs.reduce_scatter(ctx, a,
-                                                          method="xla"),
-         coll5),
-        ("reduce_scatter over two axes", lambda: trs.reduce_scatter(
-            ctx2d, a, axis=("a", "b")), coll5),
-        ("sp_gqa_flash_decode inside a 2-D mesh", lambda: tfd.
-         sp_gqa_flash_decode(ctx2d, q, None, None, None, axis="a"), coll5),
     ]
 
 
-@pytest.mark.parametrize("case", range(20))
+@pytest.mark.parametrize("case", range(10))
 def test_ops_outside_the_slice_refuse_more_ranks(case):
     """Each op this slice does not port still raises at more than one rank,
     naming the ROADMAP item it waits for."""
     calls = _raising_calls()
-    assert len(calls) == 20
+    assert len(calls) == 10
     name, call, item = calls[case]
     with pytest.raises(NotImplementedError, match=item.replace('"', '.')):
         call()
+
+
+def _collective_forms():
+    """(name, check) of the forms the walk above named as waiting for the
+    collectives: each now runs, or raises the reference's ``ValueError``."""
+    from triton_dist_tpu_torch.ops import flash_decode as tfd
+
+    ctx = initialize_distributed(("x",), (N,), device="cpu")
+    ctx2d = initialize_distributed(("a", "b"), (2, 2), device="cpu")
+    a = _t(_shards("float32", 4, rows=32))
+    contrib = torch.round(a * 4)            # integer-valued: exact sums
+
+    def merge_in_groups():
+        outs, lses = torch.randn(2, 2, 4, 32), torch.randn(2, 2, 4)
+        got = tfd.ll_ag_merge(ctx2d, outs, lses, torch.float32, axis="a")
+        assert got.shape == (4, 2, 4, 32)
+        assert all(torch.equal(g, tfd.ll_merge(outs, lses)) for g in got)
+
+    def raises(call, match):
+        with pytest.raises(ValueError, match=match):
+            call()
+
+    def rs_in_groups():
+        got = trs.reduce_scatter(ctx2d, contrib[:8], axis="b")
+        assert torch.equal(got, contrib[:4] + contrib[4:8])
+
+    def rs_two_axes(**kw):
+        got = trs.reduce_scatter(ctx2d, contrib, **kw)
+        assert torch.equal(got, contrib.view(4, 8, W).sum(0))
+
+    def sp_in_groups():
+        gen = torch.Generator().manual_seed(0)
+        q = torch.randn(2, 4, 32, generator=gen)
+        k, v = (torch.randn(2, 2, 2, 16, 32, generator=gen)
+                for _ in range(2))
+        lens = torch.tensor([32, 5], dtype=torch.int32)
+        got = tfd.sp_gqa_flash_decode(ctx2d, q, k, v, lens, axis="a")
+        one = tfd.sp_gqa_flash_decode(
+            initialize_distributed(("x",), (2,), device="cpu"), q, k, v,
+            lens)
+        assert torch.equal(got, one)
+
+    return [
+        ("ll_ag_merge inside a 2-D mesh", merge_in_groups),
+        ("all_gather ring_2d on one axis", lambda: raises(
+            lambda: tag.all_gather(ctx, a, method="ring_2d"),
+            "two or more axes")),
+        ("all_gather push_2d on one axis", lambda: raises(
+            lambda: AllGatherLayer(ctx).forward_push_2d(a),
+            "two or more axes")),
+        ("all_gather ll", lambda: raises(
+            lambda: tag.all_gather(ctx, a, method="ll"),
+            "unknown allgather method")),
+        ("all_gather broadcast", lambda: raises(
+            lambda: tag.all_gather(ctx, a, method="broadcast"),
+            "unknown allgather method")),
+        ("reduce_scatter inside a 2-D mesh", rs_in_groups),
+        ("reduce_scatter ring_2d", lambda: rs_two_axes(method="ring_2d")),
+        ("reduce_scatter xla", lambda: rs_two_axes(method="xla")),
+        ("reduce_scatter over two axes", lambda: rs_two_axes(
+            axis=("a", "b"))),
+        ("sp_gqa_flash_decode inside a 2-D mesh", sp_in_groups),
+    ]
+
+
+@pytest.mark.parametrize("case", range(10))
+def test_collective_forms_across_the_mesh_run(case):
+    """The ten forms the walk of ``test_ops_outside_the_slice_refuse_more_
+    ranks`` dropped: the group and 2-D collectives give their plain
+    results, and the forms the reference refuses raise its
+    ``ValueError``."""
+    forms = _collective_forms()
+    assert len(forms) == 10
+    forms[case][1]()

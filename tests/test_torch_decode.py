@@ -168,7 +168,7 @@ def test_all_gather_one_rank_matches_jax(method):
     assert tag.all_gather.launches == launches     # CPU: the plain version
     assert got.shape == want.shape and np.array_equal(got.numpy(),
                                                       np.asarray(want))
-    with pytest.raises(NotImplementedError, match='item 5 "collectives"'):
+    with pytest.raises(ValueError, match="two or more axes"):
         tag.all_gather(initialize_distributed(("x",), device="cpu"), _t(x),
                        method="push_2d")
 
@@ -289,8 +289,10 @@ def test_sp_layer_max_batch_padding_equals_the_unpadded_call():
     assert sub.shape == (2, HQ, D)
     assert torch.equal(sub, full[:2])
     assert torch.equal(padded(q, k, v, lens), full)
-    with pytest.raises(NotImplementedError, match="ag_method"):
+    with pytest.raises(ValueError, match="two or more axes"):
         dataclasses.replace(plain, ag_method="push_2d")(q, k, v, lens)
+    with pytest.raises(ValueError, match="ag_method"):
+        dataclasses.replace(plain, ag_method="tree")(q, k, v, lens)
 
 
 def test_paged_layer_update_and_attend_equals_write_then_attend():

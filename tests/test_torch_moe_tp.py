@@ -174,5 +174,5 @@ def test_allgather_layer_matches_jax(jctx, tctx, method):
     got = tfn(_t(x))
     np.testing.assert_array_equal(got.numpy(), want)
     for two_d in (tlayer.forward_push_2d, tlayer.forward_ring_2d):
-        with pytest.raises(NotImplementedError, match="collectives"):
+        with pytest.raises(ValueError, match="two or more axes"):
             two_d(_t(x))

@@ -152,10 +152,10 @@ def test_build_digest_sees_the_shared_header(tmp_path, monkeypatch):
     includes, so an edited ``shmem.cuh`` rebuilds (nothing is built
     here)."""
     assert [h.name for h in csrc.local_headers(
-        csrc._DIR / "allgather.cu")] == ["shmem.cuh"]
+        csrc._DIR / "allgather.cu")] == ["ag_relay_2d.cuh", "shmem.cuh"]
     for name in ("allgather", "reduce_scatter", "flash_decode", "shmem"):
         assert name in csrc.SOURCES
-    for name in ("allgather.cu", "shmem.cuh"):
+    for name in ("allgather.cu", "ag_relay_2d.cuh", "shmem.cuh"):
         (tmp_path / name).write_bytes((csrc._DIR / name).read_bytes())
     monkeypatch.setattr(csrc, "_DIR", tmp_path)
     before = csrc.library_path("allgather")

@@ -466,42 +466,50 @@ __global__ void __launch_bounds__(kThreads)
 // `me` of every peer, then merges segments 0..n-1 in that order, waiting for
 // each once and reading its own directly: every rank's replica gets the
 // same bits.
+//
+// Over an axis inside a multi-axis mesh it runs in groups (G): grid
+// (lanes, N) covers every rank of the mesh, the segments are the members
+// of a rank's group by their index in it, and the tables are indexed by
+// flat rank. A `silent` rank (-1 for none) puts but never signals (the
+// hang check).
 template <typename TO>
 __global__ void __launch_bounds__(kThreads)
     ll_ag_merge_kernel(tdt_shmem::PeerTable outs, tdt_shmem::PeerTable lses,
                        tdt_shmem::PeerTable ws, tdt_shmem::PeerTable res, int rows, int D,
-                       tdt_shmem::PeerTable pads, tdt_shmem::Launch L) {
+                       tdt_shmem::PeerTable pads, tdt_shmem::Group G, int silent,
+                       tdt_shmem::Launch L) {
   using namespace tdt_shmem;
-  const int me = my_pe();
-  const int n = n_pes();
+  const int me = group_me(G);
+  const int n = group_n(G);
+  const int pe = my_pe();
   const int lanes = gridDim.x;
   const int lane_id = blockIdx.x;
   const int lane = threadIdx.x % 32;
-  if (!barrier_all_block(pads, lane_id, L)) return;
+  if (!barrier_group_block(pads, lane_id, G, L)) return;
   const int r0 = lane_id * kWarps;
   const int nr = min(kWarps, rows - r0);
   const size_t slot_floats = (size_t)rows * (D + 1);
-  const float* my_outs = symm_at<const float>(outs, me);
-  const float* my_lses = symm_at<const float>(lses, me);
+  const float* my_outs = symm_at<const float>(outs, pe);
+  const float* my_lses = symm_at<const float>(lses, pe);
   for (int p = 0; p < n; ++p) {
     if (p == me) continue;
-    float* slot = symm_at<float>(ws, p) + (size_t)me * slot_floats;
+    float* slot = symm_at<float>(ws, group_pe(G, p)) + (size_t)me * slot_floats;
     putmem_nbi_block(slot + (size_t)r0 * D, my_outs + (size_t)r0 * D,
                      (long long)nr * D * sizeof(float));
     putmem_nbi_block(slot + (size_t)rows * D + r0, my_lses + r0, (long long)nr * sizeof(float));
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && pe != silent) {
     __threadfence();
     for (int p = 0; p < n; ++p)
-      if (p != me) signal_op(symm_at<int>(pads, p) + lanes + me * lanes + lane_id, 1);
+      if (p != me) signal_op(symm_at<int>(pads, group_pe(G, p)) + lanes + me * lanes + lane_id, 1);
   }
   const int row = r0 + threadIdx.x / 32;
-  const float* arrived = symm_at<const float>(ws, me);
+  const float* arrived = symm_at<const float>(ws, pe);
   MergeRow r;
   for (int seg = 0; seg < n; ++seg) {
     const int word = lanes + seg * lanes + lane_id;
-    if (seg != me && !wait_block(symm_at<int>(pads, me) + word, 1, true, L, word)) return;
+    if (seg != me && !wait_block(symm_at<int>(pads, pe) + word, 1, true, L, word)) return;
     if (row >= rows) continue;
     if (seg == me) {
       const float* o = my_outs + (size_t)row * D;
@@ -518,7 +526,7 @@ __global__ void __launch_bounds__(kThreads)
         merge_next<true>(r, base + (size_t)row * D, l, D, lane);
     }
   }
-  if (row < rows) merge_store<TO>(r, symm_at<TO>(res, me) + (size_t)row * D, D, lane);
+  if (row < rows) merge_store<TO>(r, symm_at<TO>(res, pe) + (size_t)row * D, D, lane);
   quiet();
 }
 
@@ -578,14 +586,18 @@ int launch_merge(const void* outs, const void* lses, void* out, int n, int rows,
 template <typename TO>
 int launch_ll_ag_merge(const void* const* outs, const void* const* lses, const void* const* ws,
                        const void* const* res, int rows, int D, const void* const* pads, int n,
-                       void* claim, void* report, unsigned long long budget_ns, void* stream) {
+                       const void* group, int silent, void* claim, void* report,
+                       unsigned long long budget_ns, void* stream) {
   using namespace tdt_shmem;
-  if (n < 2 || n > kMaxPes || rows <= 0 || D <= 0 || D > 32 * kMaxColsPerLane)
+  if (n < 2 || n > kMaxPes || rows <= 0 || D <= 0 || D > 32 * kMaxColsPerLane ||
+      group == nullptr)
     return (int)cudaErrorInvalidValue;
+  const Group G = *static_cast<const Group*>(group);
+  if (G.n < 2 || G.n > n) return (int)cudaErrorInvalidValue;
   const int lanes = (rows + kWarps - 1) / kWarps;
   return launch_cooperative(ll_ag_merge_kernel<TO>, dim3(lanes, n), dim3(kThreads), 0, stream,
                             make_table(outs, n), make_table(lses, n), make_table(ws, n),
-                            make_table(res, n), rows, D, make_table(pads, n),
+                            make_table(res, n), rows, D, make_table(pads, n), G, silent,
                             make_launch(claim, report, budget_ns, kLlAgMerge));
 }
 
@@ -641,21 +653,24 @@ int tdt_ll_merge_bf16(const void* outs, const void* lses, void* out, int n, int 
 }
 
 // outs / lses: n pointers to each rank's partial [rows, D] / [rows] f32;
-// ws: n pointers to each rank's n slots of rows * (D + 1) f32; res: n
-// pointers to each rank's merged [rows, D]; pads: n pointers to pads of
-// >= (n + 1) * ceil(rows / 4) zero words. n >= 2.
+// ws: n pointers to each rank's g slots of rows * (D + 1) f32 (g the group
+// size); res: n pointers to each rank's merged [rows, D]; pads: n pointers
+// to pads of >= (g + 1) * ceil(rows / 4) zero words; group: the merge's
+// groups over the n ranks (g >= 2).
 int tdt_ll_ag_merge_f32(const void* const* outs, const void* const* lses, const void* const* ws,
                         const void* const* res, int rows, int D, const void* const* pads, int n,
-                        void* claim, void* report, unsigned long long budget_ns, void* stream) {
-  return launch_ll_ag_merge<float>(outs, lses, ws, res, rows, D, pads, n, claim, report,
-                                   budget_ns, stream);
+                        const void* group, int silent, void* claim, void* report,
+                        unsigned long long budget_ns, void* stream) {
+  return launch_ll_ag_merge<float>(outs, lses, ws, res, rows, D, pads, n, group, silent, claim,
+                                   report, budget_ns, stream);
 }
 
 int tdt_ll_ag_merge_bf16(const void* const* outs, const void* const* lses, const void* const* ws,
                          const void* const* res, int rows, int D, const void* const* pads, int n,
-                         void* claim, void* report, unsigned long long budget_ns, void* stream) {
-  return launch_ll_ag_merge<__nv_bfloat16>(outs, lses, ws, res, rows, D, pads, n, claim, report,
-                                           budget_ns, stream);
+                         const void* group, int silent, void* claim, void* report,
+                         unsigned long long budget_ns, void* stream) {
+  return launch_ll_ag_merge<__nv_bfloat16>(outs, lses, ws, res, rows, D, pads, n, group, silent,
+                                           claim, report, budget_ns, stream);
 }
 
 const char* tdt_cuda_error_string(int code) {

@@ -70,6 +70,9 @@ enum Kernel : int {
   kPagedTransport = 13,
   kAgMoe = 14,
   kMoeRs = 15,
+  kAgLl = 16,
+  kAgPush2d = 17,
+  kBcast = 18,
 };
 
 // The n base pointers of one symmetric buffer, rank r's at ptr[r].
@@ -390,8 +393,10 @@ __device__ __forceinline__ int finish_word() { return gridDim.x + gridDim.y; }
 // The end of the call for one block, which reads no count of its rank's pad
 // any more: the last block of the rank to get here waits until the count of
 // every segment but `skip` holds `value`, consumes them all and zeroes the
-// finish word. All threads call it; false on error.
-__device__ __noinline__ bool finish_block(int* pad, int value, int skip, const Launch& L) {
+// finish word. The segments are the launch's ranks, or the `segments`
+// members of a group. All threads call it; false on error.
+__device__ __noinline__ bool finish_block(int* pad, int value, int skip, const Launch& L,
+                                          int segments = -1) {
   __shared__ int last;
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -400,7 +405,8 @@ __device__ __noinline__ bool finish_block(int* pad, int value, int skip, const L
   }
   __syncthreads();
   if (!last) return true;
-  for (int s = 0; s < (int)gridDim.y; ++s)
+  if (segments < 0) segments = (int)gridDim.y;
+  for (int s = 0; s < segments; ++s)
     if (s != skip && !wait_block(pad + count_word(s), value, true, L, count_word(s)))
       return false;
   if (threadIdx.x == 0) atomicExch(pad + finish_word(), 0);

@@ -25,15 +25,17 @@ from triton_dist_tpu_torch.shmem.context import ShmemContext
 class SpGQAFlashDecodeAttention:
     """Sequence-parallel GQA decode attention (``sp_gqa_flash_decode``):
     each rank's split-KV partial, the partial all-gather and the lse merge,
-    over every rank of ``ctx``'s ``axis``. At one rank the cache is [B,
-    Hkv, S, D]; at n ranks it is sharded on S, rank-major [n, B, Hkv, S /
-    n, D]. Returns rank 0's replica (every rank's is the same)."""
+    over ``ctx``'s ``axis``: one axis (in a multi-axis mesh, each group
+    along it apart) or a tuple of axes (``ag_method`` ``push_2d``,
+    ``ring_2d`` or ``auto``). At one rank the cache is [B, Hkv, S, D]; at n
+    ranks along the axis it is sharded on S, rank-major [n, B, Hkv, S / n,
+    D]. Returns rank 0's replica (every rank's is the same)."""
 
     ctx: ShmemContext
     num_q_heads: int
     num_kv_heads: int
     head_dim: int
-    axis: str | None = None
+    axis: str | tuple | None = None
     block_s: int = 128
     ag_method: str = "fused"
     max_batch: int | None = None

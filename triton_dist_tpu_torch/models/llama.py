@@ -438,15 +438,18 @@ def decode_step(params: dict, token, pos, cfg: LlamaConfig, cache: dict,
 
 
 def decode_step_sp(ctx, params: dict, token, pos, cfg: LlamaConfig,
-                   cache: dict, axis: str | None = None,
+                   cache: dict, axis=None,
                    ag_method: str = "fused", ffn=None,
                    replica_checks: list | None = None):
     """``decode_step`` with sequence-parallel attention
     (``sp_gqa_flash_decode``: each rank's partial over its KV shard, the
-    partial all-gather and the lse merge) over the mesh axis ``axis`` of
-    ``ctx``. At one rank the cache is ``init_kv_cache``'s and the merge of
-    one partial keeps its bits, so the logits equal ``decode_step``'s bit
-    for bit. At n ranks the cache is sharded on S (``shard_kv_cache``),
+    partial all-gather and the lse merge) over ``axis`` of ``ctx``: one
+    mesh axis (in a multi-axis mesh, each group along it apart, every group
+    computing the same step) or a tuple of axes, flattened major to minor
+    (``ag_method`` ``push_2d``, ``ring_2d`` or ``auto``). At one rank the
+    cache is ``init_kv_cache``'s and the merge of one partial keeps its
+    bits, so the logits equal ``decode_step``'s bit for bit. At n ranks
+    along ``axis`` the cache is sharded on S (``shard_kv_cache``),
     the new token's (k, v) lands in the shard that owns ``pos``, and the
     rest of the layer (weights replicated) runs once on rank 0's replica of
     the attention. With

@@ -1,4 +1,7 @@
-from triton_dist_tpu_torch.ops.allgather import all_gather, all_gather_plain
+from triton_dist_tpu_torch.ops.allgather import (AgLLContext, all_gather,
+                                                 all_gather_ll,
+                                                 all_gather_plain, broadcast,
+                                                 create_ag_ll_workspace)
 from triton_dist_tpu_torch.ops.common import barrier_all_op, barrier_all_plain
 from triton_dist_tpu_torch.ops.allgather_gemm import (
     AgGemmContext, ag_gemm, ag_gemm_plain, ag_gemm_ws, create_ag_gemm_context,
@@ -35,7 +38,8 @@ from triton_dist_tpu_torch.ops.ring_attention import (
     ring_attention, ring_attention_bwd, ring_attention_bwd_plain,
     ring_attention_fwd, ring_attention_fwd_plain, zigzag_indices)
 
-__all__ = ["AgGemmContext", "FD_EMPTY", "GemmConfig", "GemmRsContext",
+__all__ = ["AgGemmContext", "AgLLContext", "all_gather_ll", "broadcast",
+           "create_ag_ll_workspace", "FD_EMPTY", "GemmConfig", "GemmRsContext",
            "NEG_INF", "SPLIT_KEYS", "ag_gemm", "ag_moe_group_gemm", "ag_gemm_diff", "ag_gemm_ws",
            "align_tokens_by_expert", "all_gather", "all_gather_plain",
            "ag_gemm_plain", "barrier_all_op", "barrier_all_plain",

@@ -2,8 +2,8 @@
 the signal pad of each kernel family, and the rules for the ranks a
 collective spans: a group along an axis of the mesh
 (``shmem.device.group_plan``: one launch covers every rank, each rank talks
-to its own group only), or, for the ops not yet taught groups, the whole
-mesh (``spans_every_rank``).
+to its own group only), or, for the TP and MoE overlap ops not yet taught
+groups, the whole mesh (``spans_every_rank``).
 
 Counterpart of ``triton_dist_tpu/ops/common.py``. The JAX package keys each
 kernel family's barrier semaphore by a stable ``collective_id_for(name)``;
@@ -21,9 +21,6 @@ import torch
 from triton_dist_tpu_torch import csrc
 from triton_dist_tpu_torch.shmem import device as shd
 
-COLLECTIVES = 'ROADMAP.md Queue A, item 5 "collectives"'
-
-
 def family_pad(ctx, family: str, axis, words: int) -> torch.Tensor:
     """The signal pad of ``family`` over ``axis`` (at least ``words``
     int32 words a rank)."""
@@ -33,11 +30,10 @@ def family_pad(ctx, family: str, axis, words: int) -> torch.Tensor:
     return ctx.signal_pad(name, words)
 
 
-def spans_every_rank(ctx, axis, op: str, item: str = COLLECTIVES) -> int:
-    """The ranks along ``axis``. One launch covers every rank of the mesh,
-    so the group must be the whole mesh: a group inside a multi-axis mesh
-    (the 2-D and hierarchical paths) raises ``NotImplementedError`` naming
-    the ROADMAP ``item`` it waits for."""
+def spans_every_rank(ctx, axis, op: str, item: str) -> int:
+    """The ranks along ``axis`` of an op not yet taught groups: the group
+    must be the whole mesh, and a group inside a multi-axis mesh raises
+    ``NotImplementedError`` naming the ROADMAP ``item`` it waits for."""
     n = ctx.axis_size(axis)
     if n != ctx.num_ranks:
         raise NotImplementedError(
@@ -82,5 +78,5 @@ def barrier_all_op(ctx, axis: str | None = None):
 
 barrier_all_op.launches = 0
 
-__all__ = ["COLLECTIVES", "barrier_all_op", "barrier_all_plain",
+__all__ = ["barrier_all_op", "barrier_all_plain",
            "family_pad", "spans_every_rank"]

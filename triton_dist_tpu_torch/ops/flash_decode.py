@@ -31,8 +31,10 @@ A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel or raises, and adds one to its ``launches`` count at
 each launch. ``ll_ag_merge``, ``sp_gqa_flash_decode``, ``flash_decode_dist``
 and ``pool_ag_start_local`` run at any rank count of the mesh (every rank
-on one card, see ``shmem/context.py``); the last two also over an axis
-inside a multi-axis mesh, in groups (``shmem.device.group_plan``).
+on one card, see ``shmem/context.py``), and over an axis inside a
+multi-axis mesh, in groups (``shmem.device.group_plan``);
+``sp_gqa_flash_decode`` also over a tuple of axes, through the 2-D
+gathers (``all_gather`` with ``push_2d``/``ring_2d``).
 ``flash_decode_dist`` at n > 1 runs B7 over each rank's slice of the pool,
 then B8, in blocks of rows that bound the slabs' memory.
 ``sp_paged_attend_write`` is the sharded serving engine's SP attention:
@@ -56,7 +58,7 @@ import torch
 
 from triton_dist_tpu_torch import csrc
 from triton_dist_tpu_torch.ops.allgather import all_gather, lanes_for
-from triton_dist_tpu_torch.ops.common import family_pad, spans_every_rank
+from triton_dist_tpu_torch.ops.common import family_pad
 from triton_dist_tpu_torch.shmem import device as shd
 
 NEG_INF = -1e30
@@ -350,8 +352,9 @@ _COMBINE_ENTRIES = {(torch.float32, torch.float32): "tdt_decode_combine_f32",
                         "tdt_decode_combine_f32_bf16"}
 _MERGE_ENTRIES = {torch.float32: "tdt_ll_merge_f32",
                   torch.bfloat16: "tdt_ll_merge_bf16"}
-# outs lses ws res rows D pads n, then the shmem layer's launch arguments
-_LL_AG_SIG = [_P, _P, _P, _P, _I, _I, _P, _I] + shd.LAUNCH_SIG
+# outs lses ws res rows D pads n group silent, then the shmem layer's
+# launch arguments
+_LL_AG_SIG = [_P, _P, _P, _P, _I, _I, _P, _I, _P, _I] + shd.LAUNCH_SIG
 _LL_AG_ENTRIES = {torch.float32: "tdt_ll_ag_merge_f32",
                   torch.bfloat16: "tdt_ll_ag_merge_bf16"}
 # rows of the (B, Hq) partials one block of the fused merge takes (its warps)
@@ -654,36 +657,50 @@ def ll_merge(partial_outs, partial_lses, out_dtype=torch.float32):
 ll_merge.launches = 0
 
 
-def ll_ag_merge_plain(partial_outs, partial_lses, out_dtype=torch.float32):
+def ll_ag_merge_plain(partial_outs, partial_lses, out_dtype=torch.float32,
+                     replicas: int | None = None):
     """The plain version of ``ll_ag_merge`` at n ranks: every rank merges
     the same segments in the same order, so each replica is
-    ``ll_merge_plain`` of the stacked partials: [n, B, Hq, D]."""
+    ``ll_merge_plain`` of the stacked partials: [replicas, B, Hq, D]
+    (``replicas`` n unless the group lies inside a larger mesh)."""
     merged = ll_merge_plain(partial_outs, partial_lses, out_dtype)
-    n = partial_outs.shape[0]
+    n = replicas or partial_outs.shape[0]
     return merged.unsqueeze(0).expand((n,) + tuple(merged.shape)).clone()
 
 
-def ll_ag_merge(ctx, partial_outs, partial_lses, out_dtype, axis: str):
-    """The fused partial all-gather and lse merge (TPU kernel B5). Rank r's
-    partial is ``(partial_outs[r] [B, Hq, D] f32, partial_lses[r] [B, Hq])``;
-    each rank gathers every rank's partial over ``axis`` and merges them in
-    canonical rank order with ``ll_merge``'s running rescale.
+def ll_ag_merge(ctx, partial_outs, partial_lses, out_dtype, axis: str,
+                silent_rank: int | None = None):
+    """The fused partial all-gather and lse merge (TPU kernel B5) over the
+    mesh axis ``axis`` (one name: B5 is a one-axis kernel in the reference,
+    so a tuple raises ``ValueError``). The group member at index r holds the
+    partial ``(partial_outs[r] [B, Hq, D] f32, partial_lses[r] [B, Hq])``
+    (sharded over ``axis``, replicated over the other axes); each rank
+    gathers its group's partials and merges them in canonical order with
+    ``ll_merge``'s running rescale.
 
-    At one rank it returns the merge of the one partial ([B, Hq, D] in
-    ``out_dtype``, the ``ll_merge`` kernel). At n ranks it returns every
-    rank's replica, [n, B, Hq, D], each equal to ``ll_merge`` of the stacked
-    partials bit for bit: on a CUDA tensor one launch covering every rank
-    puts each partial into every peer's workspace and merges as the
-    segments land (``csrc/flash_decode.cu``; it adds one to
-    ``ll_ag_merge.launches``); a CPU tensor runs the plain version."""
-    n = spans_every_rank(ctx, axis, "ll_ag_merge")
+    At one rank along ``axis`` it returns the merge of the one partial ([B,
+    Hq, D] in ``out_dtype``, the ``ll_merge`` kernel). At n ranks it returns
+    every rank of the mesh's replica, [N, B, Hq, D], each equal to
+    ``ll_merge`` of the stacked partials bit for bit: on a CUDA tensor one
+    launch covering every rank, every group, puts each partial into every
+    group member's workspace and merges as the segments land
+    (``csrc/flash_decode.cu``; it adds one to ``ll_ag_merge.launches``); a
+    CPU tensor runs the plain version. ``silent_rank`` (the card) names a
+    rank that puts but never signals: the call then raises ``ShmemError``
+    once the spin budget has passed."""
+    if not isinstance(axis, str):
+        raise ValueError(f"ll_ag_merge runs over one mesh axis, got "
+                         f"{axis!r}: gather over several axes with "
+                         f"all_gather (push_2d / ring_2d)")
+    n, group, _, _ = shd.group_plan(ctx, axis)
+    N = ctx.num_ranks
     if partial_outs.shape[0] != n or partial_lses.shape[0] != n:
         raise ValueError(f"ll_ag_merge: expected {n} partials, got "
                          f"{partial_outs.shape[0]}")
     if n == 1:
         return ll_merge(partial_outs, partial_lses, out_dtype)
     if partial_outs.device.type == "cpu":
-        return ll_ag_merge_plain(partial_outs, partial_lses, out_dtype)
+        return ll_ag_merge_plain(partial_outs, partial_lses, out_dtype, N)
     _check_cuda("ll_ag_merge", (partial_outs, partial_lses))
     if partial_outs.dtype != torch.float32 \
             or partial_lses.dtype != torch.float32 \
@@ -700,18 +717,21 @@ def ll_ag_merge(ctx, partial_outs, partial_lses, out_dtype, axis: str):
                          f"{tuple(partial_lses.shape)}")
     rows = partial_outs[0].numel() // D
     lanes = -(-rows // _LL_AG_ROWS)
-    out = torch.empty(partial_outs.shape, dtype=out_dtype,
+    out = torch.empty((N,) + tuple(partial_outs.shape[1:]), dtype=out_dtype,
                       device=partial_outs.device)
-    ws = torch.empty(n, n * rows * (D + 1), dtype=torch.float32,
+    ws = torch.empty(N, n * rows * (D + 1), dtype=torch.float32,
                      device=partial_outs.device)
     pad = family_pad(ctx, "ll_ag_merge", axis, (n + 1) * lanes)
-    outs_t, lses_t, ws_t, res_t, pads = shd.tables(
-        ctx, partial_outs, partial_lses, ws, out, pad)
+    outs_t = shd.group_table(ctx, partial_outs, axis)
+    lses_t = shd.group_table(ctx, partial_lses, axis)
+    ws_t, res_t, pads = shd.tables(ctx, ws, out, pad)
     lib = _fd_lib()
     args = shd.launch_args(ctx)
     with csrc.current_on(out.device):
         rc = getattr(lib, _LL_AG_ENTRIES[out_dtype])(
-            outs_t, lses_t, ws_t, res_t, rows, D, pads, n, *args)
+            outs_t, lses_t, ws_t, res_t, rows, D, pads, N,
+            ctypes.byref(group), -1 if silent_rank is None else silent_rank,
+            *args)
     csrc.check(lib, rc, "ll_ag_merge")
     ll_ag_merge.launches += 1
     return out
@@ -719,7 +739,10 @@ def ll_ag_merge(ctx, partial_outs, partial_lses, out_dtype, axis: str):
 
 ll_ag_merge.launches = 0
 
-AG_METHODS = ("fused", "push", "ring")
+# the gathers of the SP decode over one axis (auto: push or ring), and over
+# a tuple of axes (auto: push_2d or ring_2d)
+AG_METHODS = ("fused", "push", "ring", "auto")
+AG_METHODS_2D = ("push_2d", "ring_2d")
 
 
 def sp_local_lens(global_kv_lens, n: int, s_local: int):
@@ -732,36 +755,46 @@ def sp_local_lens(global_kv_lens, n: int, s_local: int):
 
 
 def sp_gqa_flash_decode(ctx, q, k_cache, v_cache, global_kv_lens,
-                        axis: str | None = None, block_s: int = 128,
+                        axis=None, block_s: int = 128,
                         ag_method: str = "fused", replicas: bool = False):
     """Sequence-parallel flash-decode: each rank's split-KV partial over its
     KV shard (``gqa_decode_partial``), the partial all-gather, and the lse
-    merge.
+    merge, over ``axis``: a mesh axis (the context's first by default; in a
+    multi-axis mesh each group along it apart) or a tuple of axes (one
+    group over them, rank-major over the flattened axes).
 
     q [B, Hq, D]; global_kv_lens [B] int32. At one rank ``k_cache`` /
-    ``v_cache`` are the whole cache [B, Hkv, S, D]; at n ranks they are
-    sharded on S, rank-major: [n, B, Hkv, S / n, D] (``models.llama``'s
-    ``shard_kv_cache`` makes the layout), rank r holding keys
-    ``r * S / n .. (r + 1) * S / n`` with ``clamp(kv_len - r * S / n, 0, S /
-    n)`` of them valid; an empty shard's partial is (0, NEG_INF), which
-    every merge takes as an exact no-op. One ``gqa_decode_partial`` launch
-    covers every rank's shard (the rank is a batch row).
+    ``v_cache`` are the whole cache [B, Hkv, S, D]; at n ranks along
+    ``axis`` they are sharded on S, rank-major: [n, B, Hkv, S / n, D]
+    (``models.llama``'s ``shard_kv_cache`` makes the layout), group index r
+    holding keys ``r * S / n .. (r + 1) * S / n`` with ``clamp(kv_len - r *
+    S / n, 0, S / n)`` of them valid; an empty shard's partial is (0,
+    NEG_INF), which every merge takes as an exact no-op. One
+    ``gqa_decode_partial`` launch covers every shard (the index is a batch
+    row).
 
-    ``ag_method="fused"`` merges with ``ll_ag_merge``; ``"push"`` and
-    ``"ring"`` pack each partial as one f32 wire ``(out || lse)`` [B, Hq,
-    D + 1], gather it with ``all_gather`` and let each rank merge its copy
+    ``ag_method="fused"`` merges with ``ll_ag_merge`` (one axis only: a
+    tuple raises ``ValueError``); ``"push"``, ``"ring"`` (B9 over the
+    group), ``"push_2d"``, ``"ring_2d"`` (over a tuple of axes) and
+    ``"auto"`` pack each partial as one f32 wire ``(out || lse)`` [B, Hq, D
+    + 1], gather it with ``all_gather`` and let each rank merge its copy
     with ``decode_combine`` over the outs cast to q's type, as the JAX path
-    does (push and ring give the same bits). Returns [B, Hq, D] in q's type
-    (rank 0's replica), or with ``replicas`` every rank's, [n, B, Hq, D]
-    (at one rank [1, B, Hq, D]). Other methods raise
-    ``NotImplementedError``."""
+    does (every gather gives the same bits). Returns [B, Hq, D] in q's type
+    (rank 0's replica), or with ``replicas`` every rank of the mesh's, [N,
+    B, Hq, D] (at one rank [1, B, Hq, D]). Other methods raise
+    ``ValueError``."""
     axis = axis or ctx.axis_names[0]
-    if ag_method not in AG_METHODS:
-        raise NotImplementedError(
-            f"sp_gqa_flash_decode: ag_method {ag_method!r} is not ported "
-            f"(the port takes {AG_METHODS}; the 2-D all-gathers wait for "
-            "ROADMAP.md Queue A, item 5 \"collectives\")")
-    n = spans_every_rank(ctx, axis, "sp_gqa_flash_decode")
+    if isinstance(axis, list):
+        axis = tuple(axis)
+    if ag_method not in AG_METHODS + AG_METHODS_2D:
+        raise ValueError(f"sp_gqa_flash_decode: unknown ag_method "
+                         f"{ag_method!r}; expected one of "
+                         f"{AG_METHODS + AG_METHODS_2D}")
+    if ag_method == "fused" and not isinstance(axis, str):
+        raise ValueError(f"sp_gqa_flash_decode: the fused gather and merge "
+                         f"runs over one axis, got {axis!r}; use push_2d, "
+                         f"ring_2d or auto over several")
+    n = ctx.axis_size(axis)
     B, Hq, D = q.shape
     if n == 1 and k_cache.dim() == 4:          # one rank's whole cache
         k_cache, v_cache = k_cache[None], v_cache[None]
@@ -784,13 +817,15 @@ def sp_gqa_flash_decode(ctx, q, k_cache, v_cache, global_kv_lens,
     else:
         wire = torch.cat([outs, lses[..., None]], -1)      # [n, B, Hq, D+1]
         g = all_gather(ctx, wire, axis=axis, method=ag_method)
-        # [rank, segment, B, Hq, D+1] -> one combine over every rank's copy,
+        g = g[None] if n == 1 else g             # [R, n, B, Hq, D+1]
+        R = g.shape[0]
+        # [segment, replica, B, Hq, D+1] -> one combine over every replica,
         # the segments leading
-        segs = (g[None] if n == 1 else g).transpose(0, 1)
+        segs = g.transpose(0, 1)
         rep = decode_combine(
-            segs[..., :D].to(q.dtype).reshape(n, n * B, Hq, D).contiguous(),
-            segs[..., D].reshape(n, n * B, Hq).contiguous()
-        ).view(n, B, Hq, D)
+            segs[..., :D].to(q.dtype).reshape(n, R * B, Hq, D).contiguous(),
+            segs[..., D].reshape(n, R * B, Hq).contiguous()
+        ).view(R, B, Hq, D)
     return rep if replicas else rep[0]
 
 
@@ -1200,7 +1235,7 @@ def flash_decode_dist(ctx, q, k_new, v_new, k_pages, v_pages, block_table,
     return attn, k_pages, v_pages
 
 
-__all__ = ["AG_METHODS", "FD_EMPTY", "FD_SLAB_BYTES", "NEG_INF",
+__all__ = ["AG_METHODS", "AG_METHODS_2D", "FD_EMPTY", "FD_SLAB_BYTES", "NEG_INF",
            "SPLIT_KEYS", "decode_combine", "decode_combine_plain",
            "fd_fold_dist", "fd_fold_dist_plain", "fd_fold_plain",
            "fd_page_partials", "fd_page_partials_plain", "fd_partials_fold",

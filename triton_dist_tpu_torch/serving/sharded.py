@@ -313,7 +313,8 @@ class ShardedServingEngine(ServingEngine):
         vals = (np.full(self.n_ranks, h, np.uint32)
                 + self._digest_skew).view(np.int32)
         words = torch.from_numpy(vals.copy()).to(self.device)
-        g = all_gather(self.ctx, words, axis=MESH_AXES).view(-1, self.n_ranks)
+        g = all_gather(self.ctx, words, axis=MESH_AXES,
+                       method="push").view(-1, self.n_ranks)
         mismatch = bool((g != g[:, :1]).any().item())
         self.metrics.inc("digest_checks")
         if mismatch:

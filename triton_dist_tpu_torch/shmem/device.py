@@ -50,7 +50,8 @@ KERNELS = {1: "barrier_all_op", 2: "ring_ping", 3: "all_gather push",
            7: "ag_gemm", 8: "gemm_rs", 9: "all_to_all_push",
            10: "all_to_all_push_seg", 11: "flash_decode_dist fold",
            12: "pool_ag_start_local", 13: "paged_transport",
-           14: "ag_moe_group_gemm", 15: "moe_reduce_rs"}
+           14: "ag_moe_group_gemm", 15: "moe_reduce_rs",
+           16: "all_gather_ll", 17: "all_gather push_2d", 18: "broadcast"}
 _REPORT_WORDS = 4
 
 _P = ctypes.c_void_p
@@ -109,6 +110,31 @@ def group_plan(ctx, axis) -> tuple:
             tuple(ctx.my_pe(r, axes) for r in range(ctx.num_ranks)),
             tuple(ctx.group_members(0, axis)))
     return plan
+
+
+class Relay2d(ctypes.Structure):
+    """``csrc/ag_relay_2d.cuh``'s Relay2d: the tiers of a 2-tier relay over
+    axes ``(outer, *inner)``, each a ``Group`` over every rank of the mesh:
+    the whole group over the axes, the outer axis, the flattened inner
+    axes."""
+
+    _fields_ = [("all", Group), ("outer", Group), ("inner", Group)]
+
+
+_relays: dict = {}
+
+
+def relay_plan(ctx, axes) -> Relay2d:
+    """The ``Relay2d`` of the tuple ``axes`` (outer first) over every rank
+    of ``ctx``, made once per mesh shape and axes."""
+    axes = tuple(axes)
+    key = (tuple(ctx.axis_names), tuple(ctx.mesh_shape), axes)
+    relay = _relays.get(key)
+    if relay is None:
+        relay = _relays[key] = Relay2d(group_struct(ctx, axes),
+                                       group_struct(ctx, axes[0]),
+                                       group_struct(ctx, axes[1:]))
+    return relay
 
 
 class ShmemError(RuntimeError):
@@ -262,6 +288,7 @@ def ring_ping(ctx, blocks, silent_rank: int | None = None):
 
 ring_ping.launches = 0
 
-__all__ = ["KERNELS", "Group", "ShmemError", "check_errors", "group_plan",
-           "group_struct", "group_table", "launch_args", "raise_pending", "ring_ping",
-           "ring_ping_plain", "tables"]
+__all__ = ["KERNELS", "Group", "Relay2d", "ShmemError", "check_errors",
+           "group_plan", "group_struct", "group_table", "launch_args",
+           "raise_pending", "relay_plan", "ring_ping", "ring_ping_plain",
+           "tables"]
