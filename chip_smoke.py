@@ -35,7 +35,7 @@ Phases, each printing its lines:
    kernel launched layers x steps times), its step time, tokens/s, peak
    memory and one step under ``torch.profiler``;
 9. MoE: Mixtral-8x7B's widths (d_model 4096, 32/8 heads, 8 experts top-2,
-   expert FFN 14336, vocab 32000) with the depth cut to 16 layers, random
+   expert FFN 14336, vocab 32000) with the depth cut to 8 layers, random
    weights from a seed: the one-rank EP dispatch and combine
    (``ep_dispatch``, ``ep_combine``) and the grouped GEMM kernels
    (``grouped_gemm_gated``, ``grouped_gemm``) against their plain versions
@@ -232,6 +232,32 @@ Phases, each printing its lines:
    layer-step; the collectives once each; one step under the profiler.
    Beside phase 4 (f32, full width, depth 4) the same meshes and methods
    within 1e-5 of ``decode_step``'s logit scale.
+20. TP overlap and the MoE-TP block over a group and over two tiers: (a)
+   inside phase 5's lifetime, AG-GEMM (B15) and GEMM-RS (B16) at TP_OPS's
+   widths over ("a", "b") of (2, 2) and (2, 4), over ("a", "b", "c") of
+   (2, 2, 2) (B15 over the 2-tier relay with B2's tile as its emit; B16's
+   inner-group stage on the strided rows, then B13's ring over the outer
+   axis) and over b's groups of (2, 2); inside phase 9's lifetime, B19 and
+   B20 at phase 13's 8 / 256 / 4096 tokens over ("a", "b") and over b of
+   (2, 2). B15 and B19 bitwise their one-axis kernels over as many ranks,
+   B16 and B20 over a group bitwise theirs and over two tiers bitwise
+   their stage-then-B13 composition from the one-rank kernels; each on a
+   rerun, in every group's replica and on 5 fresh calls, within tolerance
+   of its plain version, the slots as the protocol leaves them, every pad
+   zero, a call whose rank 1 never signals raising within 2 s and the next
+   call bitwise; timed beside the one-axis kernel, the bound, the plain
+   version and ``torch.matmul`` / ``torch._grouped_mm``. (b) the main
+   path, launches counted: ``forward_tp_overlap`` at full width and depth
+   on 2 x 2048 tokens over ("a", "b") and over b of (2, 2) (twice each,
+   bitwise; within the phase 15 gate of the one-axis run over as many
+   ranks; wall time, peak, device time by family); beside phase 4, in f32
+   at depth 2, within 1e-4 of the dense forward. (c) inside phase 16: phase
+   16c's first 10 requests through ``ShardedServingEngine(tp_impl=
+   "ag_gemm")`` at 2x1x1, 2x1x2 and 2x2x2, every stream bitwise the
+   2x1x1 engine's, each projection one B15 launch; tok/s and TTFT. (d)
+   ``moe_mlp_tp_overlap`` over ("a", "b") and over b at 8 / 256 / 4096
+   tokens against the plain block and the one-axis block, launches
+   counted.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -965,9 +991,11 @@ def check_train(device, cfg, card: str, seq: int = TRAIN["seq"],
 # phase 9: MoE serving at Mixtral-8x7B width through the grouped GEMMs
 # ---------------------------------------------------------------------------
 
-# Mixtral-8x7B's published widths with the depth cut from 32 to 16 layers:
-# 23.5 B parameters, 47 GB in bf16 (32 layers would need 93 GB)
-MOE_LAYERS = 16
+# Mixtral-8x7B's published widths with the depth cut from 32 to 8 layers:
+# 12 B parameters, 24 GB in bf16 (32 layers would need 93 GB); 16 layers
+# until the phases on these weights (9, 12, 13, 16-18, 20) outgrew the
+# script's time limit on a slow host
+MOE_LAYERS = 8
 # (tokens, aligned row block) of the engine's two programs, each token top-2:
 # a decode step of 8 slots and a 256-token prefill chunk
 GG_SHAPES = {"decode": (8, 16), "chunk": (256, 64)}
@@ -1443,7 +1471,7 @@ def check_moe_engine(params, cfg, device, trace, engine_kw: dict,
 
 
 def check_moe(device, card: str) -> dict:
-    """Phase 9: Mixtral-8x7B's widths at 16 layers with random weights
+    """Phase 9: Mixtral-8x7B's widths at MOE_LAYERS layers, random weights
     (seed 0): the grouped GEMMs against their plain versions on layer 0's
     experts, the MoE block against its plain path, a seeded trace through
     the one-rank ``ShardedServingEngine`` (served twice), then one decode
@@ -1516,7 +1544,7 @@ def check_long_context_and_moe_tp(params, cfg, device, card: str) -> dict:
     # width, depth cut to 2 layers, equal
     trace4 = make_trace(cfg.base, N_REQUESTS, 0)[:4]
     long["equal_bf16"] = check_engines_agree(params, cfg, device, trace4,
-                                             "bf16, 16 layers",
+                                             f"bf16, {MOE_LAYERS} layers",
                                              tol=MODEL_TOL["bfloat16"])
     cfg32 = dataclasses.replace(cfg, base=dataclasses.replace(
         cfg.base, n_layers=LONG_EQUAL_F32_LAYERS, dtype=torch.float32))
@@ -1536,9 +1564,12 @@ def check_long_context_and_moe_tp(params, cfg, device, card: str) -> dict:
     moe_tp_ranks = check_moe_tp_ranks(params, cfg, device)
     log(f"phase 13 across ranks took {time.perf_counter() - t13:.1f} s")
     torch.cuda.empty_cache()
+    moe_tp_2d = check_moe_tp_2d(params, cfg, device)
+    torch.cuda.empty_cache()
     moe_sp = check_moe_decode_sp(params, cfg, device, card)
     return {"fd": fd_kernels, "long": long, "moe_tp": moe_tp,
-            "moe_tp_ranks": moe_tp_ranks, "moe_sp": moe_sp}
+            "moe_tp_ranks": moe_tp_ranks, "moe_tp_2d": moe_tp_2d,
+            "moe_sp": moe_sp}
 
 
 # ---------------------------------------------------------------------------
@@ -5725,8 +5756,10 @@ def check_ep_ranks(params, cfg, device, card: str) -> dict:
     engines = check_ep_engines(params, cfg, device, card)
     fit = wire_fit(a2a)
     log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    ag_engines = check_ag_gemm_engines(params, cfg, device, card)
     return {"a2a": a2a, "block": block, "columns": columns,
-            "engines": engines, "fit": fit}
+            "engines": engines, "fit": fit, "ag_gemm_engines": ag_engines}
 
 
 def ep_kernels(ep: dict) -> list:
@@ -7272,6 +7305,870 @@ def collectives_2d_kernels(c2d: dict) -> list[dict]:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 20: TP overlap and the MoE-TP block over a group and over two tiers
+# (B15 and B19 over the 2-tier relay, B16's and B20's 2-tier stages, the
+# group forms of all four)
+# ---------------------------------------------------------------------------
+
+# the forms of B15 and B16 at TP_OPS's widths: (mesh of MESHES_2D, axis),
+# the 2-tier relay over every axis of phase 19's meshes and b's groups of
+# (2, 2); B19 and B20 at MOE_TP_TOKENS on the first and the last
+TP_2D_FORMS = (("2x2", ("a", "b")), ("2x4", ("a", "b")),
+               ("2x2x2", ("a", "b", "c")), ("2x2", "b"))
+MOE_2D_FORMS = (("2x2", ("a", "b")), ("2x2", "b"))
+# forward_tp_overlap at full width and depth on phase 15's tokens over
+# these axes of (2, 2), each held against the one-axis run over as many
+# ranks within TP_RANKS_GATE of its logit scale; in f32 at 2 layers (phase
+# 4's params) within tol of the dense forward's scale
+TP_2D_FWD = dict(B=TP_RANKS_FWD["B"], S=TP_RANKS_FWD["S"],
+                 axes=(("a", "b"), "b"))
+TP_2D_F32 = dict(B=2, S=512, layers=2, tol=1e-4)
+# the sharded engine with tp_impl="ag_gemm" (B15 over the TP axis, a group
+# inside the mesh at 2x1x2 and 2x2x2) on phase 16c's requests, fp8 wire;
+# the 2x1x1 engine is the golden
+AG_ENGINE_MESHES = ((2, 1, 1), (2, 1, 2), (2, 2, 2))
+TP_2D_NOTE = ("every rank of the mesh shares the one card: times are the "
+              "kernels and their protocol on shared SMs and one HBM, not "
+              "NVLink; over two tiers a relayed segment waits behind the "
+              "relay's GEMM of the segments before it")
+
+
+def _axis_label(axis) -> str:
+    return "+".join(axis) if isinstance(axis, tuple) else axis
+
+
+def _outer_ring(ctx, red, seg_elems: int, outer):
+    """B13's ring over the ``outer`` groups on every rank's f32 chunk
+    ``red`` [R, ...] (its plain version on the CPU): [R, seg_elems]."""
+    import importlib
+
+    from triton_dist_tpu_torch.shmem import device as shd
+
+    rs = importlib.import_module("triton_dist_tpu_torch.ops.reduce_scatter")
+    R = ctx.num_ranks
+    if red.device.type == "cpu":
+        return rs._groups_plain(ctx, red.reshape(R, -1), outer)
+    (ins,) = shd.tables(ctx, red)
+    return rs._ring(ctx, ins, seg_elems, red, outer, None)
+
+
+def rs_2d_composition(ctx, axis, a, b, out_dtype):
+    """B16 over the tuple ``axis`` from the one-rank kernels and B13: B2's
+    f32 partial (``matmul``) of every inner peer's strided chunk
+    ``{(r, j) : r < no}`` over each index's K block, each rank's chunk the
+    slot reduction (``slot_reduce``) of its inner peers' partials in inner
+    slot order, then B13's ring over the outer groups on the f32 chunks,
+    cast once. Returns (the global view, every rank's slots [R, ni, no *
+    M/n, N])."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import gemm as tg
+    from triton_dist_tpu_torch.ops.gemm_reduce_scatter import _tiers
+    from triton_dist_tpu_torch.shmem import device as shd
+
+    outer, inner, no, ni = _tiers(ctx, axis)
+    n = no * ni
+    M, K = a.shape
+    m, kl, N = M // n, K // n, b.shape[1]
+    segs = a.view(no, ni, m, K)
+    g_all = shd.group_plan(ctx, axis)[2]
+    g_in = shd.group_plan(ctx, inner)[2]
+    chunk = {(g, j): tg.matmul(
+        segs[:, j, :, g * kl:(g + 1) * kl].reshape(no * m, kl).contiguous(),
+        b[g * kl:(g + 1) * kl].contiguous(), out_dtype=torch.float32)
+        for g in range(n) for j in range(ni)}
+    R = ctx.num_ranks
+    slots = torch.stack([torch.stack([chunk[g_all[p], g_in[q]]
+                                      for p in ctx.group_members(q, inner)])
+                         for q in range(R)])
+    del chunk
+    red = torch.stack([tg.slot_reduce(slots[q], torch.float32)
+                       for q in range(R)])
+    out = _outer_ring(ctx, red, m * N, outer) if no > 1 \
+        else red.view(R, -1)
+    members = list(shd.group_plan(ctx, axis)[3])
+    return out[members].view(M, N).to(out_dtype), slots
+
+
+def moe_rs_2d_composition(ctx, axis, h, ids, tw, wd, block_m: int):
+    """B20 over the tuple ``axis`` from the one-rank kernels and B13: the
+    segments aligned as the op aligns them; B17's bf16-to-f32 partial
+    (``grouped_gemm``) of every segment over each index's K block; each
+    rank's chunk of strided segments ``{(r, mi) : r < no}`` the slot
+    reduction of its inner peers' partials, every row past a segment's used
+    blocks zero; B13's ring over the outer groups; the unscramble and the
+    top-k fold in f32 in k order, cast once. Returns [T, N]."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import gemm as tg
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.ops import moe as mo
+    from triton_dist_tpu_torch.ops.gemm_reduce_scatter import _tiers
+    from triton_dist_tpu_torch.shmem import device as shd
+
+    outer, inner, no, ni = _tiers(ctx, axis)
+    n = no * ni
+    Tk, K = h.shape
+    T, topk = tw.shape
+    E, _, N = wd.shape
+    kl, seg_rows = K // n, Tk // n
+    bm = min(block_m, -(-seg_rows // 16) * 16)
+    gi, rv, be, nb, dest = mo._segment_alignment(ids.view(n, seg_rows), E,
+                                                 bm)
+    x = mo._aligned_rows(h, gi, rv, seg_rows)
+    P = x.shape[1]
+    used = (nb.clamp(0, P // bm) * bm).tolist()
+    part = {(g, s): gg.grouped_gemm(
+        x[s, :, g * kl:(g + 1) * kl].contiguous(),
+        wd[:, g * kl:(g + 1) * kl].contiguous(), be[s], block_m=bm,
+        n_blocks_used=nb[s], masked=False, out_dtype=torch.float32)
+        for g in range(n) for s in range(n)}
+    g_all = shd.group_plan(ctx, axis)[2]
+    g_in = shd.group_plan(ctx, inner)[2]
+    R = ctx.num_ranks
+    red = torch.zeros(R, no * P, N, dtype=torch.float32, device=h.device)
+    for q in range(R):
+        peers = [g_all[p] for p in ctx.group_members(q, inner)]
+        for r in range(no):
+            seg = r * ni + g_in[q]
+            s = tg.slot_reduce(torch.stack([part[g, seg] for g in peers]),
+                               torch.float32)
+            red[q, r * P:r * P + used[seg]] = s[:used[seg]]
+    del part
+    y = _outer_ring(ctx, red, P * N, outer) if no > 1 \
+        else red.view(R, -1)
+    y = y[list(shd.group_plan(ctx, axis)[3])].view(n, P, N)
+    rows = mo._unscramble(y, dest).view(T, topk, N)
+    w = tw.float()
+    folded = rows[:, 0] * w[:, 0:1]
+    for j in range(1, topk):
+        folded = folded + rows[:, j] * w[:, j:j + 1]
+    return folded.to(h.dtype)
+
+
+def _check_form(kname: str, ctx, call, want, plain, fresh_pair, case: str,
+                tol: float, fresh: int, extra: dict) -> dict:
+    """One form of an overlap op against its references: ``call()`` bitwise
+    ``want`` on a rerun, every group's replica the same, bitwise on
+    ``fresh`` calls (``fresh_pair(i)`` gives the call's result and its
+    reference), within ``tol`` of the plain version, every pad zero after
+    the calls. Raises on failure."""
+    import torch
+
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    got, again = call(), call()
+    reps = call(replicas=True)
+    check_errors(ctx)
+    pads = _pads_zero(ctx)
+    ref = plain()
+    fresh_ok = []
+    for i in range(fresh):
+        g, w = fresh_pair(i)
+        fresh_ok.append(bool(torch.equal(g, w)))
+        del g, w
+        pads &= _pads_zero(ctx)
+    check_errors(ctx)
+    rec = {"kernel": kname, "case": case,
+           **_kernel_vs_plain(got, again, ref), "tol": tol,
+           "bitwise_reference": bool(torch.equal(got, want)),
+           "replicas": int(reps.shape[0]),
+           "replicas_bitwise": all(bool(torch.equal(r, got)) for r in reps),
+           "fresh_calls_bitwise": all(fresh_ok),
+           "pads_zero_after": pads and _pads_zero(ctx), **extra}
+    del reps, ref
+    if not (rec["bitwise_reference"] and rec["bitwise_repeat"]
+            and rec["replicas_bitwise"] and rec["fresh_calls_bitwise"]
+            and rec["pads_zero_after"] and rec["rel_err"] <= tol
+            and all(v is not False for v in extra.values())):
+        log(f"kernel {kname}", json.dumps(rec))
+        raise AssertionError(f"{kname} {case} failed: {rec}")
+    return rec
+
+
+def check_tp_2d_ops(device, timed: bool = True, forms=TP_2D_FORMS,
+                    ops=TP_OPS, fresh: int = FRESH_CALLS,
+                    seed: int = 21) -> list[dict]:
+    """B15 (``ag_gemm``) and B16 (``gemm_rs``) in each of ``forms`` at each
+    of ``ops``'s widths, bf16, through their persistent contexts. B15's
+    2-tier and group forms bitwise the one-axis kernel over as many ranks
+    (and its composition from B2); B16's group form bitwise the one-axis
+    kernel, its 2-tier form bitwise ``rs_2d_composition`` (the inner stage
+    from B2 and the slot reduction, then B13) and within ``TP_OPS_TOL`` of
+    the one-axis kernel; each on a rerun, in every group's replica and on
+    ``fresh`` calls, within ``TP_OPS_TOL`` of its plain version, the
+    workspace slots as the protocol leaves them, every pad zero after.
+    Timed beside the one-axis kernel over the same ranks (both alone under
+    ``torch.profiler``), the bound, the plain version and ``torch.matmul``
+    of the whole product. A starved call of each form raises within
+    ``HANG_LIMIT_S``. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import allgather_gemm as agg
+    from triton_dist_tpu_torch.ops import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.shmem import device as shd
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    card = device.type == "cuda"
+
+    def operands(M, K, N):
+        a = torch.randn(M, K, generator=gen, device=device).bfloat16()
+        b = (torch.randn(K, N, generator=gen, device=device) * 0.02) \
+            .bfloat16()
+        return a, b
+
+    records = []
+    for mesh, axis in forms:
+        ctx = _mesh_2d(mesh, device)
+        n = ctx.axis_size(axis)
+        flat = _mesh(n, device)
+        two = isinstance(axis, tuple)
+        label = f"{mesh} over {_axis_label(axis)}"
+        index = shd.group_plan(ctx, axis)[2]
+        for name, op, M, K, N in ops:
+            m = M // n
+            a, b = operands(M, K, N)
+            if op == "ag_gemm":
+                layer = agg.create_ag_gemm_context(ctx, m, K, torch.bfloat16,
+                                                   axis=axis)
+                one = agg.create_ag_gemm_context(flat, m, K, torch.bfloat16)
+
+                def reference(a, b, one=one):
+                    return one(a, b)
+            else:
+                layer = grs.create_gemm_rs_context(ctx, m, N, torch.bfloat16,
+                                                   axis=axis)
+                one = grs.create_gemm_rs_context(flat, m, N, torch.bfloat16)
+                if two:
+                    def reference(a, b, ctx=ctx, axis=axis):
+                        return rs_2d_composition(ctx, axis, a, b,
+                                                 torch.bfloat16)[0]
+                else:
+                    def reference(a, b, one=one):
+                        return one(a, b)
+            want = reference(a, b)
+            opf = agg.ag_gemm if op == "ag_gemm" else grs.gemm_rs
+
+            def call(replicas=False, a=a, b=b, layer=layer, opf=opf,
+                     ctx=ctx, axis=axis):
+                return (opf(ctx, a, b, axis=axis, replicas=True) if replicas
+                        else layer(a, b))
+
+            def fresh_pair(i, M=M, K=K, N=N, layer=layer, reference=reference):
+                ai, bi = operands(M, K, N)
+                return layer(ai, bi), reference(ai, bi)
+
+            extra = {}
+            if op == "ag_gemm":
+                plain = (lambda a=a, b=b, n=n: agg.ag_gemm_plain(a, b, n))
+                extra["bitwise_b2_composition"] = bool(torch.equal(
+                    want, ag_composition(a, b, n)))
+            else:
+                plain = ((lambda a=a, b=b, ctx=ctx, axis=axis:
+                          grs.gemm_rs_2d_plain(ctx, a, b, axis)[0]) if two
+                         else (lambda a=a, b=b, n=n: grs.gemm_rs_plain(a, b,
+                                                                       n)))
+                if two:
+                    flat_out = one(a, b)
+                    extra["rel_err_vs_one_axis"] = _rel(want, flat_out)
+                    extra["within_tol_of_one_axis"] = \
+                        extra["rel_err_vs_one_axis"] <= TP_OPS_TOL
+                    del flat_out
+                else:
+                    extra["bitwise_b2_composition"] = bool(torch.equal(
+                        want, rs_composition(a, b, n)[0]))
+            rec = _check_form(op, ctx, call, want, plain, fresh_pair,
+                              f"{name} bfloat16 {label} {M}x{K}x{N}",
+                              TP_OPS_TOL, fresh, extra)
+            # the slots as the protocol leaves them, after the last call
+            layer(a, b)
+            if op == "ag_gemm":
+                shards = a.view(n, m, K)
+                rec["slots_as_the_protocol_leaves_them"] = all(
+                    bool(torch.equal(layer.ws[q, s], shards[s]))
+                    for q in range(ctx.num_ranks) for s in range(n)
+                    if s != index[q])
+            elif two:
+                rec["slots_as_the_protocol_leaves_them"] = bool(torch.equal(
+                    layer.ws, rs_2d_composition(ctx, axis, a, b,
+                                                torch.bfloat16)[1]))
+            else:
+                parts = rs_composition(a, b, n)[1]
+                rec["slots_as_the_protocol_leaves_them"] = all(
+                    bool(torch.equal(layer.ws[q, s],
+                                     parts[s][index[q] * m:
+                                              (index[q] + 1) * m]))
+                    for q in range(ctx.num_ranks) for s in range(n))
+                del parts
+            if timed and card:
+                kern = ("ag_gemm_2d_kernel" if two else "ag_gemm_kernel") \
+                    if op == "ag_gemm" else "gemm_rs_kernel"
+                matches = (kern, "rs_ring_kernel") if two and \
+                    op == "gemm_rs" else (kern,)
+                rec.update(_timings(lambda: layer(a, b), plain,
+                                    lambda: torch.matmul(a, b), matches,
+                                    gemm_bound(M, K, N, 2, 2, "bfloat16")))
+                rec["library_call"] = "torch.matmul of the whole product"
+                rec["one_axis_ms"] = perf_func(lambda: one(a, b))[1]
+                rec["one_axis_kernel_device_ms"] = kernel_device_ms(
+                    lambda: one(a, b), "ag_gemm_kernel" if op == "ag_gemm"
+                    else "gemm_rs_kernel")
+                rec["note"] = TP_2D_NOTE
+            log(f"kernel {op} {label}", json.dumps(rec))
+            if not rec["slots_as_the_protocol_leaves_them"]:
+                raise AssertionError(f"{op} {label} left its slots wrong: "
+                                     f"{rec}")
+            records.append(rec)
+            del a, b, want, layer, one
+            if card:
+                torch.cuda.empty_cache()
+        # the hang check of each form at the first case of each op
+        for opf in (agg.ag_gemm, grs.gemm_rs) if card else ():
+            M, K, N = next(c[2:] for c in ops if c[1] == opf.__name__)
+            a, b = operands(M, K, N)
+            want = opf(ctx, a, b, axis=axis)
+            rec = _hang_2d(f"{opf.__name__} {label}", ctx,
+                           lambda silent_rank=None, opf=opf, a=a, b=b:
+                           opf(ctx, a, b, axis=axis,
+                               silent_rank=silent_rank), want)
+            rec["form"] = label
+            records.append(rec)
+            del a, b, want
+    return records
+
+
+def run_tp_2d_forward(params, cfg, device, card: str, B: int = TP_2D_FWD["B"],
+                      S: int = TP_2D_FWD["S"], axes=TP_2D_FWD["axes"],
+                      gate: float = TP_RANKS_GATE) -> dict:
+    """The main path of phase 20b: ``forward_tp_overlap`` at full width and
+    depth on phase 15's B x S tokens over each of ``axes`` of (2, 2) under
+    ``torch.inference_mode``, twice (the launches set to 0 just before each
+    run and read just after: over ("a", "b") B15's relay form and B16's
+    2-tier stage two a layer each with B13's ring after each stage, over b
+    B15 and B16 two a layer; the rerun bitwise), timed between device
+    synchronisations with its peak memory, beside the one-axis run over as
+    many ranks; the logits within ``gate`` of that run's scale. Raises on
+    failure."""
+    import importlib
+
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    rsm = importlib.import_module("triton_dist_tpu_torch.ops.reduce_scatter")
+    gen = torch.Generator(device=device).manual_seed(19)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device=device)
+    L = cfg.n_layers
+    kernels = dict(_tp_kernels(), reduce_scatter=rsm.reduce_scatter)
+
+    card = device.type == "cuda"
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        kernels["ag_gemm"].launches_2d = 0
+        kernels["gemm_rs"].launches_2d = 0
+        if card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in kernels.items()}
+        launches["ag_gemm_2d"] = kernels["ag_gemm"].launches_2d
+        launches["gemm_rs_2d"] = kernels["gemm_rs"].launches_2d
+        return out, wall, launches
+
+    rec = {"card": card, "dtype": str(cfg.dtype), "layers": L, "B": B,
+           "S": S, "tokens": B * S, "gate": gate, "axes": {}}
+    ok = True
+    with torch.inference_mode():
+        for axis in axes:
+            ctx = _mesh_2d("2x2", device)
+            n = ctx.axis_size(axis)
+            two = isinstance(axis, tuple)
+            if card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            runs = []
+            first = None
+            for _ in range(2):
+                logits, wall, launches = counted(
+                    lambda: llama.forward_tp_overlap(ctx, params, tokens, cfg,
+                                                     axis=axis))
+                check_errors(ctx)
+                runs.append({"wall_s": wall, "launches": launches})
+                if first is None:
+                    first = logits
+                else:
+                    rerun = bool(torch.equal(first, logits))
+                del logits
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 if card \
+                else None
+            want = {"matmul": 0, "ag_gemm": 2 * L, "gemm_rs": 2 * L,
+                    "slot_reduce": 0, "all_gather": 0,
+                    "reduce_scatter": 2 * L if two else 0,
+                    "ag_gemm_2d": 2 * L if two else 0,
+                    "gemm_rs_2d": 2 * L if two else 0}
+            ref, ref_wall, _ = counted(lambda: llama.forward_tp_overlap(
+                _mesh(n, device), params, tokens, cfg))
+            fams, dev_ops = device_time_by_family(
+                lambda: llama.forward_tp_overlap(ctx, params, tokens, cfg,
+                                                 axis=axis), card,
+                (("B15", ("ag_gemm_kernel", "ag_gemm_2d_kernel")),
+                 ("B16", ("gemm_rs_kernel",)), ("B13", ("rs_ring_kernel",)),
+                 ("softmax", ("softmax",))))
+            check_errors(ctx)
+            busy = sum(fams.values())
+            r = {"axis": _axis_label(axis), "ranks": n, "runs": runs,
+                 "reruns_bit_identical": rerun,
+                 "finite": bool(torch.isfinite(first).all()),
+                 "peak_mem_gib": peak, "launches_expected": want,
+                 "one_axis_wall_s": ref_wall,
+                 "logit_rel_diff_vs_one_axis": _logit_rel(first, ref),
+                 "argmax_agree_with_one_axis": (first.argmax(-1) == ref.argmax(
+                     -1)).float().mean().item(),
+                 "device_busy_s": busy,
+                 "device_idle_share": 1 - busy / runs[-1]["wall_s"]
+                 if busy else None,
+                 "device_s_by_family": fams, "device_ops": dev_ops,
+                 "pads_zero_after": _pads_zero(ctx), "note": TP_2D_NOTE}
+            del first, ref
+            ok &= (r["finite"] and rerun and r["pads_zero_after"]
+                   and r["logit_rel_diff_vs_one_axis"] <= gate
+                   and (not card or all(x["launches"] == want
+                                        for x in runs)))
+            rec["axes"][r["axis"]] = r
+            log(f"forward_tp_overlap over {r['axis']} of (2, 2)",
+                json.dumps(r))
+    if not ok:
+        raise AssertionError(f"forward_tp_overlap over two tiers or a group "
+                             f"failed its checks: {rec}")
+    return rec
+
+
+def check_tp_2d_forward_f32(params, cfg, device, B: int = TP_2D_F32["B"],
+                            S: int = TP_2D_F32["S"],
+                            layers: int = TP_2D_F32["layers"],
+                            tol: float = TP_2D_F32["tol"],
+                            axes=TP_2D_FWD["axes"]) -> dict:
+    """``forward_tp_overlap`` in f32 at full width on the first ``layers``
+    layers of ``params`` over each of ``axes`` of (2, 2): the logits within
+    ``tol`` of the dense ``forward``'s scale. Raises on failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    params = dict(params, blocks={k: v[:layers]
+                                  for k, v in params["blocks"].items()})
+    gen = torch.Generator(device=device).manual_seed(22)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device=device)
+    rec = {"layers": layers, "B": B, "S": S, "tol": tol, "axes": {}}
+    with torch.inference_mode():
+        ref = llama.forward(params, tokens, cfg)
+        for axis in axes:
+            ctx = _mesh_2d("2x2", device)
+            got = llama.forward_tp_overlap(ctx, params, tokens, cfg,
+                                           axis=axis)
+            check_errors(ctx)
+            rec["axes"][_axis_label(axis)] = _logit_rel(got, ref)
+            del got
+    log("model forward_tp_overlap f32 over (2, 2)", json.dumps(rec))
+    if max(rec["axes"].values()) > tol:
+        raise AssertionError(f"forward_tp_overlap over (2, 2) disagrees with "
+                             f"the dense forward in f32: {rec}")
+    return rec
+
+
+def check_tp_2d(params, cfg, device, card: str) -> dict:
+    """Phase 20a-b on the 32-layer bf16 params: B15 and B16 over a group and
+    over two tiers at TP widths, then the main path (the forward over
+    ("a", "b") and over b of (2, 2), launches counted)."""
+    import torch
+
+    t0 = time.perf_counter()
+    ops = check_tp_2d_ops(device)
+    torch.cuda.empty_cache()
+    forward = run_tp_2d_forward(params, cfg, device, card)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 20a-b took {seconds:.1f} s")
+    return {"ops": ops, "forward": forward, "seconds": seconds}
+
+
+def check_moe_tp_2d(params, cfg, device, timed: bool = True,
+                    forms=MOE_2D_FORMS, tokens=MOE_TP_TOKENS,
+                    block_m: int = MOE_TP_BLOCK_M, fresh: int = FRESH_CALLS,
+                    seed: int = 23) -> dict:
+    """Phase 20a's MoE half and 20d on layer 0's experts of phase 9's
+    weights: at each of ``forms`` and ``tokens``, B19 bitwise the one-axis
+    op over as many ranks, B20 bitwise the one-axis op over a group and
+    bitwise ``moe_rs_2d_composition`` over two tiers (within ``GG_TOL`` of
+    the one-axis op), each on a rerun, in every group's replica and on
+    ``fresh`` calls, within ``GG_TOL`` of its plain version, padding rows
+    zero, every pad zero after; a starved call raising within
+    ``HANG_LIMIT_S``; timed beside the one-axis op, the bound and
+    ``torch._grouped_mm``. Then ``moe_mlp_tp_overlap`` over ("a", "b") at
+    each token count against ``moe_tp_reference`` and the one-axis block,
+    the launches counted (the main path). Raises on any failure."""
+    import importlib
+
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import moe_mlp_tp_overlap
+    from triton_dist_tpu_torch.ops import allgather as ag
+    from triton_dist_tpu_torch.ops import moe as mo
+    from triton_dist_tpu_torch.shmem import check_errors
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    rsm = importlib.import_module("triton_dist_tpu_torch.ops.reduce_scatter")
+    card = device.type == "cuda"
+    t0 = time.perf_counter()
+    p = {k: v[0] for k, v in params["blocks"].items()}
+    wr, wu, wd = p["w_router"], p["we_up"], p["we_down"]
+    E, Dm, F = wu.shape
+    topk = cfg.topk
+    dtype = cfg.base.dtype
+    name = str(dtype).split(".")[-1]
+
+    def inputs(T, g):
+        x = torch.randn(T, Dm, generator=g, device=device,
+                        dtype=torch.float32).to(dtype)
+        tw, ids = _route(x, wr, topk)
+        ids[[1, ids.numel() - 2]] = -1
+        rep = x.repeat_interleave(topk, 0)
+        h = torch.nn.functional.silu(torch.randn(
+            T * topk, F, generator=g, device=device)).to(dtype)
+        return x, tw, ids, rep, h
+
+    records = {"ag_moe_group_gemm": [], "moe_reduce_rs": [], "hang": [],
+               "block": []}
+    for mesh, axis in forms:
+        ctx = _mesh_2d(mesh, device)
+        n = ctx.axis_size(axis)
+        flat = _mesh(n, device)
+        two = isinstance(axis, tuple)
+        label = f"{mesh} over {_axis_label(axis)}"
+        for T in tokens:
+            gen = torch.Generator(device=device).manual_seed(seed + T + n)
+            x, tw, ids, rep, h = inputs(T, gen)
+            for kname in ("ag_moe_group_gemm", "moe_reduce_rs"):
+                rs = kname == "moe_reduce_rs"
+                if rs:
+                    def op(h, ids, tw, c=ctx, ax=axis, **kw):
+                        return mo.moe_reduce_rs(c, h, ids, tw, wd, axis=ax,
+                                                block_m=block_m, **kw)
+
+                    def one(h, ids, tw):
+                        return mo.moe_reduce_rs(flat, h, ids, tw, wd,
+                                                block_m=block_m)
+
+                    def reference(h, ids, tw, c=ctx, ax=axis):
+                        if two:
+                            return moe_rs_2d_composition(c, ax, h, ids, tw,
+                                                         wd, block_m)
+                        return one(h, ids, tw)
+                    args = (h, ids, tw)
+                    plain = (lambda c=ctx, ax=axis: mo.moe_reduce_rs_plain(
+                        c, h, ids, tw, wd, axis=ax, block_m=block_m))
+                else:
+                    def op(rep, ids, tw, c=ctx, ax=axis, **kw):
+                        return mo.ag_moe_group_gemm(c, rep, ids, wu, axis=ax,
+                                                    block_m=block_m, **kw)
+
+                    def one(rep, ids, tw):
+                        return mo.ag_moe_group_gemm(flat, rep, ids, wu,
+                                                    block_m=block_m)
+                    reference = one
+                    args = (rep, ids, tw)
+                    plain = (lambda c=ctx, ax=axis: mo.ag_moe_group_gemm_plain(
+                        c, rep, ids, wu, axis=ax, block_m=block_m))
+                want = reference(*args)
+
+                def call(replicas=False, op=op, args=args):
+                    return op(*args, replicas=replicas) if replicas \
+                        else op(*args)
+
+                def fresh_pair(i, T=T, rs=rs, op=op, reference=reference):
+                    g = torch.Generator(device=device).manual_seed(
+                        seed + 1000 * (i + 1) + T + n)
+                    _, tw_i, ids_i, rep_i, h_i = inputs(T, g)
+                    a = (h_i if rs else rep_i, ids_i, tw_i)
+                    return op(*a), reference(*a)
+
+                extra = {}
+                if rs and two:
+                    extra["rel_err_vs_one_axis"] = _rel(want, one(*args))
+                    extra["within_tol_of_one_axis"] = \
+                        extra["rel_err_vs_one_axis"] <= GG_TOL[name]
+                    # a token whose every row routes nowhere stays zero
+                    idz = ids.clone()
+                    idz[:topk] = -1
+                    extra["unrouted_token_zero"] = not bool(
+                        op(h, idz, tw)[0].any())
+                if not rs:
+                    extra["padding_rows_zero"] = not bool(
+                        want[ids < 0].any())
+                rec = _check_form(
+                    kname, ctx, call, want, plain, fresh_pair,
+                    f"{name} {label} T={T} top-{topk} E={E} D={Dm} F={F} "
+                    f"block_m={block_m} (2 padding rows)", GG_TOL[name],
+                    fresh, extra)
+                rec.update({"tokens": T, "form": label})
+                if timed and card:
+                    kern = ("moe_rs_kernel" if rs else
+                            "ag_moe_2d_kernel" if two else "ag_moe_kernel")
+                    matches = (kern, "rs_ring_kernel") if rs and two \
+                        else (kern,)
+                    routed = ids[ids >= 0]
+                    rec.update(_timings(
+                        call, plain, None, matches, moe_tp_ranks_bound(
+                            ids, T, F if rs else Dm, Dm if rs else F, n, 2,
+                            name, rs)))
+                    rec["one_axis_ms"] = perf_func(lambda: one(*args))[1]
+                    rec["one_axis_kernel_device_ms"] = kernel_device_ms(
+                        lambda: one(*args),
+                        "moe_rs_kernel" if rs else "ag_moe_kernel")
+                    rows = h[ids >= 0] if rs else rep[ids >= 0]
+                    fn, why = (grouped_mm_f32_call(rows, routed, wd) if rs
+                               else grouped_mm_call(rows, routed, wu))
+                    rec["library_ms"] = perf_func(fn)[1] if fn else None
+                    rec["library_call"] = (
+                        "torch._grouped_mm of the whole gathered product"
+                        + (" into f32 (no top-k fold)" if rs else ""))
+                    if why:
+                        rec["library_none_because"] = why
+                    rec["note"] = TP_2D_NOTE
+                log(f"kernel {kname} {label}", json.dumps(rec))
+                records[kname].append(rec)
+                if T == MOE_TP_HANG_TOKENS and card:
+                    hang = _hang_2d(f"{kname} {label}", ctx,
+                                    lambda silent_rank=None, op=op,
+                                    args=args: op(*args,
+                                                  silent_rank=silent_rank),
+                                    want)
+                    hang["form"] = label
+                    records["hang"].append(hang)
+                del want
+            del x, tw, ids, rep, h
+            if card:
+                torch.cuda.empty_cache()
+
+    # 20d, the main path: the block over ("a", "b") and over b of (2, 2) at
+    # each token count, counted, then each held against the plain
+    # reference and the one-axis block over as many ranks
+    ctx = _mesh_2d("2x2", device)
+    axes = (("a", "b"), "b")
+    counted = (mo.ag_moe_group_gemm, mo.moe_reduce_rs, rsm.reduce_scatter,
+               ag.all_gather, ag.all_gather_push_2d)
+    xs = [torch.randn(T, Dm, generator=torch.Generator(
+        device=device).manual_seed(seed + T), device=device,
+        dtype=torch.float32).to(dtype) for T in tokens]
+    if card:
+        torch.cuda.synchronize()
+    for k in counted:
+        k.launches = 0
+    mo.ag_moe_group_gemm.launches_2d = mo.moe_reduce_rs.launches_2d = 0
+    t1 = time.perf_counter()
+    outs = {_axis_label(axis): [moe_mlp_tp_overlap(
+        ctx, x, wr, wu, wd, topk, axis=axis, block_m=block_m) for x in xs]
+        for axis in axes}
+    if card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    check_errors(ctx)
+    launches = {k.__name__: k.launches for k in counted}
+    launches["ag_moe_group_gemm_2d"] = mo.ag_moe_group_gemm.launches_2d
+    launches["moe_reduce_rs_2d"] = mo.moe_reduce_rs.launches_2d
+    c = len(tokens)
+    want = {"ag_moe_group_gemm": 2 * c, "moe_reduce_rs": 2 * c,
+            "reduce_scatter": c, "all_gather": 2 * c,
+            "all_gather_push_2d": 2 * c, "ag_moe_group_gemm_2d": c,
+            "moe_reduce_rs_2d": c}
+    for axis in axes:
+        flat = _mesh(ctx.axis_size(axis), device)
+        for T, x, out in zip(tokens, xs, outs[_axis_label(axis)]):
+            ref = moe_tp_reference(x, wr, wu, wd, topk)
+            one = moe_mlp_tp_overlap(flat, x, wr, wu, wd, topk,
+                                     block_m=block_m)
+            rec = {"form": f"2x2 over {_axis_label(axis)}", "tokens": T,
+                   "dtype": name, "rel_err": _rel(out, ref),
+                   "rel_err_one_axis": _rel(out, one), "tol": GG_TOL[name],
+                   "finite": bool(torch.isfinite(out).all())}
+            if timed and card:
+                rec["ms"] = perf_func(lambda: moe_mlp_tp_overlap(
+                    ctx, x, wr, wu, wd, topk, axis=axis,
+                    block_m=block_m))[1]
+                rec["one_axis_ms"] = perf_func(lambda: moe_mlp_tp_overlap(
+                    flat, x, wr, wu, wd, topk, block_m=block_m))[1]
+                rec["note"] = TP_2D_NOTE
+            log("moe-tp block over (2, 2) vs reference", json.dumps(rec))
+            if not (rec["finite"] and rec["rel_err"] <= rec["tol"]
+                    and rec["rel_err_one_axis"] <= rec["tol"]):
+                raise AssertionError(f"moe_mlp_tp_overlap over "
+                                     f"{_axis_label(axis)} disagrees: {rec}")
+            records["block"].append(rec)
+            del ref, one
+    check_errors(ctx)
+    records["launches"] = launches
+    records["launches_expected"] = want
+    records["main_path_wall_s"] = wall
+    log("moe-tp 2-D main path launches", json.dumps(
+        {"launches": launches, "expected": want, "wall_s": wall}))
+    if card and launches != want:
+        raise AssertionError(f"the MoE-TP block over two tiers did not "
+                             f"launch its kernels: {launches} != {want}")
+    records["seconds"] = time.perf_counter() - t0
+    log(f"phase 20a (MoE) and 20d took {records['seconds']:.1f} s")
+    return records
+
+
+def check_ag_gemm_engines(params, cfg, device, card: str,
+                          meshes=AG_ENGINE_MESHES,
+                          prefix: int = EP_PREFIX) -> dict:
+    """Phase 20c: the first ``prefix`` requests of phase 9's trace through
+    ``ShardedServingEngine(tp_impl="ag_gemm")`` on each of ``meshes`` with
+    the fp8 wire: every mesh's streams bitwise the first's (2x1x1, B15 over
+    the whole mesh; 2x1x2 and 2x2x2 run it over the TP axis's groups), every
+    request finishing, the launches counted (each projection one B15 and
+    one B9 gather at tp > 1, no B2). Reports tok/s and TTFT p50."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import allgather_gemm as agg
+    from triton_dist_tpu_torch.serving import (ShardedServingEngine,
+                                               serving_mesh)
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    t0 = time.perf_counter()
+    card_run = device.type == "cuda"
+    trace = make_trace(cfg.base, N_REQUESTS, 0)[:prefix]
+    kernels = engine_kernels() + (agg.ag_gemm,)
+    fp8 = torch.float8_e4m3fn
+    golden, records = None, []
+    for tp, sp, ep in meshes:
+        def make():
+            return ShardedServingEngine(params, cfg, serving_mesh(tp, sp, ep),
+                                        device=device, wire_dtype=fp8,
+                                        tp_impl="ag_gemm", **ENGINE)
+        res, eng, wall, launches = serve(make, device, trace, kernels)
+        check_errors(eng.ctx)
+        c, hist = eng.metrics.counters, eng.metrics.hist
+        want = engine_launches(eng)
+        proj = want["matmul"] // tp
+        want.update(matmul=0, ag_gemm=proj)
+        golden = res if golden is None else golden
+        rec = {"mesh": eng.mesh_desc, "tp_impl": "ag_gemm",
+               "wire": "float8_e4m3fn", "requests": len(trace),
+               "finished": c["requests_finished"],
+               "tokens_generated": c["tokens_generated"],
+               "preemptions": c["preemptions"], "dispatches": c["dispatches"],
+               "prefill_chunks": c["prefill_chunks"], "wall_s": wall,
+               "tok_per_s": c["tokens_generated"] / wall,
+               "ttft_p50_s": hist["ttft_s"].percentile(50),
+               "launches": launches, "launches_expected": want,
+               "bitwise_2x1x1": res == golden,
+               "first_difference": _first_difference(golden, res),
+               "note": TP_2D_NOTE}
+        log("ag_gemm engine", json.dumps(rec))
+        ok = (rec["finished"] == len(trace)
+              and all(len(res[i]) == m for i, (_, _, m) in enumerate(trace))
+              and rec["bitwise_2x1x1"] and (not card_run
+                                            or launches == want))
+        del eng
+        torch.cuda.empty_cache()
+        records.append(rec)
+        if not ok:
+            raise AssertionError(f"the ag_gemm engine at {rec['mesh']} "
+                                 f"failed its checks: {rec}")
+    seconds = time.perf_counter() - t0
+    log(f"phase 20c took {seconds:.1f} s")
+    return {"runs": records, "seconds": seconds}
+
+
+def tp_2d_kernels(tp2d: dict, moe: dict) -> list[dict]:
+    """The ``kernels`` line's entries of phase 20: the 2-tier and group forms
+    of B15 and B16 (headed by gate‖up / down over ("a", "b") of (2, 2), or
+    over b), launched as the forward over that axis launched them, and of
+    B19 and B20 (headed by the 4096-token case), launched as the 2-D main
+    path and the ag_gemm engines launched them."""
+    fwd = tp2d["forward"]["axes"]
+    m20 = moe["moe_tp_2d"]
+    engines = moe["ep"]["ag_gemm_engines"]["runs"]
+    entries = []
+    for op, replaces, kern in (
+            ("ag_gemm", "triton_dist_tpu/ops/allgather_gemm.py:255",
+             "ag_gemm"),
+            ("gemm_rs", "triton_dist_tpu/ops/gemm_reduce_scatter.py:245",
+             "gemm_rs")):
+        for form, axis, main_mesh in (("2d", "a+b", "2x2 over a+b"),
+                                      ("group", "b", "2x2 over b")):
+            cases = [r for r in tp2d["ops"] if r.get("kernel") == op
+                     and ((" over " + axis) in r["case"]
+                          if form == "group" else "+" in r["case"])]
+            main = next(r for r in cases if r["case"].startswith(
+                TP_OPS_MAIN[op] + " ") and main_mesh in r["case"])
+            launches = fwd[axis]["runs"][0]["launches"][
+                f"{kern}_2d" if form == "2d" else kern]
+            if op == "ag_gemm" and form == "group":
+                launches += sum(r["launches"]["ag_gemm"] for r in engines)
+            hangs = [r for r in tp2d["ops"] if "raised" in r
+                     and r["kernel"].startswith(op)
+                     and (("+" in r["form"]) == (form == "2d"))]
+            entries.append({
+                "name": f"{op} ({'2-tier' if form == '2d' else 'groups'})",
+                "route": "cuda",
+                "source": "triton_dist_tpu_torch/csrc/tp_overlap.cu",
+                "with": ({"ag_gemm": "triton_dist_tpu_torch/csrc/"
+                          "ag_relay_2d.cuh",
+                          "gemm_rs": "triton_dist_tpu_torch/csrc/"
+                          "reduce_scatter.cu"}[op] if form == "2d"
+                         else None),
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in cases),
+                **{k: main.get(k) for k in (
+                    "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "one_axis_ms",
+                    "one_axis_kernel_device_ms", "case")},
+                "ranks_note": TP_2D_NOTE, "cases": cases + hangs})
+    for kname, replaces in (("ag_moe_group_gemm",
+                             "triton_dist_tpu/ops/moe.py:215"),
+                            ("moe_reduce_rs",
+                             "triton_dist_tpu/ops/moe.py:405")):
+        for form, label in (("2d", "2x2 over a+b"), ("group", "2x2 over b")):
+            cases = [r for r in m20[kname] if r["form"] == label]
+            main = max(cases, key=lambda r: r["tokens"])
+            hangs = [r for r in m20["hang"] if r["form"] == label
+                     and r["kernel"].startswith(kname)]
+            entries.append({
+                "name": f"{kname} ({'2-tier' if form == '2d' else 'groups'})",
+                "route": "cuda",
+                "source": "triton_dist_tpu_torch/csrc/moe_tp.cu",
+                "with": ({"ag_moe_group_gemm": "triton_dist_tpu_torch/csrc/"
+                          "ag_relay_2d.cuh",
+                          "moe_reduce_rs": "triton_dist_tpu_torch/csrc/"
+                          "reduce_scatter.cu"}[kname] if form == "2d"
+                         else None),
+                "replaces": replaces,
+                "launches": (m20["launches"][f"{kname}_2d"] if form == "2d"
+                             else m20["launches"][kname]
+                             - m20["launches"][f"{kname}_2d"]),
+                "max_abs_err": max(r["max_abs_err"] for r in cases),
+                **{k: main.get(k) for k in (
+                    "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "one_axis_ms",
+                    "one_axis_kernel_device_ms", "case")},
+                "ranks_note": TP_2D_NOTE, "cases": cases + hangs})
+    return entries
+
+
 def main() -> int:
     try:
         import torch
@@ -7320,6 +8217,9 @@ def main() -> int:
     check_sp_decode_2d_f32(params32, cfg32, device)
     check_tp_forward_f32(params32, cfg32, device)
     check_tp_ranks_f32(params32, cfg32, device)
+    t20 = time.perf_counter()
+    tp2d_f32 = check_tp_2d_forward_f32(params32, cfg32, device)
+    tp2d_f32["seconds"] = time.perf_counter() - t20
     del params32
     torch.cuda.empty_cache()
 
@@ -7341,6 +8241,7 @@ def main() -> int:
     sp = check_sp_and_collectives(params, cfg, device, card)
     coll2d = check_collectives_2d(params, cfg, device, card)
     tp_ranks = check_tp_ranks(params, cfg, device, card)
+    tp2d = check_tp_2d(params, cfg, device, card)
     disagg = check_disagg(params, cfg, device, card, trace,
                           engine.pop("tokens"))
     del params                        # the trainer needs the card's memory
@@ -7397,6 +8298,10 @@ def main() -> int:
             entry["launches"] += coll2d["launches"][name]
     slice6 = long_moe_tp_kernels(moe) + moe_tp_ranks_kernels(
         moe["moe_tp_ranks"])
+    phase20 = (tp2d_f32["seconds"] + tp2d["seconds"]
+               + moe["moe_tp_2d"]["seconds"]
+               + moe["ep"]["ag_gemm_engines"]["seconds"])
+    log(f"phase 20 took {phase20:.1f} s")
     ring_main = ring[0]               # bf16 S=4096 causal, the training shape
     ring_source = "triton_dist_tpu_torch/csrc/ring_attention.cu"
     log(json.dumps({"kernels": [{
@@ -7479,7 +8384,7 @@ def main() -> int:
             ("slot_reduce", "triton_dist_tpu/ops/gemm_reduce_scatter.py:88",
              tp["layers"]["slot_reduce"], [tp["layers"]["slot_reduce"]]))]
         + slice6 + slice7 + collectives_2d_kernels(coll2d)
-        + tp_ranks_kernels(tp_ranks)
+        + tp_ranks_kernels(tp_ranks) + tp_2d_kernels(tp2d, moe)
         + ep_kernels(moe["ep"]) + sp_modes_kernels(sp17, moe, disagg)}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -173,9 +173,12 @@ def test_all_gather_without_axis_on_a_2d_mesh_raises():
 
 
 def _raising_calls():
-    """(name, call, what the message names) of every op or form outside the
-    ported slices, on a 2- or 4-rank context (the TP overlap ops over tuple
-    axes and inside a multi-axis mesh)."""
+    """(name, call, check) of the ops and forms this walk names, on a (2, 2)
+    context: the TP and MoE overlap ops over tuple axes and over a group
+    inside the multi-axis mesh, which run since the TP-overlap 2-tier slice
+    (``check(result)`` holds each against its plain composition over
+    flattened or one-axis ranks), and the CP train plan across ranks, which
+    still raises naming ROADMAP item 9 (``check`` is None)."""
     from triton_dist_tpu_torch.models import llama as tl
     from triton_dist_tpu_torch.ops import allgather_gemm as tagg
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as tgrs
@@ -184,50 +187,79 @@ def _raising_calls():
                                                       make_train_step)
 
     ctx2d = initialize_distributed(("a", "b"), (2, 2), device="cpu")
-    a, b = torch.zeros(8, 8), torch.zeros(8, 8)
-    tp6 = 'item 6 "TP overlap across ranks"'
-    moe7 = 'item 7 "MoE / EP across ranks"'
+    flat = {n: initialize_distributed(("x",), (n,), device="cpu")
+            for n in (2, 4)}
+    g = torch.Generator().manual_seed(11)
+    a = torch.randn(8, 128, generator=g)
+    b = torch.randn(128, 8, generator=g)
+    w = torch.randn(8, 128, generator=g) * 0.1
+    ids = torch.randint(-1, 4, (8,), generator=g, dtype=torch.int32)
+    we = torch.randn(4, 128, 8, generator=g) * 0.1
+    tw = torch.softmax(torch.randn(4, 2, generator=g), -1)
     cfg = dataclasses.replace(tl.LlamaConfig.tiny(n_layers=1),
                               dtype=torch.float32)
-    ids = torch.zeros(8, dtype=torch.int32)
+
+    def same(want):
+        return lambda got: torch.equal(got, want)
+
+    def close(want):
+        return lambda got: bool(torch.allclose(got, want, rtol=1e-5,
+                                               atol=1e-5))
+
+    def mlp(ctx, axis):
+        return tl.mlp_tp_overlap(ctx, a[:, :8], w, w, w.t().contiguous(),
+                                 axis=axis)
+
     return [
         ("ag_gemm over two axes", lambda: tagg.ag_gemm(
-            ctx2d, a, b, axis=("a", "b")), tp6),
+            ctx2d, a, b, axis=("a", "b")),
+         same(tagg.ag_gemm_plain(a, b, 4))),
         ("ag_gemm_ws inside a 2-D mesh", lambda: tagg.create_ag_gemm_workspace(
-            ctx2d, 2, 8, axis="b"), tp6),
+            ctx2d, 2, 8, axis="b"),
+         lambda ws: ws.shape == (4, 2, 2, 8) and not ws.any()),
         ("gemm_rs over two axes", lambda: tgrs.gemm_rs(
-            ctx2d, a, b, axis=("a", "b")), tp6),
+            ctx2d, a, b, axis=("a", "b")),
+         close(tgrs.gemm_rs_plain(a, b, 4))),
         ("gemm_rs_ws inside a 2-D mesh", lambda: tgrs.create_gemm_rs_workspace(
-            ctx2d, 2, 8, axis="a"), tp6),
-        ("mlp_tp_overlap inside a 2-D mesh", lambda: tl.mlp_tp_overlap(
-            ctx2d, a, a, a, a, axis="b"), tp6),
+            ctx2d, 2, 8, axis="a"),
+         lambda wss: [tuple(t.shape) for t in wss] == [(4, 2, 2, 8)] * 2),
+        ("mlp_tp_overlap inside a 2-D mesh", lambda: mlp(ctx2d, "b"),
+         same(mlp(flat[2], "x"))),
         ("ag_moe_group_gemm inside a 2-D mesh", lambda: tmoe.
-         ag_moe_group_gemm(ctx2d, a, ids, torch.zeros(4, 8, 8), axis="a"),
-         moe7),
+         ag_moe_group_gemm(ctx2d, a, ids, we, axis="a"),
+         same(tmoe.ag_moe_group_gemm(flat[2], a, ids, we))),
         ("moe_reduce_rs inside a 2-D mesh", lambda: tmoe.moe_reduce_rs(
-            ctx2d, a, ids, torch.ones(4, 2), torch.zeros(4, 8, 8),
-            axis="b"), moe7),
+            ctx2d, a, ids, tw, we, axis="b"),
+         same(tmoe.moe_reduce_rs(flat[2], a, ids, tw, we))),
         ("ag_moe_group_gemm over two axes", lambda: tmoe.ag_moe_group_gemm(
-            ctx2d, a, ids, torch.zeros(4, 8, 8), axis=("a", "b")), moe7),
+            ctx2d, a, ids, we, axis=("a", "b")),
+         same(tmoe.ag_moe_group_gemm(flat[4], a, ids, we))),
         ("train plan", lambda: make_train_step(cfg, ParallelPlan(cp="cp"),
                                                device="cpu",
-                                               mesh={"cp": 2}),
-         'item 9 "training and CP across ranks"'),
+                                               mesh={"cp": 2}), None),
         ("moe_reduce_rs over two axes", lambda: tmoe.moe_reduce_rs(
-            ctx2d, a, ids, torch.ones(4, 2), torch.zeros(4, 8, 8),
-            axis=("a", "b")), moe7),
+            ctx2d, a, ids, tw, we, axis=("a", "b")),
+         close(tmoe.moe_reduce_rs(flat[4], a, ids, tw, we))),
     ]
 
 
 @pytest.mark.parametrize("case", range(10))
 def test_ops_outside_the_slice_refuse_more_ranks(case):
-    """Each op this slice does not port still raises at more than one rank,
-    naming the ROADMAP item it waits for."""
+    """The walk of the ops that once refused more than one rank: the TP and
+    MoE overlap ops over tuple axes and over groups inside a multi-axis
+    mesh now run and agree with their plain compositions (bitwise where
+    the 2-tier or group form keeps the 1-tier sums, within f32 rounding
+    where GEMM-RS and B20 sum the inner tier first); the CP train plan
+    across ranks still raises, naming the ROADMAP item it waits for."""
     calls = _raising_calls()
     assert len(calls) == 10
-    name, call, item = calls[case]
-    with pytest.raises(NotImplementedError, match=item.replace('"', '.')):
-        call()
+    name, call, check = calls[case]
+    if check is None:
+        with pytest.raises(NotImplementedError,
+                           match='item 9 .training and CP across ranks.'):
+            call()
+        return
+    assert check(call()), name
 
 
 def _collective_forms():

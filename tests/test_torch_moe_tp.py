@@ -125,12 +125,16 @@ def test_moe_reduce_rs_folds_the_f32_slot():
 
 
 def test_more_ranks_and_tuple_axes_raise(tctx):
-    x, ids, w = _inputs("float32", T, D, F, seed=1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmoe.ag_moe_group_gemm(tctx, _t(x), _t(ids), _t(w), axis=("x",))
-    with pytest.raises(NotImplementedError, match="MoE / EP across ranks"):
-        tmoe.moe_reduce_rs(tctx, _t(x), _t(ids), torch.ones(T // 2, 2),
-                           _t(w), axis=("x", "y"))
+    """A 1-tuple is its axis, and a tuple of one-rank axes is the one-rank
+    op (the 2-tier forms at n = 1)."""
+    x, ids, w = (_t(a) for a in _inputs("float32", T, D, F, seed=1))
+    tw = torch.full((T // 2, 2), 0.5)
+    assert torch.equal(tmoe.ag_moe_group_gemm(tctx, x, ids, w, axis=("x",)),
+                       tmoe.ag_moe_group_gemm(tctx, x, ids, w))
+    ctx2 = initialize_distributed(axis_names=("x", "y"), device="cpu")
+    assert torch.equal(tmoe.moe_reduce_rs(ctx2, x, ids, tw, w,
+                                          axis=("x", "y")),
+                       tmoe.moe_reduce_rs(tctx, x, ids, tw, w))
 
 
 @pytest.fixture(scope="module")

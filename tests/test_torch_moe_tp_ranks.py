@@ -210,16 +210,32 @@ def test_splits_that_do_not_divide_raise():
 
 
 def test_tuple_axes_and_groups_inside_a_mesh_raise():
+    """Over ("a", "b") of (2, 2) both ops are their one-axis forms at 4 ranks
+    (B19 bitwise; B20 within f32 rounding: the inner slots are summed
+    first, then the outer ring), and over a or b their 2-rank forms,
+    bitwise, in every group's replica."""
     ctx2d = initialize_distributed(("a", "b"), (2, 2), device="cpu")
     x, ids, w = (_t(a) for a in _ag_inputs("float32", N, seed=1))
     h, rids, tw, rw = (_t(a) for a in _rs_inputs("float32", D, seed=2))
-    for axis in (("a", "b"), "a", "b"):
-        with pytest.raises(NotImplementedError,
-                           match='item 7 .MoE / EP across ranks.'):
-            tmoe.ag_moe_group_gemm(ctx2d, x, ids, w, axis=axis)
-        with pytest.raises(NotImplementedError,
-                           match='item 7 .MoE / EP across ranks.'):
-            tmoe.moe_reduce_rs(ctx2d, h, rids, tw, rw, axis=axis)
+    flat = {n: _tctx(n) for n in (2, 4)}
+    assert torch.equal(tmoe.ag_moe_group_gemm(ctx2d, x, ids, w,
+                                              axis=("a", "b"), block_m=BM),
+                       tmoe.ag_moe_group_gemm(flat[4], x, ids, w,
+                                              block_m=BM))
+    torch.testing.assert_close(
+        tmoe.moe_reduce_rs(ctx2d, h, rids, tw, rw, axis=("a", "b"),
+                           block_m=BM),
+        tmoe.moe_reduce_rs(flat[4], h, rids, tw, rw, block_m=BM),
+        rtol=TOL["float32"], atol=TOL["float32"])
+    for axis in ("a", "b"):
+        want = tmoe.ag_moe_group_gemm(flat[2], x, ids, w, block_m=BM)
+        got = tmoe.ag_moe_group_gemm(ctx2d, x, ids, w, axis=axis,
+                                     block_m=BM, replicas=True)
+        assert got.shape[0] == 2 and all(torch.equal(g, want) for g in got)
+        want = tmoe.moe_reduce_rs(flat[2], h, rids, tw, rw, block_m=BM)
+        got = tmoe.moe_reduce_rs(ctx2d, h, rids, tw, rw, axis=axis,
+                                 block_m=BM, replicas=True)
+        assert got.shape[0] == 2 and all(torch.equal(g, want) for g in got)
 
 
 @pytest.fixture(scope="module")

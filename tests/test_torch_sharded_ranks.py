@@ -203,15 +203,17 @@ MESHES = [((1, 1, 2), {}), ((1, 1, 4), {}), ((2, 1, 2), {}),
 def test_engine_on_a_mesh_equals_the_one_rank_golden(micro, golden, mesh,
                                                      kw):
     """Every mesh serves the preempting trace bitwise as the 1x1x1 engine
-    with the same fp8 wire, preemptions and all (``tp_impl="ag_gemm"``
-    over a TP axis inside a 2-D mesh refuses: its B15 spans only a whole
-    mesh)."""
+    with the same fp8 wire, preemptions and all. ``tp_impl="ag_gemm"``
+    (B15 over the TP axis, a group inside the 2-D mesh) sums its tiles in
+    another order than the column products, so it is held against the
+    2x1x1 ``ag_gemm`` engine on the same trace instead, bitwise."""
     _, _, tcfg, tparams = micro
     if kw.get("tp_impl") == "ag_gemm":
-        with pytest.raises(NotImplementedError, match="item 6"):
-            _serve(tcfg, tparams, mesh, **kw)
-        res, eng = _serve(tcfg, tparams, (2, 1, 1), **kw)
-        assert len(res) == 6
+        res, eng = _serve(tcfg, tparams, mesh, **kw)
+        ref, _ = _serve(tcfg, tparams, (2, 1, 1), **kw)
+        assert len(res) == 6 and res == ref
+        assert eng.mesh_desc == "x".join(map(str, mesh))
+        eng.alloc.check()
         return
     res, eng = _serve(tcfg, tparams, mesh, **kw)
     assert res == golden

@@ -159,24 +159,26 @@ def test_workspace_helpers_and_contexts():
 
 
 def test_more_ranks_and_axis_tuples_raise():
+    """Tuple axes and groups inside a multi-axis mesh run (the 2-tier and
+    group forms): over a tuple of one-rank axes they are the one-rank op,
+    a 1-tuple is its axis, and a group of (2, 2) is the 2-rank op."""
     ctx = initialize_distributed(("x", "y"), device="cpu")
-    a, b = torch.zeros(8, 8), torch.zeros(8, 8)
-    for call in (lambda: tag.ag_gemm(ctx, a, b, axis=("x", "y")),
-                 lambda: trs.gemm_rs(ctx, a, b, axis=("x", "y")),
-                 lambda: tag.create_ag_gemm_workspace(ctx, 8, 8,
-                                                      axis=("x", "y"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    a, b = (_t(x) for x in _arrays("float32", (8, 8), (8, 8), seed=9))
+    one = tag.ag_gemm(ctx, a, b)
+    assert torch.equal(tag.ag_gemm(ctx, a, b, axis=("x", "y")), one)
+    assert torch.equal(trs.gemm_rs(ctx, a, b, axis=("x", "y")),
+                       trs.gemm_rs(ctx, a, b))
+    ws = tag.create_ag_gemm_workspace(ctx, 8, 8, axis=("x", "y"))
+    assert ws.shape == (1, 1, 8, 8) and not ws.any()
     # a 1-tuple is its axis
     assert tag.ag_gemm(ctx, a, b, axis=("y",)).shape == (8, 8)
     # more ranks run over an axis that spans the whole mesh (every rank on
-    # the one card); a group inside a multi-axis mesh still waits
-    assert torch.equal(tag.ag_gemm(initialize_distributed(("x",), (2,),
-                                                          device="cpu"),
-                                   a, b), a @ b)
-    with pytest.raises(NotImplementedError, match="TP overlap across ranks"):
-        tag.ag_gemm(initialize_distributed(("x", "y"), (2, 2),
-                                           device="cpu"), a, b, axis="y")
+    # the one card), and over a group inside a multi-axis mesh
+    two = tag.ag_gemm(initialize_distributed(("x",), (2,), device="cpu"),
+                      a, b)
+    assert torch.equal(two, a @ b)
+    assert torch.equal(tag.ag_gemm(initialize_distributed(
+        ("x", "y"), (2, 2), device="cpu"), a, b, axis="y"), two)
 
 
 def test_tp_column_linear_is_the_product_at_one_rank():

@@ -42,8 +42,9 @@
 // the consumption order, with src the segment's bytes (the own shard for
 // my_seg, the rank's own workspace slot otherwise). B11 copies the own
 // shard into its slot (remote segments landed in their output slots
-// directly); a 2-tier B15 or B19 plugs in B2's or B17's tile here (item 6
-// and 7 of the port's roadmap), with the workspace as `ws`.
+// directly); the 2-tier B15 (tp_overlap.cu) and B19 (moe_tp.cu) plug in
+// B2's and B17's tile, with their workspaces as `ws`. B19 moves only the
+// used rows of each segment (`used`, a prefix of its slot).
 
 #pragma once
 
@@ -94,12 +95,14 @@ __device__ __forceinline__ void relay_put(const PeerTable& ws, const PeerTable& 
 // The relay of one block (lane blockIdx.x, chunk [b0, b1) of every
 // segment of seg_bytes), grid (lanes, N) covering every rank of the mesh.
 // shard: this rank's segment; ws: every rank's slots [n][seg_bytes]; pads:
-// the family's signal pads. All threads call it; false on error (a starved
-// wait, reported through L).
-template <typename Emit>
+// the family's signal pads; used(seg): the bytes of segment seg that travel
+// (a prefix of its slot; the lanes' chunks are cut to it, and a lane past
+// it still counts its arrival). All threads call it; false on error (a
+// starved wait, reported through L).
+template <typename Emit, typename Used>
 __device__ bool relay_2d(const Relay2d& R, const PeerTable& ws, const PeerTable& pads,
                          const unsigned char* shard, long long seg_bytes, long long b0,
-                         long long b1, int silent, const Launch& L, Emit&& emit) {
+                         long long b1, int silent, const Launch& L, Emit&& emit, Used&& used) {
   const int mo = group_me(R.outer), no = group_n(R.outer);
   const int mi = group_me(R.inner), ni = group_n(R.inner);
   const int lanes = gridDim.x;
@@ -110,11 +113,15 @@ __device__ bool relay_2d(const Relay2d& R, const PeerTable& ws, const PeerTable&
   int pes[kMaxPes];
   int inner = 0;
   for (int s = 1; s < ni; ++s) pes[inner++] = group_pe(R.inner, mi + s);
+  auto end = [&](int seg) {
+    const long long u = used(seg);
+    return b1 < u ? b1 : u;
+  };
 
   // own shard: the inner push and outer ring hop 1
   const int my_seg = mo * ni + mi;
   pes[inner] = right;
-  relay_put(ws, pads, pes, inner + (no > 1), shard, seg_bytes, my_seg, b0, b1, silent);
+  relay_put(ws, pads, pes, inner + (no > 1), shard, seg_bytes, my_seg, b0, end(my_seg), silent);
   emit(shard, my_seg);
   for (int s = 1; s < ni; ++s) {
     const int seg = mo * ni + (mi + s) % ni;
@@ -128,7 +135,8 @@ __device__ bool relay_2d(const Relay2d& R, const PeerTable& ws, const PeerTable&
     if (!wait_block(pad + count_word(seg_r), lanes, false, L, count_word(seg_r))) return false;
     const unsigned char* got = mine + (size_t)seg_r * seg_bytes;
     pes[inner] = right;
-    relay_put(ws, pads, pes, inner + (t < no - 1), got, seg_bytes, seg_r, b0, b1, silent);
+    relay_put(ws, pads, pes, inner + (t < no - 1), got, seg_bytes, seg_r, b0, end(seg_r),
+              silent);
     emit(got, seg_r);
     for (int s = 1; s < ni; ++s) {
       const int seg = r * ni + (mi + s) % ni;
@@ -140,6 +148,15 @@ __device__ bool relay_2d(const Relay2d& R, const PeerTable& ws, const PeerTable&
   if (!finish_block(pad, lanes, my_seg, L, no * ni)) return false;
   quiet();
   return true;
+}
+
+// The relay of whole segments (every byte of each travels).
+template <typename Emit>
+__device__ bool relay_2d(const Relay2d& R, const PeerTable& ws, const PeerTable& pads,
+                         const unsigned char* shard, long long seg_bytes, long long b0,
+                         long long b1, int silent, const Launch& L, Emit&& emit) {
+  return relay_2d(R, ws, pads, shard, seg_bytes, b0, b1, silent, L, emit,
+                  [seg_bytes](int) { return seg_bytes; });
 }
 
 }  // namespace tdt_shmem

@@ -73,6 +73,8 @@ enum Kernel : int {
   kAgLl = 16,
   kAgPush2d = 17,
   kBcast = 18,
+  kAgGemm2d = 19,
+  kAgMoe2d = 20,
 };
 
 // The n base pointers of one symmetric buffer, rank r's at ptr[r].

@@ -5,9 +5,11 @@ Counterpart of ``triton_dist_tpu/layers/tp_linear.py``:
 (B16). With ``persistent=True`` a layer keeps one workspace context per
 shape and reuses it on every call (the reference's create-the-context-once
 pattern); without it each call allocates a fresh workspace. Both run at
-one rank, and at n ranks over an axis that spans the whole mesh (every
-rank on the one card, one launch of the overlap kernel a call); a reused
-workspace is guarded across calls by the kernel's entry barrier.
+one rank, and at n ranks over an axis (the whole mesh, or a group inside a
+multi-axis mesh) or a tuple of axes (the 2-tier forms), every rank on the
+one card and one launch of the overlap kernel a call (over a tuple GEMM-RS
+adds B13's ring over the outer axis); a reused workspace is guarded across
+calls by the kernel's entry barrier.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ class ColumnParallelLinear:
     linear, through the AG-GEMM op."""
 
     ctx: object
-    axis: str | None = None
+    axis: object = None
     cfg: GemmConfig | None = None
     persistent: bool = False
     _ag_ctxs: dict = dataclasses.field(default_factory=dict)
@@ -52,7 +54,7 @@ class RowParallelLinear:
     linear, through the GEMM-RS op."""
 
     ctx: object
-    axis: str | None = None
+    axis: object = None
     cfg: GemmConfig | None = None
     persistent: bool = False
     _rs_ctxs: dict = dataclasses.field(default_factory=dict)

@@ -250,14 +250,16 @@ def _tile(m: int, n: int) -> GemmConfig:
     return GemmConfig(math.gcd(128, m), math.gcd(128, n))
 
 
-def mlp_tp_overlap(ctx, x2d, w_gate, w_up, w_down, axis: str | None = None,
+def mlp_tp_overlap(ctx, x2d, w_gate, w_up, w_down, axis=None,
                    gemm_cfg=None):
     """The Llama MLP over the differentiable overlap ops, for the Megatron
     sequence-parallel layout: x2d [T, D] sharded on rows -> [T, D] sharded
-    on rows. Gate and up run as one AG-GEMM over the per-shard [gate_i ‖
-    up_i] interleave (at one rank the concatenation [w_gate ‖ w_up], built
-    per call), the down projection as its GEMM-RS adjoint; both are
-    autograd functions whose backward is the other op (``ops.autodiff``)."""
+    on rows, over ``axis`` (a name: the whole mesh or a group inside it; or
+    a tuple of axes, outer first: the 2-tier forms). Gate and up run as
+    one AG-GEMM over the per-shard [gate_i ‖ up_i] interleave (at one rank
+    the concatenation [w_gate ‖ w_up], built per call), the down projection
+    as its GEMM-RS adjoint; both are autograd functions whose backward is
+    the other op (``ops.autodiff``)."""
     axis = axis or ctx.axis_names[0]
     n = ctx.axis_size(axis)
     D, Fd = w_gate.shape
@@ -277,7 +279,7 @@ def mlp_tp_overlap(ctx, x2d, w_gate, w_up, w_down, axis: str | None = None,
 
 
 def forward_tp_overlap(ctx, params: dict, tokens, cfg: LlamaConfig,
-                       axis: str | None = None):
+                       axis=None):
     """Full-sequence forward where every Megatron linear pair runs through
     the overlap ops: qkv and gate‖up through AG-GEMM, o and down through
     GEMM-RS (the model-level composition of the reference's tutorials 07
@@ -285,8 +287,11 @@ def forward_tp_overlap(ctx, params: dict, tokens, cfg: LlamaConfig,
     rank, so that at n ranks rank r's column block of the qkv output holds
     its heads. The ops return the JAX package's global views (column blocks
     by rank from AG-GEMM, row blocks by rank from GEMM-RS), so the code is
-    the same at any n. tokens [B, S]; returns logits [B, S, V] f32 (the LM
-    head is a plain product, as in the JAX model)."""
+    the same at any n and over any ``axis``: a name (the whole mesh or a
+    group inside it) or a tuple of axes, outer first (the 2-tier forms, the
+    ranks in ``P(axes)`` order), which it only passes down. tokens [B, S];
+    returns logits [B, S, V] f32 (the LM head is a plain product, as in the
+    JAX model)."""
     axis = axis or ctx.axis_names[0]
     nr = ctx.axis_size(axis)
     B, S = tokens.shape

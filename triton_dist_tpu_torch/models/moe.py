@@ -25,6 +25,7 @@ from triton_dist_tpu_torch.models.llama import (LlamaConfig, decode_step_sp,
                                                 init_params)
 from triton_dist_tpu_torch.ops.all_to_all import _cap_round
 from triton_dist_tpu_torch.ops.allgather import all_gather
+from triton_dist_tpu_torch.ops.allgather_gemm import norm_axis
 from triton_dist_tpu_torch.ops.group_gemm import (apply_grouped, grouped_gemm,
                                                   grouped_gemm_gated)
 from triton_dist_tpu_torch.ops.moe import ag_moe_group_gemm, moe_reduce_rs
@@ -189,11 +190,12 @@ def moe_mlp_ep_overlap(ctx, a2a_layer, x2d, router_w, we_gate, we_up,
 
 
 def moe_mlp_tp_overlap(ctx, x2d, router_w, we_up, we_down, topk: int,
-                       axis: str | None = None, block_m: int = 128):
+                       axis=None, block_m: int = 128):
     """The MoE tensor-parallel inference block (the JAX
-    ``moe_mlp_tp_overlap``) over the TP axis ``axis`` of n ranks: x2d
-    [T, D], rank r's T / n rows at block r -> [T, D] in x2d's type, the
-    same layout.
+    ``moe_mlp_tp_overlap``) over the TP axis ``axis`` of n ranks (a name:
+    the whole mesh or a group inside it; or a tuple of axes, outer first:
+    the 2-tier forms): x2d [T, D], index r's T / n rows at block r -> [T,
+    D] in x2d's type, the same layout.
 
     The router in f32 (``x2d.float() @ router_w``), softmax, top-k and the
     renormalised top-k weights; one row per (token, k) pair, the rows of a
@@ -202,19 +204,20 @@ def moe_mlp_tp_overlap(ctx, x2d, router_w, we_up, we_down, topk: int,
     at block r); ``silu`` in f32, cast to x2d's type; then ``moe_reduce_rs``
     (the grouped down-projection, we_down [E, F, D] row-sharded, into the
     f32 slots, their reduce-scatter and the top-k fold). The second stage
-    takes the replicated row-to-expert map: at n ranks B9's push gathers
-    the ranks' ids over ``axis`` (the JAX block gathers them with XLA); at
-    one rank it is the rows' own ids. This block has no gate projection,
-    unlike ``moe_mlp_ep_overlap``. ``block_m`` is the aligned row block of
-    both grouped GEMMs."""
-    axis = axis or ctx.axis_names[0]
+    takes the replicated row-to-expert map: at n ranks B9's push (B11's
+    ``push_2d`` over a tuple) gathers the ranks' ids over ``axis`` (the JAX
+    block gathers them with XLA); at one rank it is the rows' own ids. This
+    block has no gate projection, unlike ``moe_mlp_ep_overlap``.
+    ``block_m`` is the aligned row block of both grouped GEMMs."""
+    axis = norm_axis(ctx, axis)
     gate_vals, gate_ids = router_topk(x2d, router_w, topk)
     rep = x2d.repeat_interleave(topk, 0)
     ids = gate_ids.reshape(-1).to(torch.int32).contiguous()
     h = ag_moe_group_gemm(ctx, rep, ids, we_up, axis=axis, block_m=block_m)
     h = torch.nn.functional.silu(h.float()).to(x2d.dtype)
     if ctx.axis_size(axis) > 1:
-        ids = all_gather(ctx, ids, axis=axis, method="push")[0]
+        ids = all_gather(ctx, ids, axis=axis, method="push_2d"
+                         if isinstance(axis, tuple) else "push")[0]
     return moe_reduce_rs(ctx, h, ids, gate_vals, we_down, axis=axis,
                          block_m=block_m)
 

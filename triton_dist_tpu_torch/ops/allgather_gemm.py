@@ -9,20 +9,33 @@ first.
   the local segment's GEMM: ``gemm_into`` (``csrc/gemm.cu``) on a CUDA
   tensor, its plain version on a CPU tensor. The workspace is carried and
   returned unwritten, as the TPU kernel leaves it at n = 1.
-- At n ranks, over an axis that spans the whole mesh, every rank runs on
+- At n ranks over one axis (``ag_overlap_protocol``) every rank runs on
   the one card (``shmem/context.py``) and one cooperative launch of
-  ``csrc/tp_overlap.cu`` covers them all: the entry barrier, each rank's
-  puts of its shard into slot ``me`` of every peer's symmetric workspace
-  [n, M/n, K], then each rank's column block of C segment by segment in the
-  swizzled order ``me, me+1, ...``. A CPU tensor runs the plain version
-  (``ag_gemm_plain``): per rank, B2's plain product of the gathered A into
-  its column block, and the slots filled as the kernel fills them.
+  ``csrc/tp_overlap.cu`` covers every rank of the mesh: the entry barrier,
+  each rank's puts of its shard into slot ``me`` of every peer's symmetric
+  workspace, then each rank's column block of C segment by segment in the
+  swizzled order ``me, me+1, ...``. Inside a multi-axis mesh the axis's
+  groups run side by side in that launch (``shmem.device.group_plan``),
+  each writing its own replica of C.
+- Over a tuple of axes ``(outer, *inner)`` (``ag_overlap_protocol_2d``)
+  the same launch runs the 2-tier relay of ``csrc/ag_relay_2d.cuh`` with
+  B2's tile as its emit: the own shard pushed over the inner group and one
+  hop round the outer ring, each relayed segment forwarded before it is
+  computed. The rows and columns follow ``P(axes)``: rank (mo, mi) is index
+  ``mo * ni + mi``, so over ("a", "b") of (2, 2) the result is bitwise the
+  one-axis kernel over 4 ranks.
+
+A CPU tensor runs the plain version (``ag_gemm_plain``): per rank, B2's
+plain product of the gathered A into its column block, and the slots
+filled as the kernel fills them (the relay fills every slot as the 1-tier
+push does).
 
 Inputs and outputs are the JAX package's global views: ``a`` [M, K] with
-rank r's rows at block r, ``b`` [K, N] and C [M, N] with rank r's columns
-at block r. Tuple axes (the 2-tier ``ag_overlap_protocol_2d``),
-slice-crossing axes (``_ag_gemm_dcn``) and a group inside a multi-axis mesh
-raise ``NotImplementedError``: ROADMAP.md Queue A, item 6.
+index r's rows at block r, ``b`` [K, N] and C [M, N] with index r's
+columns at block r (replicated over the mesh's other axes: the result is
+rank 0's group's). The slice-crossing route (``_ag_gemm_dcn``) has no
+counterpart: the port's mesh has no slow tier (ROADMAP.md Queue A, item
+6).
 """
 
 from __future__ import annotations
@@ -34,21 +47,23 @@ import torch
 
 from triton_dist_tpu_torch import csrc
 from triton_dist_tpu_torch.ops.allgather import all_gather
-from triton_dist_tpu_torch.ops.common import family_pad, spans_every_rank
+from triton_dist_tpu_torch.ops.common import family_pad
 from triton_dist_tpu_torch.ops.gemm import (GemmConfig, _b_operand,
                                             gemm_into, matmul, matmul_plain)
 from triton_dist_tpu_torch.shmem import device as shd
 
 TP_OVERLAP = 'ROADMAP.md Queue A, item 6 "TP overlap across ranks"'
-_MULTI = "_ag_gemm_dcn, ag_overlap_protocol_2d"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 TP_SIGNATURES = {
-    # a b c ws pads n m_local n_local K ldb b_trans kind lanes ...
-    "tdt_ag_gemm": [_P] * 5 + [_I] * 8 + shd.LAUNCH_SIG,
-    # a b out ws pads n m_seg N k_local lda ldb b_trans kind lanes ...
-    "tdt_gemm_rs": [_P] * 5 + [_I] * 9 + shd.LAUNCH_SIG,
+    # a b c ws pads group n m_local n_local K ldb b_trans kind lanes silent
+    "tdt_ag_gemm": [_P] * 6 + [_I] * 9 + shd.LAUNCH_SIG,
+    # a b c ws pads relay, then as tdt_ag_gemm's
+    "tdt_ag_gemm_2d": [_P] * 6 + [_I] * 9 + shd.LAUNCH_SIG,
+    # a b out ws pads group kgroup no n m_seg N k_local lda ldb b_trans kind
+    # lanes silent ...
+    "tdt_gemm_rs": [_P] * 7 + [_I] * 11 + shd.LAUNCH_SIG,
 }
 # rows and columns of the kernels' output tile (csrc/gemm_tile.cuh)
 TILE = 128
@@ -86,20 +101,16 @@ def norm_axis(ctx, axis):
     return axis
 
 
-def tp_axis(ctx, axis, op: str, multi: str) -> tuple[str, int]:
-    """(``axis`` normalised, its ranks) for an overlap op: one rank, or an
-    axis over the whole mesh (one launch covers every rank). A tuple axis
-    (``multi``: the op's multi-tier paths) or a group inside a multi-axis
-    mesh raises ``NotImplementedError``."""
+def tp_axis(ctx, axis) -> tuple:
+    """(``axis`` normalised, its ranks) for an overlap op: one rank; an axis
+    (a group inside a multi-axis mesh, or the whole mesh); or a tuple of
+    axes, outer first (the 2-tier path)."""
     axis = norm_axis(ctx, axis)
-    if isinstance(axis, tuple):
-        raise NotImplementedError(
-            f"{op} over the axis tuple {axis} ({multi}) is not ported yet: "
-            + TP_OVERLAP)
-    n = ctx.axis_size(axis)
-    if n > 1:
-        spans_every_rank(ctx, axis, op, TP_OVERLAP)
-    return axis, n
+    return axis, ctx.axis_size(axis)
+
+
+def _silent(rank) -> int:
+    return -1 if rank is None else int(rank)
 
 
 def _local_gemm(a, b, cfg, out_dtype):
@@ -128,12 +139,14 @@ def _check(a, b, n: int, cfg) -> int:
     return M // n
 
 
-def ag_gemm_plain(a, b, n: int, out_dtype=None, ws=None):
-    """The plain version of AG-GEMM at ``n`` ranks: rank r's column block of
-    C is B2's plain product (``matmul_plain``) of the gathered A (``a``
-    itself, the shards rank-major) with rank r's column block of ``b``.
-    With ``ws`` [n, n, M/n, K], rank r's slot s receives shard s for every
-    s != r, as the kernel's puts leave it (its own slot is never written)."""
+def ag_gemm_plain(a, b, n: int, out_dtype=None, ws=None, index=None):
+    """The plain version of AG-GEMM at ``n`` ranks: index r's column block
+    of C is B2's plain product (``matmul_plain``) of the gathered A (``a``
+    itself, the shards index-major) with index r's column block of ``b``.
+    With ``ws`` [R, n, M/n, K] (R ranks, rank q member ``index[q]`` of its
+    group; by default R = n and ``index[q] = q``), rank q's slot s receives
+    shard s for every s != index[q], as the kernel's puts (or the 2-tier
+    relay) leave it (its own slot is never written)."""
     M, K = a.shape
     nl = b.shape[1] // n
     out = torch.empty(M, b.shape[1], dtype=out_dtype or a.dtype,
@@ -143,19 +156,24 @@ def ag_gemm_plain(a, b, n: int, out_dtype=None, ws=None):
         out[:, cols] = matmul_plain(a, b[:, cols], out.dtype)
     if ws is not None:
         shards = a.reshape(n, M // n, K)
-        for r in range(n):
+        for q, me in enumerate(index if index is not None else range(n)):
             for s in range(n):
-                if s != r:
-                    ws[r, s] = shards[s]
+                if s != me:
+                    ws[q, s] = shards[s]
     return out
 
 
-def _ag_ranks(ctx, axis, n: int, a, b, ws, out_dtype):
-    """AG-GEMM at n > 1 ranks: the plain version on a CPU tensor, else one
-    launch of the kernel through the workspace ``ws`` [n, n, M/n, K]."""
+def _ag_ranks(ctx, axis, n: int, a, b, ws, out_dtype, silent_rank=None):
+    """AG-GEMM at n > 1 ranks over ``axis`` (a name or a tuple): the plain
+    version on a CPU tensor, else one launch of the kernel (the 2-tier relay
+    over a tuple) through the workspace ``ws`` [N, n, M/n, K]. Returns
+    every group's replica, [G, M, N]."""
     out_dtype = out_dtype or a.dtype
+    index = shd.group_plan(ctx, axis)[2]
+    G = ctx.num_ranks // n
     if a.device.type == "cpu":
-        return ag_gemm_plain(a, b, n, out_dtype, ws)
+        c = ag_gemm_plain(a, b, n, out_dtype, ws, index)
+        return c.unsqueeze(0).expand((G,) + tuple(c.shape))
     if b.dtype != a.dtype or ws.dtype != a.dtype:
         raise TypeError(f"ag_gemm: a {a.dtype}, b {b.dtype} and the "
                         f"workspace {ws.dtype} must share a type")
@@ -165,70 +183,97 @@ def _ag_ranks(ctx, axis, n: int, a, b, ws, out_dtype):
     shd.cuda_checks("ag_gemm", a, b, ws)
     M, K = a.shape
     N = b.shape[0] if trans else b.shape[1]
-    out = torch.empty(M, N, dtype=out_dtype, device=a.device)
+    if isinstance(axis, tuple) and (M // n * K * a.element_size()) % 16:
+        raise ValueError("ag_gemm over two tiers: a shard must be a whole "
+                         "number of 16-byte vectors")
+    out = torch.empty(G, M, N, dtype=out_dtype, device=a.device)
     lanes = n * tiles(M // n, N // n)
-    pad = family_pad(ctx, "ag_gemm", axis, lanes + n + 1)
+    R = ctx.num_ranks
+    pad = family_pad(ctx, "ag_gemm", axis, lanes + R + 1)
     slots, pads = shd.tables(ctx, ws, pad)
+    outs = shd.group_rows(ctx, out, axis)
+    if isinstance(axis, tuple):
+        entry, plan = "tdt_ag_gemm_2d", shd.relay_plan(ctx, axis)
+    else:
+        entry, plan = "tdt_ag_gemm", shd.group_plan(ctx, axis)[1]
     lib = tp_lib()
     args = shd.launch_args(ctx)
     with csrc.current_on(a.device):
-        rc = lib.tdt_ag_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), slots,
-                             pads, n, M // n, N // n, K, b.stride(0),
-                             int(trans), kind, lanes, *args)
+        rc = getattr(lib, entry)(
+            a.data_ptr(), b.data_ptr(), outs, slots, pads, ctypes.byref(plan),
+            R, M // n, N // n, K, b.stride(0), int(trans), kind, lanes,
+            _silent(silent_rank), *args)
     csrc.check(lib, rc, "ag_gemm")
     ag_gemm.launches += 1
+    ag_gemm.launches_2d += int(isinstance(axis, tuple))
     return out
 
 
 def ag_gemm(ctx, a, b, axis=None, cfg: GemmConfig | None = None,
-            out_dtype=None):
+            out_dtype=None, silent_rank: int | None = None,
+            replicas: bool = False):
     """C = all_gather(a) @ b: ``a`` [M, K] sharded on rows, ``b`` [K, N]
-    sharded on columns; C [M, N] sharded on columns, in ``out_dtype`` (a's
-    type by default). ``cfg``, when given, must divide the local output
-    (the JAX op's precondition). At n > 1 ranks a fresh workspace is made
-    for the call; ``ag_gemm_ws`` and ``AgGemmContext`` reuse one. A CUDA
-    tensor launches the kernel (each B15 call adds one to
-    ``ag_gemm.launches``) or raises."""
-    axis, n = tp_axis(ctx, axis, "ag_gemm", _MULTI)
+    sharded on columns, over ``axis`` (a name, or a tuple of axes, outer
+    first: the 2-tier path); C [M, N] sharded on columns, in ``out_dtype``
+    (a's type by default). ``cfg``, when given, must divide the local
+    output (the JAX op's precondition). At n > 1 ranks a fresh workspace is
+    made for the call; ``ag_gemm_ws`` and ``AgGemmContext`` reuse one. A
+    CUDA tensor launches the kernel (each B15 call adds one to
+    ``ag_gemm.launches``, over a tuple also to ``ag_gemm.launches_2d``) or
+    raises. ``replicas``: every group's C, [G, M,
+    N] (G groups of the axis in the mesh; their numbering
+    ``shmem.device.group_ids``). ``silent_rank`` (n > 1, the card) names a
+    rank that puts but never signals: the call then raises ``ShmemError``
+    once the spin budget has passed."""
+    axis, n = tp_axis(ctx, axis)
     if n == 1:
-        return _local_gemm(a, b, cfg, out_dtype)
+        c = _local_gemm(a, b, cfg, out_dtype)
+        return c[None] if replicas else c
     m_local = _check(a, b, n, cfg)
     ws = (None if a.device.type == "cpu" else
-          torch.empty((n, n, m_local, a.shape[1]), dtype=a.dtype,
-                      device=a.device))
-    return _ag_ranks(ctx, axis, n, a, b, ws, out_dtype)
+          torch.empty((ctx.num_ranks, n, m_local, a.shape[1]),
+                      dtype=a.dtype, device=a.device))
+    c = _ag_ranks(ctx, axis, n, a, b, ws, out_dtype, silent_rank)
+    return c if replicas else c[0]
 
 
 ag_gemm.launches = 0
+ag_gemm.launches_2d = 0
+
+
+def _ws_ranks(ctx, n: int) -> int:
+    """The leading dim of an overlap op's workspace: one buffer at one
+    rank, else one a rank of the mesh."""
+    return 1 if n == 1 else ctx.num_ranks
 
 
 def ag_gemm_ws(ctx, a, b, ws, axis=None, cfg: GemmConfig | None = None,
-               out_dtype=None):
-    """``ag_gemm`` with the symmetric workspace ``ws`` [n, n, M/n, K] (from
-    ``create_ag_gemm_workspace``) as an explicit operand, written in place:
-    returns ``(C, ws)``. At one rank no segment travels, so ``ws`` comes
-    back unwritten; at n ranks rank r's slot s holds shard s for s != r,
-    and its own slot is left as it was."""
-    axis, n = tp_axis(ctx, axis, "ag_gemm_ws", _MULTI)
+               out_dtype=None, silent_rank: int | None = None):
+    """``ag_gemm`` with the symmetric workspace ``ws`` [N, n, M/n, K] (N the
+    mesh's ranks, from ``create_ag_gemm_workspace``) as an explicit operand,
+    written in place: returns ``(C, ws)``. At one rank no segment travels,
+    so ``ws`` comes back unwritten; at n ranks rank q's slot s holds shard
+    s for every s but its own index, and its own slot is left as it was."""
+    axis, n = tp_axis(ctx, axis)
     M, K = a.shape
-    if tuple(ws.shape) != (n, n, M // n, K) or ws.dtype != a.dtype:
+    want = (_ws_ranks(ctx, n), n, M // n, K)
+    if tuple(ws.shape) != want or ws.dtype != a.dtype:
         raise ValueError(
             f"workspace {tuple(ws.shape)}/{ws.dtype} does not match "
-            f"({n}, {n}, {M // n}, {K})/{a.dtype}: create it with "
+            f"{want}/{a.dtype}: create it with "
             f"create_ag_gemm_workspace(ctx, m_local={M // n}, k={K}, ...)")
     if n == 1:
         return _local_gemm(a, b, cfg, out_dtype), ws
     _check(a, b, n, cfg)
-    return _ag_ranks(ctx, axis, n, a, b, ws, out_dtype), ws
+    return _ag_ranks(ctx, axis, n, a, b, ws, out_dtype, silent_rank)[0], ws
 
 
 def create_ag_gemm_workspace(ctx, m_local: int, k: int,
                              dtype=torch.bfloat16, axis=None):
-    """The symmetric AG workspace: [n, n, m_local, k] zeros on the context's
-    device, one [n, m_local, k] block of slots per rank (at n > 1
-    ``ctx.create_symm_tensor``)."""
-    _, n = tp_axis(ctx, axis, "create_ag_gemm_workspace",
-                   "a 2-tier workspace")
+    """The symmetric AG workspace: [N, n, m_local, k] zeros on the context's
+    device, one [n, m_local, k] block of slots per rank of the mesh (at n >
+    1 ``ctx.create_symm_tensor``; at one rank [1, 1, m_local, k])."""
+    _, n = tp_axis(ctx, axis)
     if n == 1:
         return torch.zeros((1, 1, m_local, k), dtype=dtype, device=ctx.device)
     return ctx.create_symm_tensor((n, m_local, k), dtype)
@@ -242,12 +287,14 @@ class AgGemmContext:
     shape; PyTorch runs eagerly and updates in place.)"""
 
     ctx: object
-    axis: str
+    axis: object
     ws: torch.Tensor
 
-    def __call__(self, a, b, cfg: GemmConfig | None = None, out_dtype=None):
+    def __call__(self, a, b, cfg: GemmConfig | None = None, out_dtype=None,
+                 silent_rank: int | None = None):
         c, self.ws = ag_gemm_ws(self.ctx, a, b, self.ws, axis=self.axis,
-                                cfg=cfg, out_dtype=out_dtype)
+                                cfg=cfg, out_dtype=out_dtype,
+                                silent_rank=silent_rank)
         return c
 
 

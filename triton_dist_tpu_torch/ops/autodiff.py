@@ -17,9 +17,11 @@ operand as its transpose). The weight gradients are plain products with f32
 sums and one cast, as the JAX ops compute them (``jnp.dot`` outside any
 kernel), one per rank on that rank's blocks. At one rank ``all_gather`` is
 B9's copy kernel (``ops/allgather.py``) and the rebuilt AG(dy) is dy; at n
-ranks every rank gets its replica of AG(a) from B9's push, and rebuilds
-AG(dy) from its own workspace slots with its own segment of dy in slot
-``me``, as JAX's ``rebuild`` does.
+ranks every rank gets its replica of AG(a) from the gather over the same
+axis or axes (B9's push over one axis, B11 or ``ring_2d`` over a tuple),
+and rebuilds AG(dy) from its own workspace slots with its own segment of dy
+in slot ``me``, as JAX's ``rebuild`` does; inside a multi-axis mesh the
+products run on rank 0's group's blocks (every group holds the same).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from triton_dist_tpu_torch.ops.allgather_gemm import (ag_gemm, ag_gemm_ws,
                                                       norm_axis)
 from triton_dist_tpu_torch.ops.gemm import GemmConfig
 from triton_dist_tpu_torch.ops.gemm_reduce_scatter import gemm_rs
+from triton_dist_tpu_torch.shmem.device import group_plan
 
 
 def _bwd_cfg(cfg, rows_local: int, cols: int) -> GemmConfig:
@@ -71,8 +74,10 @@ class _AgGemmDiff(torch.autograd.Function):
         if n == 1:
             return None, None, None, da, _wgrad(a_g.t(), dc, b.dtype)
         nl = dc.shape[1] // n
-        db = torch.cat([_wgrad(a_g[r].t(), dc[:, r * nl:(r + 1) * nl],
-                               b.dtype) for r in range(n)], dim=1)
+        members = group_plan(sctx, axis)[3]
+        db = torch.cat([_wgrad(a_g[q].t(), dc[:, r * nl:(r + 1) * nl],
+                               b.dtype) for r, q in enumerate(members)],
+                       dim=1)
         return None, None, None, da, db
 
 
@@ -96,16 +101,18 @@ class _GemmRsDiff(torch.autograd.Function):
         dx, ws = ag_gemm_ws(sctx, dy, w.t(), ws, axis=axis,
                             cfg=_bwd_cfg(fctx.cfg, m_local, w.shape[0] // n),
                             out_dtype=x.dtype)
-        # AG(dy) rebuilt from each rank's workspace: its slot s holds rank
-        # s's segment, except its own (never copied there), filled from dy;
-        # then dw's row block r from rank r's x columns and its AG(dy)
+        # AG(dy) rebuilt from the workspace of each rank of rank 0's group:
+        # its slot s holds index s's segment, except its own (never copied
+        # there), filled from dy; then dw's row block r from index r's x
+        # columns and its AG(dy)
+        members = group_plan(sctx, axis)[3]
         dy_g = ws.to(dy.dtype, copy=True)
-        for r in range(n):
-            dy_g[r, r] = dy[r * m_local:(r + 1) * m_local]
+        for r, q in enumerate(members):
+            dy_g[q, r] = dy[r * m_local:(r + 1) * m_local]
         kl = x.shape[1] // n
         dw = torch.cat([_wgrad(x[:, r * kl:(r + 1) * kl].t(),
-                               dy_g[r].reshape(M, N), w.dtype)
-                        for r in range(n)])
+                               dy_g[q].reshape(M, N), w.dtype)
+                        for r, q in enumerate(members)])
         return None, None, None, dx, dw
 
 

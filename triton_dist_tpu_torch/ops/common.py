@@ -1,9 +1,8 @@
 """What the collective ops share: the host-level barrier (TPU kernel B14),
-the signal pad of each kernel family, and the rules for the ranks a
-collective spans: a group along an axis of the mesh
+the signal pad of each kernel family, and the rule for the ranks a
+collective spans: a group along an axis of the mesh, or several axes
 (``shmem.device.group_plan``: one launch covers every rank, each rank talks
-to its own group only), or, for the TP and MoE overlap ops not yet taught
-groups, the whole mesh (``spans_every_rank``).
+to its own group only).
 
 Counterpart of ``triton_dist_tpu/ops/common.py``. The JAX package keys each
 kernel family's barrier semaphore by a stable ``collective_id_for(name)``;
@@ -28,18 +27,6 @@ def family_pad(ctx, family: str, axis, words: int) -> torch.Tensor:
         axis = "_".join(axis)
     name = family if axis is None else f"{family}_{axis}"
     return ctx.signal_pad(name, words)
-
-
-def spans_every_rank(ctx, axis, op: str, item: str) -> int:
-    """The ranks along ``axis`` of an op not yet taught groups: the group
-    must be the whole mesh, and a group inside a multi-axis mesh raises
-    ``NotImplementedError`` naming the ROADMAP ``item`` it waits for."""
-    n = ctx.axis_size(axis)
-    if n != ctx.num_ranks:
-        raise NotImplementedError(
-            f"{op} over {axis!r} ({n} of {ctx.num_ranks} ranks): a group "
-            "inside a multi-axis mesh is not ported yet: " + item)
-    return n
 
 
 def barrier_all_plain(n: int, device="cpu"):
@@ -79,4 +66,4 @@ def barrier_all_op(ctx, axis: str | None = None):
 barrier_all_op.launches = 0
 
 __all__ = ["barrier_all_op", "barrier_all_plain",
-           "family_pad", "spans_every_rank"]
+           "family_pad"]

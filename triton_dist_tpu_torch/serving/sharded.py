@@ -15,8 +15,9 @@ same code at every mesh size:
   per-page partials over its slice (B7) and the fold across ranks (B8).
 - projections (TP): ``ops.allgather_gemm.tp_column_linear``, each rank's
   column block (B2 on the card, a fixed per-element order of the sum) and
-  the column gather through B9 (``tp_impl="ag_gemm"``: through B15,
-  allclose only).
+  the column gather through B9 (``tp_impl="ag_gemm"``: through B15 over
+  the TP axis, a group inside the mesh at sp or ep > 1; allclose to
+  "xla" only, and bitwise the 2x1x1 ``ag_gemm`` engine at every mesh).
 - MoE FFN (EP): ``models.moe.moe_mlp_ep_overlap`` through two
   ``EPAll2AllLayer``s (decode rows and chunk rows): B21's dispatch, each
   rank's local experts (B18, B17), B21's combine; ``wire_dtype`` fp8 or

@@ -51,7 +51,8 @@ KERNELS = {1: "barrier_all_op", 2: "ring_ping", 3: "all_gather push",
            10: "all_to_all_push_seg", 11: "flash_decode_dist fold",
            12: "pool_ag_start_local", 13: "paged_transport",
            14: "ag_moe_group_gemm", 15: "moe_reduce_rs",
-           16: "all_gather_ll", 17: "all_gather push_2d", 18: "broadcast"}
+           16: "all_gather_ll", 17: "all_gather push_2d", 18: "broadcast",
+           19: "ag_gemm 2-tier", 20: "ag_moe_group_gemm 2-tier"}
 _REPORT_WORDS = 4
 
 _P = ctypes.c_void_p
@@ -112,6 +113,53 @@ def group_plan(ctx, axis) -> tuple:
     return plan
 
 
+_group_ids: dict = {}
+
+
+def group_ids(ctx, axis) -> tuple[int, ...]:
+    """Every rank's group number along ``axis`` (as ``group_plan`` takes
+    it): the groups numbered in the order of their lowest flat id, so rank
+    0's group is group 0. An op over a group inside a multi-axis mesh
+    writes one result a group (``[G, ...]``, G = ranks / group size) and
+    each rank's kernel finds its group's through these numbers."""
+    if axis is not None and not isinstance(axis, str):
+        axis = tuple(axis)
+    key = (tuple(ctx.axis_names), tuple(ctx.mesh_shape), axis)
+    ids = _group_ids.get(key)
+    if ids is None:
+        firsts = [min(ctx.group_members(r, axis))
+                  for r in range(ctx.num_ranks)]
+        order = sorted(set(firsts))
+        ids = _group_ids[key] = tuple(order.index(f) for f in firsts)
+    return ids
+
+
+def group_order(ctx, axis) -> tuple[int, ...]:
+    """The flat ids of every group along ``axis``, group by group (in
+    ``group_ids``' numbering), each in group-index order: ``x[order]`` of a
+    per-rank result [N, ...] is every group's global view, [G * n, ...]."""
+    ids = group_ids(ctx, axis)
+    reps = {}
+    for r, g in enumerate(ids):
+        reps.setdefault(g, r)
+    return tuple(p for g in range(len(reps))
+                 for p in ctx.group_members(reps[g], axis))
+
+
+def group_rows(ctx, x, axis, offsets=None):
+    """The table of one result a group: ``x`` [G, ...] contiguous, every
+    rank pointing at its group's row (``group_ids``), plus its own byte
+    offset ``offsets[r]`` when given."""
+    ids = group_ids(ctx, axis)
+    if x.shape[0] != max(ids) + 1 or not x.is_contiguous():
+        raise ValueError(f"one result a group is contiguous [{max(ids) + 1},"
+                         f" ...] over {axis!r}, got {tuple(x.shape)}")
+    step = x.numel() // x.shape[0] * x.element_size()
+    return (ctypes.c_void_p * ctx.num_ranks)(*(
+        x.data_ptr() + g * step + (offsets[r] if offsets else 0)
+        for r, g in enumerate(ids)))
+
+
 class Relay2d(ctypes.Structure):
     """``csrc/ag_relay_2d.cuh``'s Relay2d: the tiers of a 2-tier relay over
     axes ``(outer, *inner)``, each a ``Group`` over every rank of the mesh:
@@ -166,7 +214,10 @@ def _report(device: torch.device):
             rc = lib.tdt_shmem_host_alloc(_REPORT_WORDS, ctypes.byref(host),
                                           ctypes.byref(dev))
         csrc.check(lib, rc, "shmem error report")
-        claim = torch.zeros(1, dtype=torch.int32, device=device)
+        # a normal tensor even when the first launch runs under
+        # torch.inference_mode: raise_pending zeroes it in place later
+        with torch.inference_mode(False):
+            claim = torch.zeros(1, dtype=torch.int32, device=device)
         words = (ctypes.c_int * _REPORT_WORDS).from_address(host.value)
         rep = _reports[key] = (claim, host.value, dev.value, words)
     return rep
@@ -289,6 +340,8 @@ def ring_ping(ctx, blocks, silent_rank: int | None = None):
 ring_ping.launches = 0
 
 __all__ = ["KERNELS", "Group", "Relay2d", "ShmemError", "check_errors",
-           "group_plan", "group_struct", "group_table", "launch_args",
+           "group_ids", "group_order", "group_plan", "group_rows",
+           "group_struct",
+           "group_table", "launch_args",
            "raise_pending", "relay_plan", "ring_ping", "ring_ping_plain",
            "tables"]
