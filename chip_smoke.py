@@ -258,6 +258,26 @@ Phases, each printing its lines:
    ``moe_mlp_tp_overlap`` over ("a", "b") and over b at 8 / 256 / 4096
    tokens against the plain block and the one-axis block, launches
    counted.
+21. the EP MoE block in its deployed form at DeepSeek-infer's widths
+   (d_model 7168, 64 experts of 2048, top-8; the preset's 4 layers, random
+   bf16 weights, seed 21; after phase 9 frees Mixtral's): (a) B18 and B17
+   in each option's form (fp8 and int8 rows with ``row_scale``, the packed
+   gate|up stream, ``block_k`` 256 and 1024, ring depths 2 and 3) on the
+   block's aligned rows at 128 and 512 tokens top-8, against their plain
+   versions, bitwise on a rerun, the packed stream, every depth and every
+   K split bitwise the plain form, timed beside the bound and
+   ``torch._grouped_mm``; (b) ``moe_mlp_ep_overlap`` on layer 0 at 1, 2, 4,
+   8 ranks, 128 rows a rank, rank-major bf16 (the golden), expert-major
+   (bitwise the golden where no row drops; drops counted), the fp8 wire
+   post and on the expert edge (within ``FP8_BLOCK_TOL``), and the
+   deployed form (expert-major, fp8 expert edge, packed, bitwise its
+   two-stream twin): ms a block, idle share, the path taken; (c) the
+   2-tier layer on (2, 2) and (2, 4), bf16 bitwise and fp8 within
+   tolerance of the flat layer; (d) ``moe_decode_step_sp`` at 4 layers and
+   1, 2, 4 ranks, 8 rows a rank, 32 greedy steps with the deployed layer,
+   bitwise its fp8 rank-major twin, step 0's logits within
+   ``SP_STEP0_TOL`` of the rank-major bf16 layer's in relative L2 and a
+   zeroed-cache-shard control outside, launches counted, ms a step.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -1152,19 +1172,29 @@ def check_grouped(device, w_gate, w_up, w_down, timed: bool = True,
     return records
 
 
-def kernel_device_ms(fn, match: str, calls: int = 10) -> float:
+def kernel_device_ms(fn, match: str, calls: int = 10,
+                     per_call: int | None = None,
+                     floor_ms: float | None = None) -> float:
     """The median device time of the kernels whose name holds ``match`` over
     ``calls`` calls of ``fn`` under ``torch.profiler``: the kernel alone,
     where a CUDA-event time around one call also holds the host's time to
-    enqueue it when the kernel is shorter than that."""
+    enqueue it when the kernel is shorter than that. A profile late in a
+    long run may hold no events; it is taken again, three times in all.
+    With ``per_call`` the profile must hold exactly ``calls * per_call``
+    such kernels, and with ``floor_ms`` (the least time the card could
+    take) its median may not fall under it (on an H100 a profile has given
+    a kernel about half its CUDA-event time): such a profile is logged and
+    taken again, five times in all, and then this raises."""
     import statistics
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    checked = per_call is not None or floor_ms is not None
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):        # a profile late in a long run may miss events
+    seen = []
+    for _ in range(5 if checked else 3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -1172,9 +1202,41 @@ def kernel_device_ms(fn, match: str, calls: int = 10) -> float:
         times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and match in e.name]
-        if times:
-            return statistics.median(times)
+        med = statistics.median(times) if times else None
+        seen.append((len(times), med))
+        if times and (per_call is None or len(times) == calls * per_call) \
+                and (floor_ms is None or med >= floor_ms):
+            if checked and len(seen) > 1:
+                log(f"profile of {match} taken again: (kernels, median ms) "
+                    f"{seen}")
+            return med
+    if checked:
+        raise AssertionError(
+            f"{len(seen)} profiles of {calls} calls missed "
+            f"{calls * (per_call or 1)} kernels named {match!r} at or above "
+            f"{floor_ms} ms: (kernels, median ms) {seen}")
     return None
+
+
+def batched_device_ms(fn, calls: int = 20) -> float:
+    """The device time of a call of ``fn`` whose kernel runs longer than
+    the host takes to enqueue the next call: CUDA events around ``calls``
+    back-to-back calls, so the host's work hides under the running kernel
+    (the grouped GEMMs of phase 21a run 0.75 ms and more, their wrappers'
+    host work a tenth of that). No profiler, whose events a long run may
+    drop or shorten."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def ep_rows_bound(nbytes: int) -> tuple[float, str]:
@@ -8169,6 +8231,901 @@ def tp_2d_kernels(tp2d: dict, moe: dict) -> list[dict]:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the EP MoE block in its deployed form at DeepSeek-infer width
+# ---------------------------------------------------------------------------
+
+# DeepSeek-infer's widths (d_model 7168, 64 experts of width 2048, top-8,
+# 56 / 8 heads, vocab 129280) at the preset's own 4 layers, bf16, random
+# weights from seed 21: 22.5 GB of experts, 3.7 GB of embeddings, the packed
+# gate|up copy of layer 0 (3.8 GB) beside them
+DEPLOYED_SEED = 21
+# (a) the grouped GEMMs' forms on the block's aligned rows: T tokens top-8
+# (one rank's 128, four ranks' 512) at the block's block_m there
+DEPLOYED_GG = ((128, 16), (512, 64))
+DEPLOYED_BLOCK_K = (256, 1024)
+# (b) the block at n ranks, T = 128 token rows a rank, each form through
+# the default (drop-proof) capacity T x top-8
+DEPLOYED_BLOCK = dict(T=128, ranks=(1, 2, 4, 8), block_n=128)
+# (c) the 2-tier layer on (major, minor) against the flat one-axis layer
+DEPLOYED_2D = ((2, 2), (2, 4))
+# (e) the fold of the expert edge's one-byte rows with their scales, at the
+# deployed layer's rows at one and four ranks
+DEPLOYED_COMBINE_RANKS = (1, 4)
+# the fp8 forms of the block against the bf16 golden and against each
+# other: max |diff| over the golden's max |value|. A row is quantised to
+# fp8 e4m3fn (3 mantissa bits: up to 2^-4 of a value) on its way to the
+# experts and its result on the way back; two such roundings of the
+# largest values bound it
+FP8_BLOCK_TOL = 0.125
+# the fp8 expert edge's block against fp8_expert_block_reference (the same
+# semantics written out plainly; only the order of the f32 sums differs):
+# relative L2 over the block's rows. On an H100 sound blocks read
+# 0.23-0.29% at 1-8 ranks; the post edge, another rounding of the same
+# fp8 rows, reads 1.5% and the bf16 golden 4.7%, both outside
+FP8_REF_L2_TOL = 0.01
+# (d) moe_decode_step_sp with the deployed layer: B = 8 token rows a rank,
+# a prompt teacher-forced, then greedy steps; bitwise its fp8 rank-major
+# twin; step 0's logits within DEPLOYED_SP_TOL of the reference step's
+# (decode_step_sp over fp8_expert_block_reference: the same fp8 semantics
+# written out plainly) in phase 18's metric, max |diff| over max |logit|,
+# and a control (the cache shard that holds the prompt zeroed, as phase
+# 14's) outside. The limit is phase 18's SP_STEP0_TOL
+DEPLOYED_SP = dict(B=8, prompt=8, steps=32, max_seq=64, ranks=(1, 2, 4))
+DEPLOYED_SP_TOL = SP_STEP0_TOL
+DEPLOYED_FORMS = (
+    ("rank-major bf16", {}, False),
+    ("expert-major bf16", dict(expert_major=True), False),
+    ("fp8 post", dict(wire_dtype="fp8"), False),
+    ("fp8 expert", dict(wire_dtype="fp8", dequant_edge="expert"), False),
+    ("fp8 expert, expert-major", dict(wire_dtype="fp8", dequant_edge="expert",
+                                      expert_major=True), False),
+    ("deployed", dict(wire_dtype="fp8", dequant_edge="expert",
+                      expert_major=True), True))
+DEPLOYED_NOTE = ("every rank of the EP mesh shares the one card: times are "
+                 "the kernels and their protocol on shared SMs and one HBM, "
+                 "not NVLink")
+
+
+def _deployed_counters():
+    from triton_dist_tpu_torch.ops import all_to_all as ea
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+
+    return (ea.all_to_all_push, ea.ep_dispatch, ea.ep_combine,
+            gg.grouped_gemm_gated, gg.grouped_gemm)
+
+
+def _zero_counters(counters) -> None:
+    for k in counters:
+        k.launches = 0
+        if hasattr(k, "launches_by_form"):
+            k.launches_by_form = {}
+
+
+def _read_counters(counters) -> dict:
+    out = {k.__name__: k.launches for k in counters}
+    for k in counters:
+        if hasattr(k, "launches_by_form"):
+            out.update({f"{k.__name__}[{f}]": v
+                        for f, v in k.launches_by_form.items()})
+    return out
+
+
+def deployed_bound(ids, H: int, N: int, n_w: int, x_esize: int,
+                   n_blocks: int, scaled: bool) -> tuple[float, str]:
+    """Least time of a grouped GEMM form: the used experts' ``n_w`` bf16
+    weight matrices, the routed rows in at ``x_esize`` bytes a value (one
+    byte on a quantised wire) and their bf16 results out, the scales, the
+    block table and the bound each read or written once, against 2 * H * N
+    bf16 tensor-core operations per routed row and weight matrix (one-byte
+    rows are converted to bf16 for them)."""
+    routed = ids[ids >= 0]
+    rows, used = int(routed.numel()), int(routed.unique().numel())
+    nbytes = (n_w * used * H * N * 2 + rows * H * x_esize + rows * N * 2
+              + (4 * rows if scaled else 0) + 4 * n_blocks + 4)
+    ops = 2 * n_w * rows * H * N
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS["bfloat16"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_deployed_kernels(device, w_gate, w_up, w_down, packed,
+                           timed: bool = True, shapes=DEPLOYED_GG,
+                           block_ks=DEPLOYED_BLOCK_K, seed: int = 21
+                           ) -> list[dict]:
+    """Phase 21a: B18 (``grouped_gemm_gated``) and B17 (``grouped_gemm``)
+    in each option's form on the deployed block's aligned rows (T tokens
+    top-8 from a seeded draw, rows bf16 and quantised per row to fp8 e4m3fn
+    and int8 as the EP wire does): every form against its plain version at
+    ``GG_TOL`` and bitwise on a second launch; the packed stream bitwise the
+    two streams, every ring depth and every ``block_k`` bitwise the plain
+    form. ``packed`` is ``pack_gated_weights(w_gate, w_up, 128)``. Timed
+    (one call between CUDA events; the kernel alone from 20 back-to-back
+    calls, ``batched_device_ms``) beside the plain versions, the bound,
+    which no time may beat, and, where one call computes the same
+    function, ``torch._grouped_mm``. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops import all_to_all as ea
+    from triton_dist_tpu_torch.ops import group_gemm as gg
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    E, H, F = w_gate.shape
+    records = []
+    for T, bm in shapes:
+        gen = torch.Generator(device=device).manual_seed(seed + T)
+        ids = torch.rand(T, E, generator=gen, device=device) \
+            .topk(8, -1).indices.reshape(-1).to(torch.int32)
+        g, valid, be, nb = gg.align_tokens_by_expert(ids, E, bm,
+                                                     with_used_count=True)
+        rows = torch.randn(T, H, generator=gen, device=device).to(
+            torch.bfloat16).repeat_interleave(8, 0)
+        x = torch.where(valid[:, None], rows[g.long()],
+                        torch.zeros((), dtype=torch.bfloat16, device=device))
+        quant = {}
+        for wname, wdt in (("float8_e4m3fn", torch.float8_e4m3fn),
+                           ("int8", torch.int8)):
+            q, s = ea._quant(x, wdt)
+            quant[wname] = (q.contiguous(), s.contiguous())
+        used = int(nb) * bm
+        h = gg.grouped_gemm_gated_plain(x, w_gate, w_up, be, bm, nb)
+        hq = {w: ea._quant(h, dt) for w, dt in (
+            ("float8_e4m3fn", torch.float8_e4m3fn), ("int8", torch.int8))}
+        # (form, call args, keywords, the form whose bits it must equal)
+        gated = [("bf16", (x, w_gate, w_up), {}, None)]
+        for wname, (q, s) in quant.items():
+            gated.append((f"{wname} row_scale", (q, w_gate, w_up),
+                          dict(row_scale=s), None))
+        q8, s8 = quant["float8_e4m3fn"]
+        gated += [
+            ("bf16 packed", (x, packed, None), dict(packed=True), "bf16"),
+            ("float8_e4m3fn row_scale packed", (q8, packed, None),
+             dict(row_scale=s8, packed=True), "float8_e4m3fn row_scale")]
+        gated += [(f"bf16 block_k={bk}", (x, w_gate, w_up),
+                   dict(block_k=bk), "bf16") for bk in block_ks]
+        gated += [(f"bf16 depth={d}", (x, w_gate, w_up),
+                   dict(prefetch_depth=d), "bf16") for d in (2, 3)]
+        gated += [(f"float8_e4m3fn row_scale packed depth={d}",
+                   (q8, packed, None), dict(row_scale=s8, packed=True,
+                                        prefetch_depth=d),
+                   "float8_e4m3fn row_scale packed") for d in (2, 3)]
+        plain_forms = [("bf16", (h, w_down), {}, None)]
+        for wname, (q, s) in hq.items():
+            plain_forms.append((f"{wname} row_scale", (q, w_down),
+                                dict(row_scale=s), None))
+        plain_forms += [(f"bf16 block_k={bk}", (h, w_down),
+                         dict(block_k=bk), "bf16") for bk in block_ks]
+        outs = {}
+        for kname, fn, plain, forms, N, n_w in (
+                ("grouped_gemm_gated", gg.grouped_gemm_gated,
+                 gg.grouped_gemm_gated_plain, gated, F, 2),
+                ("grouped_gemm", gg.grouped_gemm, gg.grouped_gemm_plain,
+                 plain_forms, H, 1)):
+            for form, args, kw, partner in forms:
+                call = functools.partial(fn, *args, be, block_m=bm,
+                                         n_blocks_used=nb, masked=False,
+                                         **kw)
+                out, out2 = call(), call()
+                pkw = {k: v for k, v in kw.items() if k != "prefetch_depth"}
+                ref = plain(*args, be, block_m=bm, n_blocks_used=nb, **pkw)
+                outs[kname, form] = out
+                rec = {"kernel": kname, "form": form, "T": T,
+                       "case": f"{form}: T={T} top-8 E={E} K={args[0].shape[1]}"
+                               f" N={N} block_m={bm}",
+                       "rows": int(valid.sum()), "aligned_rows": x.shape[0],
+                       "used_blocks": int(nb),
+                       "rel_err": _rel(out[:used], ref[:used]),
+                       "max_abs_err": (out[:used].float() - ref[:used]
+                                       .float()).abs().max().item(),
+                       "tol": GG_TOL["bfloat16"],
+                       "bitwise_repeat": bool(torch.equal(out[:used],
+                                                          out2[:used]))}
+                if partner is not None:
+                    rec["bitwise_as"] = partner
+                    rec["bitwise_partner"] = bool(torch.equal(
+                        out[:used], outs[kname, partner][:used]))
+                if timed:
+                    rec["ms"] = perf_func(call, iters=10)[1]
+                    rec["bound_ms"], rec["bound_by"] = deployed_bound(
+                        ids, args[0].shape[1], N, n_w,
+                        args[0].element_size(), be.numel(),
+                        "row_scale" in kw)
+                    rec["kernel_device_ms"] = batched_device_ms(call)
+                    rec["plain_ms"] = perf_func(lambda: plain(
+                        *args, be, block_m=bm, n_blocks_used=nb, **pkw),
+                        iters=2, warmup_iters=1)[1]
+                    if n_w == 1 and form.startswith("bf16"):
+                        routed = args[0][valid]
+                        lib, why = grouped_mm_call(
+                            routed, ids[ids >= 0].sort(stable=True).values,
+                            w_down)
+                        rec["library_ms"] = perf_func(lib)[1] if lib else None
+                    else:
+                        rec["library_ms"], why = None, (
+                            "no single PyTorch call computes silu(x@Wg) * "
+                            "(x@Wu)" if n_w == 2 else "no single PyTorch "
+                            "call scales one-byte rows by a row scale "
+                            "through bf16 grouped weights")
+                    if why:
+                        rec["library_none_because"] = why
+                    # no time may beat the least the card can take
+                    rec["at_or_above_bound"] = min(
+                        rec["ms"], rec["kernel_device_ms"]) >= rec["bound_ms"]
+                log(f"kernel {kname} [{form}]", json.dumps(rec))
+                if not (rec["rel_err"] <= rec["tol"] and rec["bitwise_repeat"]
+                        and rec.get("bitwise_partner", True)
+                        and rec.get("at_or_above_bound", True)):
+                    raise AssertionError(f"{kname} [{form}] disagrees: {rec}")
+                records.append(rec)
+        del outs, h, hq, quant, x
+    return records
+
+
+def _fp8_rows(x):
+    """Per-row fp8 e4m3fn rows and their f32 scales, written out plainly:
+    the scale is the row's max |value| times the f32 reciprocal of 448 (1
+    for a zero row), the rows divided by it and rounded to fp8."""
+    import torch
+
+    xf = x.float()
+    amax = xf.abs().amax(-1)
+    inv = torch.ones((), dtype=torch.float32, device=x.device) / 448.0
+    scale = torch.where(amax > 0, amax * inv, torch.ones_like(amax))
+    return (xf / scale[:, None]).to(torch.float8_e4m3fn), scale
+
+
+def fp8_expert_block_reference(x, router_w, we_gate, we_up, we_down,
+                               topk: int, sums=None):
+    """The MoE block over the fp8 expert edge written out plainly, sharing
+    no code with the port's: the f32 router, softmax and renormalised
+    top-k; each token row quantised to fp8 with its scale; for each expert
+    its routed rows as f32, silu(s * (q @ Wg)) * (s * (q @ Wu)) in f32,
+    cast, then @ Wd in f32, cast; each result row quantised to fp8 again;
+    then the weighted sum over k in k order in f32 of the rows times their
+    scales, cast once. The semantics of ``dequant_edge="expert"`` on a
+    drop-free capacity; only the order of the f32 sums differs from the
+    kernels'. ``sums=torch.float64`` takes the expert products in f64
+    (rounded to f32 before the scale): the same function summed at another
+    precision, the floor of what the order of the sums alone moves."""
+    import torch
+
+    sums = sums or torch.float32
+
+    T, D = x.shape
+    probs = torch.softmax(x.float() @ router_w, -1)
+    vals, ids = probs.topk(topk, -1)
+    vals = vals / vals.sum(-1, keepdim=True)
+    q, s = _fp8_rows(x)
+    y = torch.zeros(T, topk, D, dtype=torch.float32, device=x.device)
+    for e in range(we_gate.shape[0]):
+        t_idx, j_idx = (ids == e).nonzero(as_tuple=True)
+        if t_idx.numel() == 0:
+            continue
+        xe, se = q[t_idx].to(sums), s[t_idx, None]
+        g = (xe @ we_gate[e].to(sums)).float() * se
+        u = (xe @ we_up[e].to(sums)).float() * se
+        h = (torch.nn.functional.silu(g) * u).to(x.dtype)
+        ye = (h.to(sums) @ we_down[e].to(sums)).to(x.dtype)
+        yq, ys = _fp8_rows(ye)
+        y[t_idx, j_idx] = yq.float() * ys[:, None]
+    acc = torch.zeros(T, D, dtype=torch.float32, device=x.device)
+    for j in range(topk):
+        acc = acc + y[:, j] * vals[:, j:j + 1]
+    return acc.to(x.dtype)
+
+
+def check_deployed_combine(params, cfg, device, timed: bool = True,
+                           ranks=DEPLOYED_COMBINE_RANKS,
+                           T: int = DEPLOYED_BLOCK["T"], seed: int = 25
+                           ) -> list[dict]:
+    """Phase 21e: ``ep_combine`` with a scale (``ep_combine_scaled_kernel``,
+    the fold of the expert edge's return trip) against ``ep_combine_plain``
+    on the same card tensors, at the deployed layer's shapes at n ranks:
+    one-byte rows (fp8 e4m3fn and int8, each row quantised with its scale
+    as the wire does) [n * n * cap, d_model] of the expert-major fp8 layer,
+    the positions of layer 0's router's top-8 on seeded rows as ``combine``
+    computes them (drops included) and its weights, into bf16. The kernel
+    and the plain version take the same f32 products and sums in the same
+    order, so bitwise, and bitwise on a second launch. Timed beside the
+    plain version and the bound (bytes). Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import router_topk
+    from triton_dist_tpu_torch.ops import all_to_all as ea
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    router_w = params["blocks"]["w_router"][0]
+    D, k = cfg.base.d_model, cfg.topk
+    card = device.type == "cuda"
+    records = []
+    for n in ranks:
+        lay = _deployed_layer(_mesh(n, device), T, cfg, dict(
+            wire_dtype="fp8", dequant_edge="expert", expert_major=True))
+        cap = lay.a2a.capacity
+        P = n * n * cap
+        gen = torch.Generator(device=device).manual_seed(seed + n)
+        x = torch.randn(n * T, D, generator=gen, device=device).to(
+            cfg.base.dtype)
+        w, ids = router_topk(x, router_w, k)
+        dest, slot, valid = lay.preprocess(ids.to(torch.int32))
+        base = (torch.arange(n, device=device) * (n * cap)) \
+            .repeat_interleave(T)
+        pos = torch.where(valid, base[:, None] + dest.long() * cap
+                          + slot.long(), torch.full_like(slot, -1,
+                                                         dtype=torch.long)) \
+            .to(torch.int32).reshape(-1).contiguous()
+        w = w.float().contiguous()
+        rows = torch.randn(P, D, generator=gen, device=device).to(
+            torch.bfloat16)
+        pairs = int(valid.sum())
+        for wname, wdt in (("float8_e4m3fn", torch.float8_e4m3fn),
+                           ("int8", torch.int8)):
+            q, sc = ea._quant(rows, wdt)
+            q, sc = q.contiguous(), sc.float().reshape(P).contiguous()
+
+            def call(q=q, sc=sc):
+                return ea.ep_combine(q, pos, w, scale=sc,
+                                     out_dtype=torch.bfloat16)
+
+            def plain(q=q, sc=sc):
+                return ea.ep_combine_plain(q, pos, w, scale=sc,
+                                           out_dtype=torch.bfloat16)
+
+            out, out2, ref = call(), call(), plain()
+            rec = {"kernel": "ep_combine", "form": f"{wname} scaled",
+                   "ranks": n,
+                   "case": f"{wname} scaled: {n} ranks x T={T} top-{k}, "
+                           f"P={P} (n * n * cap {cap}), D={D}, "
+                           f"{n * T * k - pairs} of {n * T * k} pairs "
+                           f"dropped, into bf16",
+                   "pairs": pairs,
+                   "max_abs_err": (out.float() - ref.float()).abs().max()
+                   .item(),
+                   "tol": EP_TOL,
+                   "bitwise_plain": bool(torch.equal(out, ref)),
+                   "bitwise_repeat": bool(torch.equal(out, out2)),
+                   "finite": bool(torch.isfinite(out.float()).all())}
+            if timed and card:
+                rec["ms"] = perf_func(call)[1]
+                # the named rows once (one byte a value) with their scales,
+                # positions and weights in, the tokens' bf16 rows out
+                rec["bound_ms"], rec["bound_by"] = ep_rows_bound(
+                    pairs * (D + 4) + n * T * k * 8 + n * T * D * 2)
+                rec["kernel_device_ms"] = kernel_device_ms(
+                    call, "ep_combine_scaled_kernel", calls=5, per_call=1,
+                    floor_ms=rec["bound_ms"])
+                rec["plain_ms"] = perf_func(plain, iters=5)[1]
+                rec["library_ms"] = None
+                rec["library_none_because"] = (
+                    "no PyTorch call gathers fp8 or int8 rows by position "
+                    "and folds them with a row scale and a weight")
+                rec["at_or_above_bound"] = min(
+                    rec["ms"], rec["kernel_device_ms"]) >= rec["bound_ms"]
+            log(f"kernel ep_combine [{wname} scaled]", json.dumps(rec))
+            records.append(rec)
+            if not (rec["bitwise_plain"] and rec["bitwise_repeat"]
+                    and rec["finite"] and rec.get("at_or_above_bound", True)):
+                raise AssertionError(f"ep_combine [{wname} scaled] "
+                                     f"disagrees: {rec}")
+        del rows, x
+    return records
+
+
+def _deployed_layer(ctx, T: int, cfg, form_kw: dict, axis="x"):
+    import torch
+
+    from triton_dist_tpu_torch.layers import EPAll2AllLayer
+
+    kw = dict(form_kw)
+    if kw.get("wire_dtype") == "fp8":
+        kw["wire_dtype"] = torch.float8_e4m3fn
+    return EPAll2AllLayer.create(ctx, T, cfg.base.d_model, cfg.topk,
+                                 cfg.num_experts, axis=axis,
+                                 dtype=cfg.base.dtype, **kw)
+
+
+def _block_ms(call, card: bool) -> dict:
+    """ms a block (CUDA events over 5 calls) and one call's device time
+    and idle share under the profiler."""
+    import torch
+
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    if not card:
+        return {}
+    ms = perf_func(call, iters=5, warmup_iters=1)[1]
+    fams, ops = device_time_by_family(
+        call, True, (("grouped_gemm", ("grouped_gemm",)),
+                     ("ep_wire", ("a2a",)),
+                     ("ep_slots", ("ep_dispatch", "ep_combine"))))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = sum(fams.values())
+    return {"ms": ms, "wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1 - busy / wall,
+            "device_s_by_family": fams, "device_ops": ops}
+
+
+def _block_m_for(layers) -> int:
+    """The largest of 64, 32, 16 that divides every expert-major layer's
+    per-expert budget (so each takes the fast path)."""
+    caps = [lay.a2a.capacity_per_expert for lay in layers
+            if not lay.is_2d and lay.a2a.expert_major]
+    return next(bm for bm in (64, 32, 16) if all(c % bm == 0 for c in caps))
+
+
+def _routed_ok(layer, x, router_w):
+    """Per token, whether none of its k rows drops in ``layer``'s routing."""
+    return layer.preprocess(_router_ids(x, router_w,
+                                        layer.a2a.topk))[2].all(-1)
+
+
+def check_deployed_block(params, cfg, device, packed, timed: bool = True,
+                         spec=DEPLOYED_BLOCK, seed: int = 22,
+                         counts: dict | None = None) -> list[dict]:
+    """Phase 21b: ``moe_mlp_ep_overlap`` on layer 0 at n ranks of the one
+    card, T rows a rank, in the forms of ``DEPLOYED_FORMS``: rank-major
+    bf16 (the golden), expert-major bf16 (bitwise the golden on every token
+    none of whose rows drops; drops counted), the fp8 wire post and expert
+    (within ``FP8_BLOCK_TOL`` of the golden and of each other), the expert
+    edge on expert-major slots, and the deployed form (that plus the packed
+    gate|up stream, bitwise it). The fp8 expert edge and the deployed form
+    (on the tokens none of whose rows drops) within ``FP8_REF_L2_TOL`` in
+    relative L2 of ``fp8_expert_block_reference``, the same fp8 semantics
+    written out plainly; the post edge's and the golden's distances from it
+    reported. ``block_m`` divides every per-expert
+    budget. ms a block, idle share, the path (``em_fast`` or align) and
+    launches per form; the deployed form's launches add to ``counts``.
+    Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import moe_mlp_ep_overlap
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    p = {k: v[0] for k, v in params["blocks"].items()}
+    ws = (p["w_router"], p["we_gate"], p["we_up"], p["we_down"])
+    D, T = cfg.base.d_model, spec["T"]
+    card = device.type == "cuda"
+    counters = _deployed_counters()
+    records = []
+    for n in spec["ranks"]:
+        ctx = _mesh(n, device)
+        gen = torch.Generator(device=device).manual_seed(seed + n)
+        x = torch.randn(n * T, D, generator=gen, device=device).to(
+            cfg.base.dtype)
+        layers = {name: _deployed_layer(ctx, T, cfg, kw)
+                  for name, kw, _ in DEPLOYED_FORMS}
+        bm = _block_m_for(layers.values())
+        outs, rec = {}, {"ranks": n, "T": T, "block_m": bm, "forms": {},
+                         "note": DEPLOYED_NOTE if n > 1 else None}
+        for name, _, pack in DEPLOYED_FORMS:
+            lay = layers[name]
+            kw = dict(block_m=bm, block_n=spec["block_n"],
+                      we_gate_up_packed=packed if pack else None)
+
+            def call(lay=lay, kw=kw):
+                return moe_mlp_ep_overlap(ctx, lay, x, *ws, **kw)
+
+            _zero_counters(counters)
+            outs[name] = call()
+            if card:
+                torch.cuda.synchronize()
+            launches = _read_counters(counters)
+            if name == "deployed" and counts is not None:
+                for k, v in launches.items():
+                    counts[k] = counts.get(k, 0) + v
+            a = lay.a2a
+            f = {"path": ("em_fast" if a.expert_major
+                          and a.capacity_per_expert % bm == 0 else "align"),
+                 "capacity": a.capacity, "launches": launches,
+                 "launches_as_expected": (not card or all(
+                     launches[k] == v for k, v in (
+                         ("grouped_gemm_gated", 1), ("grouped_gemm", 1),
+                         ("all_to_all_push", 2), ("ep_dispatch", 1),
+                         ("ep_combine", 1))))}
+            if a.expert_major:
+                f["capacity_per_expert"] = a.capacity_per_expert
+                ok = _routed_ok(lay, x, ws[0])
+                f["dropped_tokens"] = int((~ok).sum())
+                f["dropped_rows"] = int((~lay.preprocess(
+                    _router_ids(x, ws[0], cfg.topk))[2]).sum())
+            f.update(_block_ms(call, card) if timed else {})
+            rec["forms"][name] = f
+        gold = outs["rank-major bf16"]
+        ok_em = _routed_ok(layers["expert-major bf16"], x, ws[0])
+        ok_fp8 = _routed_ok(layers["deployed"], x, ws[0])
+        scale = gold.float().abs().max().clamp(min=1e-30)
+        ref = fp8_expert_block_reference(x, *ws, cfg.topk)
+        rec["vs_fp8_reference"] = {
+            name: {"rel_l2": _rel_l2(outs[name][ok], ref[ok]),
+                   "rel_diff": _logit_rel(outs[name][ok].float(),
+                                          ref[ok].float())}
+            for name, ok in (("fp8 expert", slice(None)),
+                             ("deployed", ok_fp8), ("fp8 post", slice(None)),
+                             ("rank-major bf16", slice(None)))}
+        rec["checks"] = {
+            "finite": all(bool(torch.isfinite(o.float()).all())
+                          for o in outs.values()),
+            "expert_major_bitwise_where_no_drop": bool(torch.equal(
+                outs["expert-major bf16"][ok_em], gold[ok_em])),
+            "fp8_post_vs_golden": ((outs["fp8 post"].float() - gold.float())
+                                   .abs().max() / scale).item(),
+            "fp8_expert_vs_golden": ((outs["fp8 expert"].float()
+                                      - gold.float()).abs().max()
+                                     / scale).item(),
+            "fp8_expert_vs_post": ((outs["fp8 expert"].float()
+                                    - outs["fp8 post"].float()).abs().max()
+                                   / scale).item(),
+            "tol": FP8_BLOCK_TOL,
+            "expert_major_fp8_bitwise_where_no_drop": bool(torch.equal(
+                outs["fp8 expert, expert-major"][ok_fp8],
+                outs["fp8 expert"][ok_fp8])),
+            "packed_bitwise_two_streams": bool(torch.equal(
+                outs["deployed"], outs["fp8 expert, expert-major"]))}
+        c = rec["checks"]
+        log(f"deployed EP block n={n}", json.dumps(rec))
+        check_errors(ctx)
+        records.append(rec)
+        if not (c["finite"] and c["expert_major_bitwise_where_no_drop"]
+                and c["expert_major_fp8_bitwise_where_no_drop"]
+                and c["packed_bitwise_two_streams"]
+                and max(c["fp8_post_vs_golden"], c["fp8_expert_vs_golden"],
+                        c["fp8_expert_vs_post"]) <= FP8_BLOCK_TOL
+                and all(rec["vs_fp8_reference"][k]["rel_l2"]
+                        <= FP8_REF_L2_TOL for k in ("fp8 expert",
+                                                    "deployed"))
+                and all(f["launches_as_expected"]
+                        for f in rec["forms"].values())):
+            raise AssertionError(f"the deployed EP block failed at n={n}: "
+                                 f"{rec}")
+        del outs, x, layers
+    return records
+
+
+def _router_ids(x, router_w, topk: int):
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import router_topk
+
+    return router_topk(x, router_w, topk)[1].to(torch.int32)
+
+
+def check_deployed_2d(params, cfg, device, timed: bool = True,
+                      meshes=DEPLOYED_2D, T: int = DEPLOYED_BLOCK["T"],
+                      seed: int = 23) -> list[dict]:
+    """Phase 21c: ``moe_mlp_ep_overlap`` on layer 0 over a 2-tier layer on
+    (major, minor) meshes, with the bf16 wire and the fp8 wire on the expert
+    edge, against the flat one-axis layer over as many ranks with the same
+    wire: the bf16 block bitwise the flat one (each row's experts see the
+    same rows; the fold sums the same k rows in the same order), the fp8
+    one within ``FP8_BLOCK_TOL`` and reported bitwise or not (each row is
+    quantised once at its source and its result once at the expert, on both
+    paths). ms a block beside the flat layer's. Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import moe_mlp_ep_overlap
+    from triton_dist_tpu_torch.shmem import (check_errors,
+                                             initialize_distributed)
+
+    p = {k: v[0] for k, v in params["blocks"].items()}
+    ws = (p["w_router"], p["we_gate"], p["we_up"], p["we_down"])
+    D = cfg.base.d_model
+    card = device.type == "cuda"
+    records = []
+    for shape in meshes:
+        n = shape[0] * shape[1]
+        ctx2 = initialize_distributed(("a", "b"), shape, device=device)
+        ctx1 = _mesh(n, device)
+        gen = torch.Generator(device=device).manual_seed(seed + n)
+        x = torch.randn(n * T, D, generator=gen, device=device).to(
+            cfg.base.dtype)
+        for wire, kw in (("bf16", {}), ("fp8 expert", dict(
+                wire_dtype="fp8", dequant_edge="expert"))):
+            lay2 = _deployed_layer(ctx2, T, cfg, kw, axis=("a", "b"))
+            lay1 = _deployed_layer(ctx1, T, cfg, kw)
+
+            def two(lay2=lay2):
+                return moe_mlp_ep_overlap(ctx2, lay2, x, *ws, block_m=64)
+
+            def flat(lay1=lay1):
+                return moe_mlp_ep_overlap(ctx1, lay1, x, *ws, block_m=64)
+
+            got, ref = two(), flat()
+            rel = ((got.float() - ref.float()).abs().max()
+                   / ref.float().abs().max()).item()
+            rec = {"mesh": list(shape), "wire": wire, "T": T,
+                   "cap1": lay2.a2a.cap1, "cap2": lay2.a2a.cap2,
+                   "bitwise_flat": bool(torch.equal(got, ref)),
+                   "rel_vs_flat": rel,
+                   "tol": 0.0 if wire == "bf16" else FP8_BLOCK_TOL,
+                   "note": DEPLOYED_NOTE}
+            if timed and card:
+                rec["two_tier"] = _block_ms(two, True)
+                rec["flat"] = _block_ms(flat, True)
+            log("deployed EP block 2-tier", json.dumps(rec))
+            check_errors(ctx2)
+            records.append(rec)
+            if not ((rec["bitwise_flat"] if wire == "bf16"
+                     else rel <= FP8_BLOCK_TOL)
+                    and bool(torch.isfinite(got.float()).all())):
+                raise AssertionError(f"the 2-tier EP block disagrees with "
+                                     f"the flat one: {rec}")
+    return records
+
+
+def _deployed_sp_run(params, cfg, device, n: int, kw: dict, prompt,
+                     steps: int, max_seq: int, teacher=None,
+                     zero_rank: int | None = None, ffn=None) -> dict:
+    """``moe_decode_step_sp`` at n ranks with the layer of ``kw``: the
+    prompt teacher-forced, then ``steps`` greedy steps (or the tokens of
+    ``teacher``). Returns each step's logits, the tokens, ms a step and
+    the stepped part's launches. ``zero_rank`` zeroes that rank's shard of
+    the cache in every layer before the prompt's last token (the
+    control). With ``ffn(h, p)`` the step is ``decode_step_sp`` with that
+    MoE block in place of the EP layer's."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.models.moe import moe_decode_step_sp
+    from triton_dist_tpu_torch.shmem import check_errors
+
+    B, P = prompt.shape
+    ctx = _mesh(n, device)
+    layer = _deployed_layer(ctx, B // n, cfg, kw)
+    cache = llama.init_kv_cache(cfg.base, B, max_seq, device=device)
+    if n > 1:
+        cache = llama.shard_kv_cache(cache, n)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+
+    def step(tok, pos):
+        if ffn is not None:
+            return llama.decode_step_sp(ctx, params, tok, pos, cfg.base,
+                                        cache, axis="x", ffn=ffn)[0]
+        return moe_decode_step_sp(ctx, layer, params, tok, pos, cfg, cache,
+                                  sp_axis="x")[0]
+
+    for i in range(P):
+        if i == P - 1 and zero_rank is not None:
+            cache["k"][:, zero_rank].zero_()
+            cache["v"][:, zero_rank].zero_()
+        logits = step(prompt[:, i].contiguous(), i)
+    counters = _moe_sp_launch_counters()
+    sync()
+    _zero_counters(counters)
+    toks, logits_all = [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        token = (teacher[:, i] if teacher is not None
+                 else logits.argmax(-1).to(torch.int32)).contiguous()
+        toks.append(token)
+        logits_all.append(logits)
+        logits = step(token, P + i)
+    sync()
+    seconds = time.perf_counter() - t0
+    check_errors(ctx)
+    return {"logits": logits_all, "tokens": torch.stack(toks, 1),
+            "ms_per_step": seconds / steps * 1e3,
+            "launches": _read_counters(counters)}
+
+
+def check_deployed_decode(params, cfg, device, card: str,
+                          spec=DEPLOYED_SP, seed: int = 24,
+                          counts: dict | None = None) -> dict:
+    """Phase 21d: ``moe_decode_step_sp`` at the preset's depth with the
+    deployed layer (expert-major slots, the fp8 wire on the expert edge)
+    at 1, 2 and 4 ranks, B rows a rank: a seeded prompt teacher-forced,
+    then greedy steps. Fed the same tokens: its rank-major twin (the fp8
+    expert edge on rank-major slots; a per-expert budget of 32 never drops
+    a decode row, so every step bitwise); the reference, ``decode_step_sp``
+    with ``fp8_expert_block_reference`` as its MoE block (the same fp8
+    semantics written out plainly, the same attention); the fp8 "post"
+    layer (the same wire, the rows dequantised to bf16 before bf16 GEMMs:
+    another rounding of the same quantised rows) and the rank-major bf16
+    layer. The gate holds step 0's logits against the reference's in
+    phase 18's metric (max |diff| over the reference's max |logit|) within
+    ``DEPLOYED_SP_TOL``, phase 18's limit, and a control (the cache shard
+    that holds the prompt zeroed in every layer before its last token, at
+    the largest rank count, as phase 14's) outside it; the distances from
+    the post and the bf16 layers are reported beside it, and the floor:
+    the reference summed in f64 against the reference. Every kernel of
+    the path launched its count a layer-step; ms a step. The deployed
+    runs' launches add to ``counts``. Raises on any failure."""
+    import torch
+
+    L = cfg.base.n_layers
+    rec = {"card": card, "B_per_rank": spec["B"], "prompt": spec["prompt"],
+           "steps": spec["steps"], "layers": L, "step0_tol": DEPLOYED_SP_TOL,
+           "ranks": {}}
+    deployed = dict(wire_dtype="fp8", dequant_edge="expert",
+                    expert_major=True)
+    twin = dict(wire_dtype="fp8", dequant_edge="expert")
+    post = dict(wire_dtype="fp8")
+
+    def reference(h, p, sums=None):
+        return fp8_expert_block_reference(h, p["w_router"], p["we_gate"],
+                                          p["we_up"], p["we_down"], cfg.topk,
+                                          sums)
+
+    def reference_f64(h, p):
+        return reference(h, p, torch.float64)
+
+    def dist(a, b):
+        return {"step0_rel_diff": _logit_rel(a[0].float(), b[0].float()),
+                "step0_rel_l2": _rel_l2(a[0], b[0]),
+                "max_step_rel_diff": max(_logit_rel(x.float(), y.float())
+                                         for x, y in zip(a, b)),
+                "max_step_rel_l2": max(_rel_l2(x, y) for x, y in zip(a, b))}
+
+    def agree(logits, tokens):
+        return float((torch.stack([g.argmax(-1) for g in logits], 1)
+                      == tokens).float().mean())
+
+    ok = True
+    for n in spec["ranks"]:
+        B = spec["B"] * n
+        gen = torch.Generator(device=device).manual_seed(seed + n)
+        prompt = torch.randint(1, cfg.base.vocab_size, (B, spec["prompt"]),
+                               generator=gen, device=device,
+                               dtype=torch.int32)
+        run = _deployed_sp_run(params, cfg, device, n, deployed, prompt,
+                               spec["steps"], spec["max_seq"])
+        if counts is not None:
+            for k, v in run["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        runs = {name: _deployed_sp_run(params, cfg, device, n, kw, prompt,
+                                       spec["steps"], spec["max_seq"],
+                                       teacher=run["tokens"], ffn=ffn)
+                for name, kw, ffn in (("twin", twin, None),
+                                      ("reference", {}, reference),
+                                      ("reference_f64", {}, reference_f64),
+                                      ("post", post, None),
+                                      ("bf16", {}, None))}
+        ref = runs["reference"]["logits"]
+        r = {"deployed_ms_per_step": run["ms_per_step"],
+             "fp8_rank_major_ms_per_step": runs["twin"]["ms_per_step"],
+             "fp8_post_ms_per_step": runs["post"]["ms_per_step"],
+             "bf16_rank_major_ms_per_step": runs["bf16"]["ms_per_step"],
+             "bitwise_fp8_rank_major": all(
+                 torch.equal(a, b) for a, b in zip(run["logits"],
+                                                   runs["twin"]["logits"])),
+             "deployed_vs_reference": dist(run["logits"], ref),
+             "reference_f64_vs_reference": dist(
+                 runs["reference_f64"]["logits"], ref),
+             "post_vs_reference": dist(runs["post"]["logits"], ref),
+             "deployed_vs_post": dist(run["logits"],
+                                      runs["post"]["logits"]),
+             "deployed_vs_bf16": dist(run["logits"], runs["bf16"]["logits"]),
+             "post_vs_bf16": dist(runs["post"]["logits"],
+                                  runs["bf16"]["logits"]),
+             "greedy_tokens_equal_argmax_of_reference": agree(
+                 ref, run["tokens"]),
+             "greedy_tokens_equal_argmax_of_post": agree(
+                 runs["post"]["logits"], run["tokens"]),
+             "greedy_tokens_equal_argmax_of_bf16": agree(
+                 runs["bf16"]["logits"], run["tokens"]),
+             "launches": run["launches"],
+             "launches_as_expected": (
+                 device.type != "cuda" or all(
+                     run["launches"][k] == v for k, v in _moe_sp_want(
+                         L, spec["steps"], n).items())),
+             "note": DEPLOYED_NOTE if n > 1 else None}
+        if n == max(spec["ranks"]):
+            zeroed = (spec["prompt"] - 1) // (spec["max_seq"] // n)
+            ctl = _deployed_sp_run(params, cfg, device, n, deployed, prompt,
+                                   1, spec["max_seq"], zero_rank=zeroed)
+            r["control"] = {"zeroed_rank": zeroed,
+                            "vs_reference_step0_rel_diff": _logit_rel(
+                                ctl["logits"][0].float(), ref[0].float()),
+                            "vs_reference_step0_rel_l2": _rel_l2(
+                                ctl["logits"][0], ref[0])}
+            ok &= (r["control"]["vs_reference_step0_rel_diff"]
+                   > DEPLOYED_SP_TOL)
+        ok &= (r["deployed_vs_reference"]["step0_rel_diff"] <= DEPLOYED_SP_TOL
+               and r["bitwise_fp8_rank_major"] and r["launches_as_expected"])
+        rec["ranks"][n] = r
+        log(f"deployed moe sp decode n={n}", json.dumps(r))
+        del run, runs
+    if not ok:
+        raise AssertionError(f"moe_decode_step_sp with the deployed layer "
+                             f"failed its checks: {rec}")
+    return rec
+
+
+def check_deployed(device, card: str) -> dict:
+    """Phase 21: DeepSeek-infer's widths at the preset's 4 layers, random
+    bf16 weights (seed ``DEPLOYED_SEED``): the grouped GEMMs' forms (21a),
+    the scaled fold of one-byte rows (21e), the EP block in its forms at
+    1-8 ranks (21b), the 2-tier block (21c) and the decode step with the
+    deployed layer (21d). Frees its weights before it returns."""
+    import torch
+
+    from triton_dist_tpu_torch.models.moe import MoEConfig, init_moe_params
+    from triton_dist_tpu_torch.ops.group_gemm import pack_gated_weights
+
+    t0 = time.perf_counter()
+    cfg = MoEConfig.deepseek_infer()
+    params = init_moe_params(cfg, seed=DEPLOYED_SEED, device=device)
+    blocks = params["blocks"]
+    packed = pack_gated_weights(blocks["we_gate"][0], blocks["we_up"][0],
+                                DEPLOYED_BLOCK["block_n"])
+    torch.cuda.synchronize()
+    log(f"phase 21 params {cfg.base.n_layers} layers x d_model "
+        f"{cfg.base.d_model}, {cfg.num_experts} experts x d_ff "
+        f"{cfg.moe_d_ff}, top-{cfg.topk}, made in "
+        f"{time.perf_counter() - t0:.1f} s; memory allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    counts: dict = {}
+    rec = {"kernels": check_deployed_kernels(
+        device, blocks["we_gate"][0], blocks["we_up"][0],
+        blocks["we_down"][0], packed)}
+    torch.cuda.empty_cache()
+    rec["combine"] = check_deployed_combine(params, cfg, device)
+    rec["block"] = check_deployed_block(params, cfg, device, packed,
+                                        counts=counts)
+    del packed
+    torch.cuda.empty_cache()
+    rec["two_tier"] = check_deployed_2d(params, cfg, device)
+    torch.cuda.empty_cache()
+    rec["decode"] = check_deployed_decode(params, cfg, device, card,
+                                          counts=counts)
+    rec["launches"] = counts
+    del params, blocks
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    log("phase 21 launches", json.dumps(counts))
+    log(f"phase 21 took {rec['seconds']:.1f} s")
+    return rec
+
+
+def deployed_kernels(dep: dict) -> list[dict]:
+    """The kernels line's entries of phase 21's new kernel forms on its main
+    path (the deployed block and the decode step): B18 on the expert edge's
+    fp8 rows with their row scales over two streams and over the packed
+    stream, each headed by its four-rank case (T = 512), and the fold of
+    the fp8 return rows with their scales (``ep_combine`` scaled, headed by
+    its four-rank case); B17's and B18's other option forms (kernel checks
+    only) ride in ``cases``."""
+    out = []
+    for form in ("float8_e4m3fn row_scale",
+                 "float8_e4m3fn row_scale packed"):
+        cases = [r for r in dep["kernels"]
+                 if r["kernel"] == "grouped_gemm_gated"
+                 and r["form"].startswith(form)]
+        main_rec = next(r for r in cases if r["form"] == form
+                        and r["T"] == DEPLOYED_GG[-1][0])
+        out.append({
+            "name": f"grouped_gemm_gated[{form}]", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/group_gemm.cu",
+            "replaces": "triton_dist_tpu/ops/group_gemm.py:779",
+            "launches": dep["launches"].get(f"grouped_gemm_gated[{form}]",
+                                            0),
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            **{k: main_rec[k] for k in ("ms", "kernel_device_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms", "case")},
+            "cases": cases})
+    cases = dep["combine"]
+    main_rec = next(r for r in cases if r["form"] == "float8_e4m3fn scaled"
+                    and r["ranks"] == max(DEPLOYED_COMBINE_RANKS))
+    out.append({
+        "name": "ep_combine[float8_e4m3fn scaled]", "route": "cuda",
+        "source": "triton_dist_tpu_torch/csrc/all_to_all.cu",
+        "replaces": "triton_dist_tpu/ops/all_to_all.py:347",
+        "launches": dep["launches"].get("ep_combine[float8_e4m3fn scaled]",
+                                        0),
+        "max_abs_err": max(r["max_abs_err"] for r in cases),
+        **{k: main_rec[k] for k in ("ms", "kernel_device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "case")},
+        "cases": cases})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8260,6 +9217,8 @@ def main() -> int:
     torch.cuda.empty_cache()           # the MoE model needs 47 GB of it
     moe = check_moe(device, card)
     sp17 = check_sp_kernels(device, card)
+    torch.cuda.empty_cache()           # DeepSeek's weights need 42 GB of it
+    deployed = check_deployed(device, card)
     moe_cases = moe["grouped"] + moe["ep_rows"]
     gg_main = {r["kernel"]: r for r in moe_cases
                if r["dtype"] == "bfloat16" and r["shape"] == "decode"}
@@ -8340,7 +9299,8 @@ def main() -> int:
                            if r["kernel"] == name),
         **{k: gg_main[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms", "case")},
-        "cases": [r for r in moe_cases if r["kernel"] == name]}
+        "cases": [r for r in moe_cases if r["kernel"] == name]
+        + [r for r in deployed["kernels"] if r["kernel"] == name]}
         for name, source, replaces in (
             ("ep_dispatch", "all_to_all",
              "triton_dist_tpu/ops/all_to_all.py:347"),
@@ -8385,7 +9345,8 @@ def main() -> int:
              tp["layers"]["slot_reduce"], [tp["layers"]["slot_reduce"]]))]
         + slice6 + slice7 + collectives_2d_kernels(coll2d)
         + tp_ranks_kernels(tp_ranks) + tp_2d_kernels(tp2d, moe)
-        + ep_kernels(moe["ep"]) + sp_modes_kernels(sp17, moe, disagg)}))
+        + ep_kernels(moe["ep"]) + sp_modes_kernels(sp17, moe, disagg)
+        + deployed_kernels(deployed)}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -182,16 +182,39 @@ def test_rows_do_not_depend_on_block_m(data, dtype):
 @pytest.mark.parametrize("option", ["row_scale", "packed", "block_k",
                                     "prefetch_depth", "pack_gated_weights"])
 def test_options_of_later_slices_raise(data, aligned, option):
+    """Named for the options that an earlier slice of the port refused;
+    each now runs, and on the CPU its plain form is exact against the
+    option-free call: ``row_scale`` multiplies the f32 product rows,
+    the packed stream, ``block_k`` and ``prefetch_depth`` change no bit,
+    and ``pack_gated_weights`` interleaves bitwise as JAX's does."""
     x = _t(aligned["x"], "float32")
-    w = _t(data["wg"], "float32")
+    wg, wu = _t(data["wg"], "float32"), _t(data["wu"], "float32")
     be = torch.from_numpy(aligned["be"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if option == "pack_gated_weights":
-            tg.pack_gated_weights(w, w)
-        elif option == "row_scale":
-            tg.grouped_gemm(x, w, be, block_m=BM,
-                            row_scale=torch.ones(x.shape[0]))
-        else:
-            tg.grouped_gemm_gated(x, w, w, be, block_m=BM,
-                                  **{option: 2 if option != "packed"
-                                     else True})
+    nb = aligned["nb"]
+    if option == "pack_gated_weights":
+        pk = tg.pack_gated_weights(wg, wu, 64)
+        want = jg.pack_gated_weights(jnp.asarray(data["wg"]),
+                                     jnp.asarray(data["wu"]), 64)
+        assert pk.block_n == want.block_n == 64
+        assert np.array_equal(pk.w.numpy(), np.asarray(want.w))
+        return
+    if option == "row_scale":
+        s = torch.from_numpy(np.random.RandomState(2).rand(x.shape[0])
+                             .astype(np.float32))
+        got = tg.grouped_gemm(x, wg, be, block_m=BM, n_blocks_used=nb,
+                              row_scale=s)
+        plain = tg.grouped_gemm(x, wg, be, block_m=BM, n_blocks_used=nb)
+        assert torch.equal(got, plain * s[:, None])
+        return
+    plain = tg.grouped_gemm_gated(x, wg, wu, be, block_m=BM,
+                                  n_blocks_used=nb)
+    if option == "packed":
+        got = tg.grouped_gemm_gated(x, tg.pack_gated_weights(wg, wu, 128),
+                                    None, be, block_m=BM, n_blocks_used=nb,
+                                    packed=True)
+    else:
+        got = tg.grouped_gemm_gated(x, wg, wu, be, block_m=BM,
+                                    n_blocks_used=nb,
+                                    **{option: 32 if option == "block_k"
+                                       else 2})
+    assert torch.equal(got, plain)

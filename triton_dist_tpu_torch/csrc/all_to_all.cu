@@ -42,7 +42,9 @@
 //                (y [P, D], pos [T * topk], w [T, topk] f32, out [T, D]; the
 //                 products and sums in f32 without fused multiply-adds, as
 //                 the JAX combine's gather_back computes them; a pair whose
-//                 pos lies outside [0, P) adds 0)
+//                 pos lies outside [0, P) adds 0); ep_combine_scaled takes
+//                 the expert edge's one-byte rows (fp8 e4m3fn or int8) with
+//                 an f32 scale a row, w[t, j] * (y[p] * scale[p]) in f32
 //
 // As the serving path uses them, ep_dispatch (topk = 1) gathers the rows
 // into their wire slots and ep_combine folds the returned slots back into
@@ -239,13 +241,56 @@ __device__ void quant_rows(const void* x, unsigned char* q, float* sc, int x_typ
   }
 }
 
-__device__ __forceinline__ float wire_at(const unsigned char* q, int wire, size_t i) {
-  const unsigned char b = __ldcg(q + i);
+__device__ __forceinline__ float wire_value(unsigned char b, int wire) {
   if (wire == kWireFp8) {
     const __half_raw h = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)b, __NV_E4M3);
     return __half2float(__half(h));
   }
   return (float)(signed char)b;
+}
+
+__device__ __forceinline__ float wire_at(const unsigned char* q, int wire, size_t i) {
+  return wire_value(__ldcg(q + i), wire);
+}
+
+// ep_combine of one-byte rows (the expert edge's return trip, still
+// quantised): out[t] = cast(sum over j, in order, of w[t, j] * (y[p] *
+// scale[p])), p = pos[t * topk + j], the dequantise folded into the f32
+// sum as the JAX combine's gather_back does it. Grid (T): block t writes
+// out[t], each thread 16 values (one 16-byte vector of y) at a time.
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads)
+    ep_combine_scaled_kernel(const unsigned char* __restrict__ y, const float* __restrict__ scale,
+                             const int* __restrict__ pos, const float* __restrict__ w,
+                             OutT* __restrict__ out, int P, int D, int topk, int wire) {
+  const int t = blockIdx.x;
+  const int vecs = D / 16;
+  for (int v = threadIdx.x; v < vecs; v += kThreads) {
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+    for (int j = 0; j < topk; ++j) {
+      const int p = pos[t * topk + j];
+      const float wj = w[t * topk + j];
+      if (p >= 0 && p < P) {
+        const uint4 u = reinterpret_cast<const uint4*>(y + (size_t)p * D)[v];
+        const unsigned char* e = reinterpret_cast<const unsigned char*>(&u);
+        const float sp = scale[p];
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(__fmul_rn(wire_value(e[i], wire), sp), wj));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(0.f, wj));
+      }
+    }
+    __align__(16) OutT o[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) from_f32(acc[i], &o[i]);
+    uint4* dst = reinterpret_cast<uint4*>(out + (size_t)t * D + (size_t)v * 16);
+#pragma unroll
+    for (int i = 0; i < (int)sizeof(o) / 16; ++i) dst[i] = reinterpret_cast<const uint4*>(o)[i];
+  }
 }
 
 // rows [r0, r1) of one arrived slot: wire rows times their scales, in f32,
@@ -446,6 +491,28 @@ int tdt_ep_combine_bf16(const void* y, const void* pos, const void* w, void* out
 int tdt_ep_combine_f32(const void* y, const void* pos, const void* w, void* out, int P, int T,
                        int D, int topk, void* stream) {
   return launch_combine<float>(y, pos, w, out, P, T, D, topk, stream);
+}
+
+// y [P, D] fp8 e4m3fn (wire 1) or int8 (wire 2); scale [P] f32; pos [T *
+// topk] i32; w [T, topk] f32; out [T, D] bf16 (out_type 0) or f32 (1).
+// D % 16 == 0.
+int tdt_ep_combine_scaled(const void* y, const void* scale, const void* pos, const void* w,
+                          void* out, int P, int T, int D, int topk, int wire, int out_type,
+                          void* stream) {
+  if (P <= 0 || T <= 0 || D <= 0 || D % 16 || topk <= 0 ||
+      (wire != kWireFp8 && wire != kWireInt8) || (out_type != kXBf16 && out_type != kXF32))
+    return (int)cudaErrorInvalidValue;
+  const auto* yy = static_cast<const unsigned char*>(y);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* pp = static_cast<const int*>(pos);
+  const auto* ww = static_cast<const float*>(w);
+  if (out_type == kXF32)
+    ep_combine_scaled_kernel<float><<<T, kThreads, 0, (cudaStream_t)stream>>>(
+        yy, sc, pp, ww, static_cast<float*>(out), P, D, topk, wire);
+  else
+    ep_combine_scaled_kernel<bf16><<<T, kThreads, 0, (cudaStream_t)stream>>>(
+        yy, sc, pp, ww, static_cast<bf16*>(out), P, D, topk, wire);
+  return (int)cudaGetLastError();
 }
 
 const char* tdt_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

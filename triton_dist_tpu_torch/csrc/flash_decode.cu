@@ -457,15 +457,16 @@ __global__ void __launch_bounds__(kThreads)
   merge_store<TO>(r, out + (size_t)row * D, D, lane);
 }
 
-// B5 across ranks: grid (lanes, n), lane c merging rows [c kWarps, (c + 1)
-// kWarps), one warp a row. outs / lses: each rank's partial [rows, D] and
+// B5 across ranks: grid (lanes, n), lane c merging rows [c per, (c + 1)
+// per), per = ceil(rows / lanes), one warp a row at a time (the lanes are
+// cut to what stays resident, so a lane may hold many rows). outs / lses: each rank's partial [rows, D] and
 // [rows] f32; ws: each rank's arrival workspace, n slots of rows * (D + 1)
 // f32 (the slot's outs, then its lses); res: each rank's merged [rows, D].
 // Pad words: [0, lanes) the entry barrier, [lanes + s lanes + c] the
 // delivery of segment s's rows of lane c. Each rank puts its rows into slot
-// `me` of every peer, then merges segments 0..n-1 in that order, waiting for
-// each once and reading its own directly: every rank's replica gets the
-// same bits.
+// `me` of every peer, waits once for each peer's, then merges segments
+// 0..n-1 in that order, reading its own directly: every rank's replica
+// gets the same bits.
 //
 // Over an axis inside a multi-axis mesh it runs in groups (G): grid
 // (lanes, N) covers every rank of the mesh, the segments are the members
@@ -486,8 +487,9 @@ __global__ void __launch_bounds__(kThreads)
   const int lane_id = blockIdx.x;
   const int lane = threadIdx.x % 32;
   if (!barrier_group_block(pads, lane_id, G, L)) return;
-  const int r0 = lane_id * kWarps;
-  const int nr = min(kWarps, rows - r0);
+  const int per = (rows + lanes - 1) / lanes;
+  const int r0 = min(rows, lane_id * per);
+  const int nr = min(per, rows - r0);
   const size_t slot_floats = (size_t)rows * (D + 1);
   const float* my_outs = symm_at<const float>(outs, pe);
   const float* my_lses = symm_at<const float>(lses, pe);
@@ -504,29 +506,31 @@ __global__ void __launch_bounds__(kThreads)
     for (int p = 0; p < n; ++p)
       if (p != me) signal_op(symm_at<int>(pads, group_pe(G, p)) + lanes + me * lanes + lane_id, 1);
   }
-  const int row = r0 + threadIdx.x / 32;
-  const float* arrived = symm_at<const float>(ws, pe);
-  MergeRow r;
   for (int seg = 0; seg < n; ++seg) {
     const int word = lanes + seg * lanes + lane_id;
     if (seg != me && !wait_block(symm_at<int>(pads, pe) + word, 1, true, L, word)) return;
-    if (row >= rows) continue;
-    if (seg == me) {
-      const float* o = my_outs + (size_t)row * D;
-      if (seg == 0)
-        merge_first<false>(r, o, my_lses[row], D, lane);
-      else
-        merge_next<false>(r, o, my_lses[row], D, lane);
-    } else {
-      const float* base = arrived + (size_t)seg * slot_floats;
-      const float l = __ldcg(base + (size_t)rows * D + row);
-      if (seg == 0)
-        merge_first<true>(r, base + (size_t)row * D, l, D, lane);
-      else
-        merge_next<true>(r, base + (size_t)row * D, l, D, lane);
-    }
   }
-  if (row < rows) merge_store<TO>(r, symm_at<TO>(res, pe) + (size_t)row * D, D, lane);
+  const float* arrived = symm_at<const float>(ws, pe);
+  for (int row = r0 + (int)threadIdx.x / 32; row < r0 + nr; row += kWarps) {
+    MergeRow r;
+    for (int seg = 0; seg < n; ++seg) {
+      if (seg == me) {
+        const float* o = my_outs + (size_t)row * D;
+        if (seg == 0)
+          merge_first<false>(r, o, my_lses[row], D, lane);
+        else
+          merge_next<false>(r, o, my_lses[row], D, lane);
+      } else {
+        const float* base = arrived + (size_t)seg * slot_floats;
+        const float l = __ldcg(base + (size_t)rows * D + row);
+        if (seg == 0)
+          merge_first<true>(r, base + (size_t)row * D, l, D, lane);
+        else
+          merge_next<true>(r, base + (size_t)row * D, l, D, lane);
+      }
+    }
+    merge_store<TO>(r, symm_at<TO>(res, pe) + (size_t)row * D, D, lane);
+  }
   quiet();
 }
 
@@ -594,7 +598,9 @@ int launch_ll_ag_merge(const void* const* outs, const void* const* lses, const v
     return (int)cudaErrorInvalidValue;
   const Group G = *static_cast<const Group*>(group);
   if (G.n < 2 || G.n > n) return (int)cudaErrorInvalidValue;
-  const int lanes = (rows + kWarps - 1) / kWarps;
+  const int lanes =
+      tdt_shmem::resident_lanes(ll_ag_merge_kernel<TO>, kThreads, (rows + kWarps - 1) / kWarps, n);
+  if (lanes < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   return launch_cooperative(ll_ag_merge_kernel<TO>, dim3(lanes, n), dim3(kThreads), 0, stream,
                             make_table(outs, n), make_table(lses, n), make_table(ws, n),
                             make_table(res, n), rows, D, make_table(pads, n), G, silent,

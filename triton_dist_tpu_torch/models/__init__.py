@@ -1,4 +1,5 @@
-from triton_dist_tpu_torch.models.convert import params_from_jax
+from triton_dist_tpu_torch.models.convert import (packed_from_jax,
+                                                  params_from_jax)
 from triton_dist_tpu_torch.models.llama import (LlamaConfig, block_apply,
                                                 decode_multistep_paged,
                                                 decode_step, decode_step_paged,
@@ -17,6 +18,6 @@ __all__ = ["LlamaConfig", "MoEConfig", "block_apply",
            "decode_step_sp", "forward", "forward_tp_overlap", "generate",
            "init_kv_cache", "init_moe_params", "init_page_pool",
            "init_params", "mlp_tp_overlap", "moe_mlp_ep_overlap",
-           "moe_mlp_tp_overlap",
+           "moe_mlp_tp_overlap", "packed_from_jax",
            "params_from_jax", "prefill", "prefill_chunk_paged",
            "shard_kv_cache"]

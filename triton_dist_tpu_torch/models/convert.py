@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from triton_dist_tpu_torch.ops.group_gemm import PackedGatedWeights
 from triton_dist_tpu_torch.utils.env import default_device
 
 
@@ -49,4 +50,17 @@ def params_from_jax(np_params: dict, device="cuda",
     return conv(np_params)
 
 
-__all__ = ["params_from_jax", "tensor_from_numpy"]
+def packed_from_jax(w: np.ndarray, block_n: int,
+                    device="cuda") -> PackedGatedWeights:
+    """The JAX package's packed gate‖up array (``pack_gated_weights(...).w``
+    [E, H, 2F], as numpy) with the ``block_n`` it was packed with, as the
+    port's ``PackedGatedWeights``, bit for bit; the width must divide F."""
+    E, H, F2 = w.shape
+    if F2 % 2 or (F2 // 2) % block_n:
+        raise ValueError(f"a packed array [{E}, {H}, {F2}] is not packed at "
+                         f"block_n={block_n}")
+    return PackedGatedWeights(tensor_from_numpy(w, default_device(device)),
+                              block_n)
+
+
+__all__ = ["packed_from_jax", "params_from_jax", "tensor_from_numpy"]

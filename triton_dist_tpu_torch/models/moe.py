@@ -4,15 +4,16 @@ MoE FFNs of the serving path.
 Counterpart of ``triton_dist_tpu/models/moe.py``. Its inference block
 ``moe_mlp_ep_overlap`` routes rows through the EP all-to-all
 (``layers.EPAll2AllLayer`` over ``ops.all_to_all``: B21, or B22 for the
-microbatched schedule) to the ranks that hold their experts, runs each
-rank's local experts (``ops.group_gemm``: B18 then B17) and combines the
-rows back, at any EP size, one rank included. The tensor-parallel block
-``moe_mlp_tp_overlap`` runs over the MoE-TP ops of ``ops.moe`` (B19, B20)
-at any TP size, and ``moe_decode_step_sp`` is the serving decode step that
-puts sequence-parallel attention and this EP FFN on one axis. The
-expert-major layout and the GShard training path (``moe_mlp_gshard``,
-``moe_forward``) wait for ROADMAP.md Queue A, item 7 "MoE / EP across
-ranks".
+microbatched schedule; B21 over both tiers of a 2-tier layer) to the ranks
+that hold their experts, runs each rank's local experts (``ops.group_gemm``:
+B18 then B17) and combines the rows back, at any EP size, one rank
+included, in every form the reference deploys (expert-major slots, the
+expert edge of a quantised wire, the packed gate‖up stream). The
+tensor-parallel block ``moe_mlp_tp_overlap`` runs over the MoE-TP ops of
+``ops.moe`` (B19, B20) at any TP size, and ``moe_decode_step_sp`` is the
+serving decode step that puts sequence-parallel attention and this EP FFN on
+one axis. The GShard training path (``moe_mlp_gshard``, ``moe_forward``)
+waits for ROADMAP.md Queue A, item 7 "MoE / EP across ranks".
 """
 
 from __future__ import annotations
@@ -23,10 +24,11 @@ import torch
 
 from triton_dist_tpu_torch.models.llama import (LlamaConfig, decode_step_sp,
                                                 init_params)
-from triton_dist_tpu_torch.ops.all_to_all import _cap_round
+from triton_dist_tpu_torch.ops.all_to_all import QuantTokens, _cap_round
 from triton_dist_tpu_torch.ops.allgather import all_gather
 from triton_dist_tpu_torch.ops.allgather_gemm import norm_axis
-from triton_dist_tpu_torch.ops.group_gemm import (apply_grouped, grouped_gemm,
+from triton_dist_tpu_torch.ops.group_gemm import (PackedGatedWeights,
+                                                  apply_grouped, grouped_gemm,
                                                   grouped_gemm_gated)
 from triton_dist_tpu_torch.ops.moe import ag_moe_group_gemm, moe_reduce_rs
 from triton_dist_tpu_torch.utils.env import default_device
@@ -106,37 +108,85 @@ def router_topk(x2d, router_w, topk: int):
     return gate_vals / gate_vals.sum(-1, keepdim=True), gate_ids
 
 
+def _expert_major_table(n: int, cap: int, cap_e: int, el: int, block_m: int,
+                        rows: int, device):
+    """The static block -> expert table of expert-major receive rows: row
+    block b of rank d's ``n * cap`` rows lies at offset ``(b * block_m) %
+    cap`` of a (src, dst) block, whose local expert is that offset //
+    ``cap_e``; its global expert is ``d * el`` more."""
+    b = torch.arange(rows // block_m, device=device) * block_m
+    return ((b // (n * cap)) * el + (b % cap) // cap_e).to(torch.int32)
+
+
 def moe_mlp_ep_overlap(ctx, a2a_layer, x2d, router_w, we_gate, we_up,
                        we_down, axis: str | None = None, block_m: int = 64,
-                       microbatches: int = 1):
+                       block_n: int = 128, block_k: int | None = None,
+                       down_block_n: int | None = None,
+                       we_gate_up_packed=None, microbatches: int = 1):
     """The EP MoE inference block (the JAX ``moe_mlp_ep_overlap``): router,
     the EP dispatch, each rank's local experts, the EP combine.
 
     ``x2d`` [n * T, D] holds every EP rank's T token rows, rank-major (the
-    global view of rows sharded over ``a2a_layer``'s axis); router_w
-    [D, E]; we_gate / we_up [E, D, F], we_down [E, F, D]. Rank r's local
-    experts are the slice ``we_*[r * El:(r + 1) * El]``, views of the same
-    tensors. Returns [n * T, D] in the context's type.
+    global view of rows sharded over ``a2a_layer``'s axis, or its pair of
+    axes on two tiers, in the order of their flattened coordinate);
+    router_w [D, E]; we_gate / we_up [E, D, F], we_down [E, F, D]. Rank r's
+    local experts are the slice ``we_*[r * El:(r + 1) * El]``, views of the
+    same tensors. Returns [n * T, D] in the context's type.
 
     The router runs over every rank's rows in one product (``router_topk``;
     a row's result is its rank's), then ``a2a_layer.dispatch``. The expert
     FFN runs over every rank's received rows in one launch of each grouped
-    GEMM, rank r's local expert e as global expert r * El + e (a row's
-    result does not depend on the rows beside it), aligned by expert as
-    ``apply_grouped`` does; then ``a2a_layer.combine``.
+    GEMM (B18, then B17), rank r's local expert e as global expert r * El +
+    e (a row's result does not depend on the rows beside it), then
+    ``a2a_layer.combine``. The rows are aligned by expert as
+    ``apply_grouped`` does, except on an ``expert_major`` context whose
+    per-expert budget is a multiple of ``block_m``: the received rows are
+    then expert-aligned already, and every row block runs against a static
+    block -> expert table, with no alignment pass (unfilled slots are zero
+    rows and give zeros).
 
-    ``microbatches=M > 1`` splits each rank's rows into M contiguous blocks,
-    each through an M-times-smaller drop-proof context (same wire type,
-    edges and segmented wire), issuing block i + 1's dispatch before block
-    i's FFN; the outputs are concatenated back per rank in order, so the
-    result is bitwise ``microbatches=1``'s."""
+    On a quantised wire with ``dequant_edge="expert"`` the received rows
+    stay fp8 or int8 and their scales go to both grouped GEMMs'
+    ``row_scale`` (the gated kernel reads the one-byte rows; its output is
+    in the context's type). ``we_gate_up_packed`` (``pack_gated_weights(
+    we_gate, we_up, block_n)``; its width must be ``block_n``) runs B18
+    over the packed stream; ``block_k`` is B18's K split. ``block_n`` is
+    only the pack width (unread without a packed stream), and
+    ``down_block_n`` (the reference's down-GEMM column tile) is accepted
+    for the JAX function's signature only and unread: the column tile is
+    the kernels' own.
+
+    ``microbatches=M > 1`` (one axis, rank-major slots) splits each rank's
+    rows into M contiguous blocks, each through an M-times-smaller
+    drop-proof context (same wire type, edges and segmented wire), issuing
+    block i + 1's dispatch before block i's FFN; the outputs are
+    concatenated back per rank in order, so the result is bitwise
+    ``microbatches=1``'s."""
+    del axis, down_block_n
     a2a = a2a_layer.a2a
+    is_2d = a2a_layer.is_2d
     n, E, k = a2a.n_ranks, a2a.num_experts, a2a.topk
     el = a2a.experts_per_rank
     T, D = a2a.max_tokens, x2d.shape[1]
+    packed = we_gate_up_packed is not None
+    if isinstance(we_gate_up_packed, PackedGatedWeights) \
+            and we_gate_up_packed.block_n != block_n:
+        raise ValueError(
+            f"we_gate_up_packed was packed with block_n="
+            f"{we_gate_up_packed.block_n} but the layer runs block_n="
+            f"{block_n}: repack with pack_gated_weights(..., block_n="
+            f"{block_n})")
+    expert_major = not is_2d and a2a.expert_major
+    cap_e = a2a.capacity_per_expert if expert_major else None
+    em_fast = expert_major and cap_e % block_m == 0
     gate_vals, gate_ids = router_topk(x2d, router_w, k)
     mbs = int(microbatches)
     if mbs > 1:
+        if is_2d or expert_major:
+            raise ValueError(
+                "microbatches > 1 run the one-axis, rank-major schedule: an "
+                "expert-major budget is not drop-proof per microbatch, and "
+                "the 2-tier path has no microbatched form")
         if T % mbs:
             raise ValueError(f"{T} rows a rank do not split into {mbs} "
                              f"microbatches")
@@ -158,23 +208,44 @@ def moe_mlp_ep_overlap(ctx, a2a_layer, x2d, router_w, we_gate, we_up,
         mb_layer = a2a_layer
         parts = [(x2d, gate_vals, gate_ids)]
 
+    def ffn(xs, be, nb, *ss):
+        kw = dict(block_m=block_m, n_blocks_used=nb, masked=False)
+        if ss:
+            kw.update(row_scale=ss[0], out_dtype=a2a.dtype)
+        if packed:
+            h = grouped_gemm_gated(xs, we_gate_up_packed, None, be,
+                                   block_k=block_k, packed=True,
+                                   block_n=block_n, **kw)
+        else:
+            h = grouped_gemm_gated(xs, we_gate, we_up, be, block_k=block_k,
+                                   **kw)
+        return grouped_gemm(h, we_down, be, block_m=block_m,
+                            n_blocks_used=nb, masked=False)
+
     def expert_ffn(recv_tok, recv_ids):
-        # rank d's received rows are rows [d * n * cap, (d + 1) * n * cap)
-        cap = recv_tok.shape[1]
-        rank = torch.arange(n, device=recv_ids.device).repeat_interleave(
-            n * cap).view(n * n, cap)
-        ids = torch.where(recv_ids >= 0, rank * el + recv_ids,
-                          torch.full_like(recv_ids, -1))
-
-        def ffn(xs, be, nb):
-            h = grouped_gemm_gated(xs, we_gate, we_up, be, block_m=block_m,
-                                   n_blocks_used=nb, masked=False)
-            return grouped_gemm(h, we_down, be, block_m=block_m,
-                                n_blocks_used=nb, masked=False)
-
-        out = apply_grouped(recv_tok.reshape(n * n * cap, -1),
-                            ids.reshape(-1), E, ffn, block_m=block_m)
-        return out.view(n * n, cap, -1)
+        quant = isinstance(recv_tok, QuantTokens)
+        q = recv_tok.q if quant else recv_tok
+        slots, cap = q.shape[:2]
+        rows = slots * cap
+        per_rank = rows // n
+        xs = q.reshape(rows, -1)
+        sc = recv_tok.scale.reshape(rows) if quant else None
+        if em_fast:
+            be = _expert_major_table(n, cap, cap_e, el, block_m, rows,
+                                     xs.device)
+            nb = torch.full((1,), rows // block_m, dtype=torch.int32,
+                            device=xs.device)
+            out = ffn(xs, be, nb, *((sc,) if quant else ()))
+        else:
+            # rank d's received rows are rows [d * per_rank, (d + 1) *
+            # per_rank)
+            rank = torch.arange(n, device=recv_ids.device) \
+                .repeat_interleave(per_rank).view(slots, cap)
+            ids = torch.where(recv_ids >= 0, rank * el + recv_ids,
+                              torch.full_like(recv_ids, -1))
+            out = apply_grouped(xs, ids.reshape(-1), E, ffn,
+                                block_m=block_m, row_scale=sc)
+        return out.view(slots, cap, -1)
 
     disp = [mb_layer.dispatch(parts[0][0], parts[0][2])]
     outs = []
