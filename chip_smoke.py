@@ -35,7 +35,7 @@ Phases, each printing its lines:
    kernel launched layers x steps times), its step time, tokens/s, peak
    memory and one step under ``torch.profiler``;
 9. MoE: Mixtral-8x7B's widths (d_model 4096, 32/8 heads, 8 experts top-2,
-   expert FFN 14336, vocab 32000) with the depth cut to 8 layers, random
+   expert FFN 14336, vocab 32000) with the depth cut to 4 layers, random
    weights from a seed: the one-rank EP dispatch and combine
    (``ep_dispatch``, ``ep_combine``) and the grouped GEMM kernels
    (``grouped_gemm_gated``, ``grouped_gemm``) against their plain versions
@@ -278,6 +278,25 @@ Phases, each printing its lines:
    bitwise its fp8 rank-major twin, step 0's logits within
    ``SP_STEP0_TOL`` of the rank-major bf16 layer's in relative L2 and a
    zeroed-cache-shard control outside, launches counted, ms a step.
+22. context-parallel training across ranks on the one card (after phase
+   8): (a) B24 and B25 across ranks (``csrc/ring_attention.cu``'s ring
+   kernels, one cooperative launch a call; the backward after its delta
+   pass) at the training shape (B=1, Hq=32, Hkv=8, D=128, global S=4096,
+   causal) at 2 and 4 ranks in bf16 and f32, contiguous and zigzag, not
+   causal at 4 ranks, and over the (2, 2) ("dp", "cp") mesh with B=2 and
+   the batch over dp: against their plain versions within ``RING_TOL`` and
+   ``LSE_ATOL``, bitwise on a rerun and on 5 fresh calls, one launch a
+   call, every pad zero, a forward and a backward whose rank 1 never
+   signals raising within 2 s and the next call bitwise; timed beside the
+   bound over every rank's pairs plus the ring's transport, the one-rank
+   kernel on the whole sequence, the plain version and
+   ``scaled_dot_product_attention``; (b) in f32 at full width, depth 2,
+   1024 tokens, the cp step's loss and gradients at 2 and 4 ranks against
+   one rank within ``TRAIN_F32``'s tolerances; (c) phase 8's bf16 trainer
+   (16 layers, 4096 tokens, 5 steps at lr 1e-5) over a ("cp",) mesh of 2
+   and of 4 ranks: losses finite and falling, each ring kernel launched
+   layers x steps times, step time, tokens/s, peak memory and one step
+   under the profiler. Every time at n > 1 is every rank on the one card.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -719,10 +738,14 @@ RING_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def ring_bound(S: int, causal: bool, esize: int, dtype_name: str,
-               backward: bool, dims=RING) -> tuple[float, str]:
+               backward: bool, dims=RING, ranks: int = 1) -> tuple[float, str]:
     """Least time: each input read once and each output written once,
     against 4*D operations per (query, key) pair that counts in the forward
-    (q.k and p.v) and 10*D in the backward (s, dp, dq, dk, dv)."""
+    (q.k and p.v) and 10*D in the backward (s, dp, dq, dk, dv). Across
+    ``ranks`` on the one card the pairs are the global sequence's, and the
+    ring's transport adds its bytes: each of the n - 1 hops writes every
+    K||V block into a relay slot and reads it there, and in the backward
+    each of the n hops does the same with every f32 dk||dv accumulator."""
     B, Hq, Hkv, D = dims["B"], dims["Hq"], dims["Hkv"], dims["D"]
     pairs = S * (S + 1) // 2 if causal else S * S
     q_bytes, kv_bytes = B * Hq * S * D * esize, B * Hkv * S * D * esize
@@ -732,6 +755,10 @@ def ring_bound(S: int, causal: bool, esize: int, dtype_name: str,
     else:          # q k v -> out, lse
         nbytes = 2 * q_bytes + 2 * kv_bytes + B * Hq * S * 4
         ops = 4 * D * B * Hq * pairs
+    if ranks > 1:
+        nbytes += 2 * (ranks - 1) * 2 * kv_bytes
+        if backward:
+            nbytes += 2 * ranks * 2 * (B * Hkv * S * D * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
@@ -788,11 +815,13 @@ def check_ring_attention(device, timed: bool = True, cases=RING_CASES,
 
         q, do = randn(B, Hq, S, D), randn(B, Hq, S, D)
         k, v = randn(B, Hkv, S, D), randn(B, Hkv, S, D)
-        out, lse = ring_attention_fwd(q, k, v, causal)
-        out2, lse2 = ring_attention_fwd(q, k, v, causal)
+        out, lse = ring_attention_fwd(None, q, k, v, causal=causal)
+        out2, lse2 = ring_attention_fwd(None, q, k, v, causal=causal)
         ref_out, ref_lse = ring_attention_fwd_plain(q, k, v, causal)
-        grads = ring_attention_bwd(q, k, v, out, lse, do, causal)
-        grads2 = ring_attention_bwd(q, k, v, out, lse, do, causal)
+        grads = ring_attention_bwd(None, q, k, v, out, lse, do,
+                                   causal=causal)
+        grads2 = ring_attention_bwd(None, q, k, v, out, lse, do,
+                                    causal=causal)
         ref_grads = ring_attention_bwd_plain(q, k, v, out, lse, do, causal)
         rec = {"case": f"{name} S={S} {'causal' if causal else 'full'}",
                "tol": RING_TOL[name], "lse_atol": LSE_ATOL,
@@ -808,9 +837,9 @@ def check_ring_attention(device, timed: bool = True, cases=RING_CASES,
         if timed:
             esize = q.element_size()
             rec["fwd_ms"] = perf_func(
-                lambda: ring_attention_fwd(q, k, v, causal))[1]
+                lambda: ring_attention_fwd(None, q, k, v, causal=causal))[1]
             rec["bwd_ms"] = perf_func(lambda: ring_attention_bwd(
-                q, k, v, out, lse, do, causal), iters=10)[1]
+                None, q, k, v, out, lse, do, causal=causal), iters=10)[1]
             rec["fwd_plain_ms"] = perf_func(
                 lambda: ring_attention_fwd_plain(q, k, v, causal), iters=5)[1]
             rec["bwd_plain_ms"] = perf_func(lambda: ring_attention_bwd_plain(
@@ -900,10 +929,10 @@ def check_train_f32(device, cfg, seq: int = TRAIN_F32["seq"]) -> dict:
 
 def _family(name: str) -> str:
     name = name.lower()
-    if "ring_fwd_kernel" in name:
+    if "ring_fwd_kernel" in name or "ring_fwd_ranks_kernel" in name:
         return "attention_fwd"
     if any(k in name for k in ("ring_delta_kernel", "ring_dq_kernel",
-                               "ring_dkv_kernel")):
+                               "ring_dkv_kernel", "ring_bwd_ranks_kernel")):
         return "attention_bwd"
     if any(k in name for k in ("gemm", "gemv", "xmma", "nvjet", "cutlass")):
         return "gemm"
@@ -911,13 +940,16 @@ def _family(name: str) -> str:
 
 
 def check_train(device, cfg, card: str, seq: int = TRAIN["seq"],
-                steps: int = TRAIN["steps"]) -> dict:
+                steps: int = TRAIN["steps"], ranks: int = 1) -> dict:
     """``steps`` cp steps on one seeded batch of ``seq`` tokens, each timed
     to a synchronize; raises unless every loss is finite and below the one
     before, and each kernel ran layers x steps times. Then one more step
     under ``torch.profiler``: device time by family, the busiest kernels,
     and the idle share of that step (1 - the union of its device intervals
-    / its wall time)."""
+    / its wall time). At ``ranks`` > 1 the step runs over a ("cp",) mesh
+    of that many ranks and the counts are the ring kernels'
+    (``launches_ring``)."""
+    import gc
     import statistics
 
     import torch
@@ -926,27 +958,30 @@ def check_train(device, cfg, card: str, seq: int = TRAIN["seq"],
     from triton_dist_tpu_torch.ops.ring_attention import (ring_attention_bwd,
                                                           ring_attention_fwd)
     from triton_dist_tpu_torch.parallel import (ParallelPlan, adamw,
-                                                make_train_step)
+                                                make_mesh, make_train_step)
 
     on_card = device.type == "cuda"
+    count = "launches" if ranks == 1 else "launches_ring"
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
     if on_card:
+        gc.collect()        # tensors of earlier phases held only in cycles
         torch.cuda.reset_peak_memory_stats()
     plan = ParallelPlan(dp=None, tp=None, cp="cp", sp=False)
     init_fn, step_fn = make_train_step(
-        cfg, plan, functools.partial(adamw, lr=TRAIN["lr"]), device=device)
+        cfg, make_mesh({"cp": ranks}, device) if ranks > 1 else None, plan,
+        functools.partial(adamw, lr=TRAIN["lr"]), device=device)
     state = init_fn(0)
     n_params = sum(t.numel() for _, t in _flat(state.params))
     gen = torch.Generator(device=device).manual_seed(4)
     tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
                            device=device)
     sync()
-    ring_attention_fwd.launches = 0
-    ring_attention_bwd.launches = 0
+    setattr(ring_attention_fwd, count, 0)
+    setattr(ring_attention_bwd, count, 0)
     losses, walls = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -954,8 +989,8 @@ def check_train(device, cfg, card: str, seq: int = TRAIN["seq"],
         sync()
         walls.append(time.perf_counter() - t0)
         losses.append(loss.item())
-    launches = {"ring_attention_fwd": ring_attention_fwd.launches,
-                "ring_attention_bwd": ring_attention_bwd.launches}
+    launches = {"ring_attention_fwd": getattr(ring_attention_fwd, count),
+                "ring_attention_bwd": getattr(ring_attention_bwd, count)}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
     step_s = statistics.median(walls[1:])
 
@@ -988,7 +1023,8 @@ def check_train(device, cfg, card: str, seq: int = TRAIN["seq"],
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     expect = cfg.n_layers * steps
     rec = {"card": card, "dtype": str(cfg.dtype), "layers": cfg.n_layers,
-           "d_model": cfg.d_model, "seq": seq, "params_b": n_params / 1e9,
+           "ranks": ranks, "d_model": cfg.d_model, "seq": seq,
+           "params_b": n_params / 1e9,
            "steps": steps,
            "losses": losses, "step_s": walls, "step_s_median": step_s,
            "tokens_per_s": seq / step_s, "peak_mem_gib": peak,
@@ -998,7 +1034,7 @@ def check_train(device, cfg, card: str, seq: int = TRAIN["seq"],
                              "device_s_by_family": fams,
                              "device_ops": len(spans),
                              "top_kernels_ms": [[n[:80], t] for n, t in top]}}
-    log("train bf16", json.dumps(rec))
+    log(f"train bf16{'' if ranks == 1 else f' cp={ranks}'}", json.dumps(rec))
     ok = (all(math.isfinite(x) for x in losses)
           and all(b < a for a, b in zip(losses, losses[1:]))
           and all(n == expect for n in launches.values()))
@@ -1011,11 +1047,13 @@ def check_train(device, cfg, card: str, seq: int = TRAIN["seq"],
 # phase 9: MoE serving at Mixtral-8x7B width through the grouped GEMMs
 # ---------------------------------------------------------------------------
 
-# Mixtral-8x7B's published widths with the depth cut from 32 to 8 layers:
-# 12 B parameters, 24 GB in bf16 (32 layers would need 93 GB); 16 layers
+# Mixtral-8x7B's published widths with the depth cut from 32 to 4 layers:
+# 6 B parameters, 12 GB in bf16 (32 layers would need 93 GB); 16 layers
 # until the phases on these weights (9, 12, 13, 16-18, 20) outgrew the
-# script's time limit on a slow host
-MOE_LAYERS = 8
+# script's time limit on a slow host, 8 until phase 22 took the script to
+# 978 s of its 1200 on another (most of these phases' time is the host's,
+# a layer at a time)
+MOE_LAYERS = 4
 # (tokens, aligned row block) of the engine's two programs, each token top-2:
 # a decode step of 8 slots and a 256-token prefill chunk
 GG_SHAPES = {"decode": (8, 16), "chunk": (256, 64)}
@@ -9126,6 +9164,316 @@ def deployed_kernels(dep: dict) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: context-parallel training across ranks, B24/B25's ring
+# ---------------------------------------------------------------------------
+
+RING_RANKS = (2, 4)
+# (ranks, mesh, B, dtype, layout, causal) at the training shape, global
+# S = 4096: every rank of the mesh on the one card. "cp" is a ring of n
+# ranks; "dp x cp" a (2, 2) mesh with the batch over dp (two rings)
+RING_RANK_CASES = tuple(
+    (n, "cp", 1, dtype, layout, True) for n in RING_RANKS
+    for dtype in ("bfloat16", "float32")
+    for layout in ("contiguous", "zigzag")) + (
+    (4, "cp", 1, "bfloat16", "contiguous", False),
+    (2, "dp x cp", 2, "bfloat16", "contiguous", True))
+RING_RANKS_NOTE = ("every rank of the ring on the one card: times are the "
+                   "kernels and their protocol on shared SMs and one HBM, "
+                   "not NVLink")
+
+
+def _ring_ctx(n: int, mesh: str, device):
+    from triton_dist_tpu_torch.parallel import make_mesh
+
+    if mesh == "cp":
+        return make_mesh({"cp": n}, device), None
+    return make_mesh({"dp": 2, "cp": n}, device), "dp"
+
+
+def check_ring_ranks(device, timed: bool = True, cases=RING_RANK_CASES,
+                     dims=RING, S: int = TRAIN["seq"], fresh: int = FRESH_CALLS,
+                     hang: bool = True) -> list[dict]:
+    """B24 and B25 across ranks (``ring_attention_fwd``/``_bwd`` with a
+    context; one cooperative launch a call, ``csrc/ring_attention.cu``) at
+    each case: against their plain versions on the same global inputs
+    within ``RING_TOL`` and ``LSE_ATOL`` (the backward on the kernel
+    forward's out and lse), bitwise on a rerun and, on ``fresh`` calls with
+    fresh data, each bitwise its rerun and within tolerance; one ring
+    launch a call; every signal pad zero after the calls. Timed beside the
+    bound over every rank's work and the ring's transport, the one-rank
+    kernel on the whole sequence, the plain version and
+    ``scaled_dot_product_attention``. With ``hang``, a forward and a
+    backward whose rank 1 never signals its puts raise ``ShmemError``
+    within ``HANG_LIMIT_S`` and the next call is bitwise. Raises on any
+    failure."""
+    import torch
+
+    from triton_dist_tpu_torch.ops.ring_attention import (
+        ring_attention_bwd, ring_attention_bwd_plain, ring_attention_fwd,
+        ring_attention_fwd_plain)
+    from triton_dist_tpu_torch.shmem import ShmemError, check_errors
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    def absmax(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    Hq, Hkv, D = dims["Hq"], dims["Hkv"], dims["D"]
+    on_card = device.type == "cuda"
+    records = []
+    for n, mesh, B, name, layout, causal in cases:
+        dtype = getattr(torch, name)
+        ctx, batch_axis = _ring_ctx(n, mesh, device)
+        kw = dict(axis="cp", causal=causal, batch_axis=batch_axis,
+                  layout=layout)
+        gen = torch.Generator(device=device).manual_seed(22 + n)
+
+        def inputs():
+            def randn(*shape):
+                return (torch.randn(shape, generator=gen, device=device,
+                                    dtype=torch.float32) * 0.5).to(dtype)
+            return (randn(B, Hq, S, D), randn(B, Hkv, S, D),
+                    randn(B, Hkv, S, D), randn(B, Hq, S, D))
+
+        def run(q, k, v, do):
+            out, lse = ring_attention_fwd(ctx, q, k, v, **kw)
+            return (out, lse) + ring_attention_bwd(ctx, q, k, v, out, lse,
+                                                   do, **kw)
+
+        def errors(got, q, k, v, do):
+            out, lse = got[:2]
+            ref_out, ref_lse = ring_attention_fwd_plain(
+                q, k, v, causal, None, layout, n)
+            ref = (ref_out, ref_lse) + ring_attention_bwd_plain(
+                q, k, v, out, lse, do, causal, None, layout, n)
+            return {"out_rel_err": rel(out, ref_out),
+                    "lse_max_abs_err": absmax(lse, ref_lse),
+                    **{f"{g}_rel_err": rel(a, b) for g, a, b in
+                       zip(("out", "dq", "dk", "dv"), got[:1] + got[2:],
+                           ref[:1] + ref[2:])},
+                    **{f"{g}_max_abs_err": absmax(a, b) for g, a, b in
+                       zip(("out", "dq", "dk", "dv"), got[:1] + got[2:],
+                           ref[:1] + ref[2:])}}
+
+        tol = RING_TOL[name]
+
+        def within(e):
+            return e["lse_max_abs_err"] <= LSE_ATOL and all(
+                e[f"{g}_rel_err"] <= tol for g in ("out", "dq", "dk", "dv"))
+
+        q, k, v, do = inputs()
+        before = (ring_attention_fwd.launches_ring,
+                  ring_attention_bwd.launches_ring)
+        got, again = run(q, k, v, do), run(q, k, v, do)
+        launches = (ring_attention_fwd.launches_ring - before[0],
+                    ring_attention_bwd.launches_ring - before[1])
+        check_errors(ctx)
+        pads_zero = _pads_zero(ctx)
+        rec = {"case": f"{name} n={n} {mesh} B={B} S={S} {layout} "
+                       f"{'causal' if causal else 'full'}",
+               "n": n, "mesh": mesh, "dtype": name, "layout": layout,
+               "tol": tol, "lse_atol": LSE_ATOL, **errors(got, q, k, v, do),
+               "bitwise_repeat": all(torch.equal(a, b)
+                                     for a, b in zip(got, again)),
+               "launches_per_call": [x / 2 for x in launches]}
+        fresh_ok = []
+        for _ in range(fresh):
+            fq, fk, fv, fdo = inputs()
+            f1, f2 = run(fq, fk, fv, fdo), run(fq, fk, fv, fdo)
+            fresh_ok.append(all(torch.equal(a, b) for a, b in zip(f1, f2))
+                            and within(errors(f1, fq, fk, fv, fdo)))
+            del fq, fk, fv, fdo, f1, f2
+        check_errors(ctx)
+        rec["fresh_calls_bitwise"] = all(fresh_ok)
+        rec["pads_zero_after"] = pads_zero and _pads_zero(ctx)
+        if hang and on_card and n == RING_RANKS[0] and mesh == "cp" \
+                and name == "bfloat16" and layout == "contiguous":
+            rec["hang"] = {}
+            for half, call in (
+                    ("fwd", lambda **s: ring_attention_fwd(
+                        ctx, q, k, v, **kw, **s)[0]),
+                    ("bwd", lambda **s: ring_attention_bwd(
+                        ctx, q, k, v, got[0], got[1], do, **kw, **s)[0])):
+                want = call()
+                t0 = time.perf_counter()
+                raised = None
+                try:
+                    call(silent_rank=1)
+                    check_errors(ctx)
+                except ShmemError as e:
+                    raised = str(e)
+                seconds = time.perf_counter() - t0
+                after = bool(torch.equal(call(), want))
+                check_errors(ctx)
+                rec["hang"][half] = {"raised": raised, "seconds": seconds,
+                                     "limit_s": HANG_LIMIT_S,
+                                     "next_call_bitwise": after,
+                                     "pads_zero_after": _pads_zero(ctx)}
+        if timed:
+            esize = q.element_size()
+            rec["fwd_ms"] = perf_func(
+                lambda: ring_attention_fwd(ctx, q, k, v, **kw))[1]
+            rec["bwd_ms"] = perf_func(lambda: ring_attention_bwd(
+                ctx, q, k, v, got[0], got[1], do, **kw), iters=10)[1]
+            rec["one_rank_fwd_ms"] = perf_func(lambda: ring_attention_fwd(
+                None, q, k, v, causal=causal))[1]
+            rec["one_rank_bwd_ms"] = perf_func(lambda: ring_attention_bwd(
+                None, q, k, v, got[0], got[1], do, causal=causal),
+                iters=10)[1]
+            rec["fwd_plain_ms"] = perf_func(lambda: ring_attention_fwd_plain(
+                q, k, v, causal, None, layout, n), iters=5)[1]
+            rec["bwd_plain_ms"] = perf_func(lambda: ring_attention_bwd_plain(
+                q, k, v, got[0], got[1], do, causal, None, layout, n),
+                iters=5)[1]
+            s_fwd, s_bwd, _ = sdpa_calls(q, k, v, do, causal)
+            rec["fwd_sdpa_ms"] = perf_func(s_fwd)[1]
+            rec["bwd_sdpa_ms"] = perf_func(s_bwd)[1]
+            bdims = dict(dims, B=B)
+            rec["fwd_bound_ms"], rec["fwd_bound_by"] = ring_bound(
+                S, causal, esize, name, False, bdims, n)
+            rec["bwd_bound_ms"], rec["bwd_bound_by"] = ring_bound(
+                S, causal, esize, name, True, bdims, n)
+            rec["note"] = RING_RANKS_NOTE
+        log("kernel ring_attention across ranks", json.dumps(rec))
+        hang_ok = all(h["raised"] and h["seconds"] < HANG_LIMIT_S
+                      and h["next_call_bitwise"] and h["pads_zero_after"]
+                      for h in rec.get("hang", {}).values())
+        if not (within(rec) and rec["bitwise_repeat"]
+                and rec["fresh_calls_bitwise"] and rec["pads_zero_after"]
+                and hang_ok and (not on_card
+                                 or rec["launches_per_call"] == [1, 1])):
+            raise AssertionError(f"ring attention across ranks failed: "
+                                 f"{rec}")
+        records.append(rec)
+        del q, k, v, do, got, again
+        if on_card:
+            torch.cuda.empty_cache()
+    return records
+
+
+def check_train_ranks_f32(device, cfg, seq: int = TRAIN_F32["seq"],
+                          ranks=RING_RANKS) -> dict:
+    """Loss and gradients of the cp plan over a ("cp",) mesh of each of
+    ``ranks`` (the ring kernels in every layer) against the cp plan on one
+    rank (the one-rank kernels), on the same params and tokens; raises
+    outside ``TRAIN_F32``'s tolerances or unless each layer launched one
+    ring forward and one ring backward."""
+    import torch
+
+    from triton_dist_tpu_torch.models.llama import init_params
+    from triton_dist_tpu_torch.ops.ring_attention import (ring_attention_bwd,
+                                                          ring_attention_fwd)
+    from triton_dist_tpu_torch.parallel import (ParallelPlan, make_loss_fn,
+                                                make_mesh)
+
+    params = init_params(cfg, seed=2, device=device)
+    leaves = [t.requires_grad_(True) for _, t in _flat(params)]
+    names = [n for n, _ in _flat(params)]
+    gen = torch.Generator(device=device).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                           device=device)
+    plan = ParallelPlan(dp=None, tp=None, cp="cp", sp=False)
+
+    def loss_and_grads(mesh):
+        loss = make_loss_fn(cfg, plan, mesh)(params, tokens)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    loss_ref, g_ref = loss_and_grads(None)
+    rec = {"dtype": "float32", "layers": cfg.n_layers, "seq": seq,
+           "loss_one_rank": loss_ref, "loss_rtol": TRAIN_F32["loss_rtol"],
+           "grad_rtol": TRAIN_F32["grad_rtol"], "ranks": {}}
+    ok = True
+    for n in ranks:
+        before = (ring_attention_fwd.launches_ring,
+                  ring_attention_bwd.launches_ring)
+        loss, g = loss_and_grads(make_mesh({"cp": n}, device))
+        launches = [ring_attention_fwd.launches_ring - before[0],
+                    ring_attention_bwd.launches_ring - before[1]]
+        grad_rel = {nm: ((a - b).abs().max() / b.abs().max()).item()
+                    for nm, a, b in zip(names, g, g_ref)}
+        r = {"loss": loss, "loss_rel_err": abs(loss - loss_ref)
+             / abs(loss_ref), "grad_rel_err_max": max(grad_rel.values()),
+             "ring_launches": launches}
+        rec["ranks"][str(n)] = r
+        ok = ok and r["loss_rel_err"] <= rec["loss_rtol"] \
+            and r["grad_rel_err_max"] <= rec["grad_rtol"] \
+            and (device.type != "cuda" or launches == [cfg.n_layers] * 2)
+        del g
+    log("train f32 cp across ranks vs one rank", json.dumps(rec))
+    del params, leaves, g_ref
+    if not ok:
+        raise AssertionError(f"the cp step across ranks disagrees with one "
+                             f"rank: {rec}")
+    return rec
+
+
+def check_cp_ranks(device, card: str) -> dict:
+    """Phase 22: the ring kernels (a), the f32 step across ranks (b) and
+    the bf16 trainer at 2 and 4 ranks (c)."""
+    import torch
+
+    from triton_dist_tpu_torch.models.llama import LlamaConfig
+
+    t0 = time.perf_counter()
+    kernels = check_ring_ranks(device)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(LlamaConfig.llama3_8b(),
+                                n_layers=TRAIN_F32["layers"],
+                                dtype=torch.float32)
+    f32 = check_train_ranks_f32(device, cfg32)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              n_layers=TRAIN["layers"])
+    train = {}
+    for n in RING_RANKS:
+        train[n] = check_train(device, cfg, card, ranks=n)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 22 took {seconds:.1f} s")
+    return {"kernels": kernels, "f32": f32, "train": train,
+            "seconds": seconds}
+
+
+def cp_ranks_kernels(cp: dict) -> list[dict]:
+    """The kernels-line entries of B24 and B25 across ranks: the main
+    path's shape is the trainer's (bf16, contiguous, causal) at 4 ranks;
+    every case in ``cases``; launches the ring launches of phase 22c's runs
+    at 2 and 4 ranks."""
+    main = next(r for r in cp["kernels"] if r["n"] == RING_RANKS[-1]
+                and r["mesh"] == "cp" and r["dtype"] == "bfloat16"
+                and r["layout"] == "contiguous" and "causal" in r["case"])
+    source = "triton_dist_tpu_torch/csrc/ring_attention.cu"
+    out = []
+    for half, name, replaces, errs in (
+            ("fwd", "ring_attention_fwd_ranks",
+             "triton_dist_tpu/ops/ring_attention.py:407", ("out",)),
+            ("bwd", "ring_attention_bwd_ranks",
+             "triton_dist_tpu/ops/ring_attention.py:900",
+             ("dq", "dk", "dv"))):
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(t["launches"][f"ring_attention_{half}"]
+                            for t in cp["train"].values()),
+            "max_abs_err": max(r[f"{e}_max_abs_err"] for r in cp["kernels"]
+                               for e in errs),
+            "ms": main[f"{half}_ms"], "plain_ms": main[f"{half}_plain_ms"],
+            "bound_ms": main[f"{half}_bound_ms"],
+            "bound_by": main[f"{half}_bound_by"],
+            "library_ms": main[f"{half}_sdpa_ms"],
+            "one_rank_ms": main[f"one_rank_{half}_ms"],
+            "case": main["case"], "note": RING_RANKS_NOTE,
+            "cases": [{k: r[k] for k in (
+                "case", f"{half}_ms", f"one_rank_{half}_ms",
+                f"{half}_plain_ms", f"{half}_sdpa_ms", f"{half}_bound_ms")
+                if k in r} for r in cp["kernels"]]})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -9214,6 +9562,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = check_train(device, dataclasses.replace(
         LlamaConfig.llama3_8b(), n_layers=TRAIN["layers"]), card)
+    torch.cuda.empty_cache()
+    cp = check_cp_ranks(device, card)
     torch.cuda.empty_cache()           # the MoE model needs 47 GB of it
     moe = check_moe(device, card)
     sp17 = check_sp_kernels(device, card)
@@ -9346,7 +9696,7 @@ def main() -> int:
         + slice6 + slice7 + collectives_2d_kernels(coll2d)
         + tp_ranks_kernels(tp_ranks) + tp_2d_kernels(tp2d, moe)
         + ep_kernels(moe["ep"]) + sp_modes_kernels(sp17, moe, disagg)
-        + deployed_kernels(deployed)}))
+        + deployed_kernels(deployed) + cp_ranks_kernels(cp)}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """The port's collectives across ranks against the JAX package on the same
 numpy inputs: the push and ring ``all_gather`` (B9) and the ring
-``reduce_scatter`` (B13) at 4 ranks; the ops outside the ported slices,
-which still refuse more than one rank; and the group and 2-D forms of the
+``reduce_scatter`` (B13) at 4 ranks; the ops that once refused more than
+one rank, which now run; and the group and 2-D forms of the
 collectives, which run (against JAX: ``test_torch_collectives_2d.py``; the
 gather and the barrier over a group: ``test_torch_ep_ranks.py``).
 
@@ -19,6 +19,7 @@ other points).
 import dataclasses
 import functools
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -178,7 +179,7 @@ def _raising_calls():
     inside the multi-axis mesh, which run since the TP-overlap 2-tier slice
     (``check(result)`` holds each against its plain composition over
     flattened or one-axis ranks), and the CP train plan across ranks, which
-    still raises naming ROADMAP item 9 (``check`` is None)."""
+    runs since the CP slice (one step's loss against the no-cp step's)."""
     from triton_dist_tpu_torch.models import llama as tl
     from triton_dist_tpu_torch.ops import allgather_gemm as tagg
     from triton_dist_tpu_torch.ops import gemm_reduce_scatter as tgrs
@@ -198,6 +199,17 @@ def _raising_calls():
     tw = torch.softmax(torch.randn(4, 2, generator=g), -1)
     cfg = dataclasses.replace(tl.LlamaConfig.tiny(n_layers=1),
                               dtype=torch.float32)
+    # ring attention takes head_dim 128
+    cp_cfg = dataclasses.replace(cfg, d_model=512, n_kv_heads=2)
+    cp_plan = ParallelPlan(dp=None, tp=None, cp="cp", sp=False)
+
+    def train_step(cfg, mesh, plan):
+        """The loss of one step of ``plan`` over ``mesh`` from seed 0."""
+        init_fn, step_fn = make_train_step(cfg, mesh, plan, device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                               generator=torch.Generator().manual_seed(0))
+        return step_fn(init_fn(0), tokens)[1].item()
+
 
     def same(want):
         return lambda got: torch.equal(got, want)
@@ -234,9 +246,10 @@ def _raising_calls():
         ("ag_moe_group_gemm over two axes", lambda: tmoe.ag_moe_group_gemm(
             ctx2d, a, ids, we, axis=("a", "b")),
          same(tmoe.ag_moe_group_gemm(flat[4], a, ids, we))),
-        ("train plan", lambda: make_train_step(cfg, ParallelPlan(cp="cp"),
-                                               device="cpu",
-                                               mesh={"cp": 2}), None),
+        ("train plan", lambda: train_step(cp_cfg, {"cp": 2}, cp_plan),
+         lambda loss: math.isclose(loss, train_step(
+             cp_cfg, None, dataclasses.replace(cp_plan, cp=None)),
+             rel_tol=1e-5)),
         ("moe_reduce_rs over two axes", lambda: tmoe.moe_reduce_rs(
             ctx2d, a, ids, tw, we, axis=("a", "b")),
          close(tmoe.moe_reduce_rs(flat[4], a, ids, tw, we))),
@@ -250,15 +263,10 @@ def test_ops_outside_the_slice_refuse_more_ranks(case):
     mesh now run and agree with their plain compositions (bitwise where
     the 2-tier or group form keeps the 1-tier sums, within f32 rounding
     where GEMM-RS and B20 sum the inner tier first); the CP train plan
-    across ranks still raises, naming the ROADMAP item it waits for."""
+    across ranks runs and one step equals the no-cp step."""
     calls = _raising_calls()
     assert len(calls) == 10
     name, call, check = calls[case]
-    if check is None:
-        with pytest.raises(NotImplementedError,
-                           match='item 9 .training and CP across ranks.'):
-            call()
-        return
     assert check(call()), name
 
 

@@ -16,6 +16,9 @@ PORT = ROOT / "triton_dist_tpu_torch"
 MODULES = ["triton_dist_tpu_torch", "triton_dist_tpu_torch.csrc",
            "triton_dist_tpu_torch.utils", "triton_dist_tpu_torch.ops",
            "triton_dist_tpu_torch.models", "triton_dist_tpu_torch.parallel",
+           "triton_dist_tpu_torch.parallel.mesh",
+           "triton_dist_tpu_torch.parallel.pipeline",
+           "triton_dist_tpu_torch.ops.ring_attention",
            "triton_dist_tpu_torch.serving", "triton_dist_tpu_torch.shmem",
            "triton_dist_tpu_torch.layers"]
 

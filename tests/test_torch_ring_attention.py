@@ -65,9 +65,10 @@ def _jax(ctx, arrays, causal, dtype):
 def _port(arrays, causal, dtype, layout="contiguous"):
     q, k, v, do = (torch.from_numpy(a).to(dtype) for a in arrays)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    out = tra.ring_attention(*leaves, causal=causal, layout=layout)
+    out = tra.ring_attention(None, *leaves, causal=causal, layout=layout)
     out.backward(do)
-    _, lse = tra.ring_attention_fwd(q, k, v, causal=causal, layout=layout)
+    _, lse = tra.ring_attention_fwd(None, q, k, v, causal=causal,
+                                    layout=layout)
     return [t.detach().float().numpy()
             for t in (out, lse, *(x.grad for x in leaves))]
 
@@ -106,10 +107,10 @@ def test_cpu_tensors_run_the_plain_versions():
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(2))
     before = (tra.ring_attention_fwd.launches,
               tra.ring_attention_bwd.launches)
-    out, lse = tra.ring_attention_fwd(q, k, v)
+    out, lse = tra.ring_attention_fwd(None, q, k, v)
     ref_out, ref_lse = tra.ring_attention_fwd_plain(q, k, v)
     assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
-    grads = tra.ring_attention_bwd(q, k, v, out, lse, do)
+    grads = tra.ring_attention_bwd(None, q, k, v, out, lse, do)
     ref = tra.ring_attention_bwd_plain(q, k, v, out, lse, do)
     assert all(torch.equal(g, r) for g, r in zip(grads, ref))
     assert (tra.ring_attention_fwd.launches,
@@ -117,16 +118,20 @@ def test_cpu_tensors_run_the_plain_versions():
 
 
 def test_more_than_one_rank_raises():
-    class Ring:
-        def size(self):
-            return 2
+    """A ring of 2 ranks runs (since the ring transport was ported) and
+    gives the one-rank function of the whole sequence; a bad layout and S
+    not divisible by the ranks still raise."""
+    from triton_dist_tpu_torch.shmem import initialize_distributed
 
+    ring = initialize_distributed(("cp",), (2,), device="cpu")
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(3))
-    with pytest.raises(NotImplementedError,
-                       match='9 "training and CP across ranks"'):
-        tra.ring_attention_fwd(q, k, v, group=Ring())
-    with pytest.raises(NotImplementedError,
-                       match='9 "training and CP across ranks"'):
-        tra.ring_attention(q, k, v, group=Ring())
+    out, lse = tra.ring_attention_fwd(ring, q, k, v, axis="cp")
+    want = tra.ring_attention_fwd(None, q, k, v)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    assert torch.equal(tra.ring_attention(ring, q, k, v, axis="cp"),
+                       want[0])
     with pytest.raises(ValueError, match="layout"):
-        tra.ring_attention_fwd(q, k, v, layout="striped")
+        tra.ring_attention_fwd(ring, q, k, v, axis="cp", layout="striped")
+    with pytest.raises(ValueError, match="divisible by ranks"):
+        tra.ring_attention_fwd(ring, q[:, :, :S - 1], k[:, :, :S - 1],
+                               v[:, :, :S - 1], axis="cp")

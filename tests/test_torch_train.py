@@ -98,7 +98,7 @@ def test_forward_matches_jax(jax_run):
 def test_train_steps_match_jax(jax_run):
     init, tokens, want_losses, want_params = jax_run
     _, tcfg = _cfgs()
-    init_fn, step_fn = make_train_step(tcfg, NO_CP, device="cpu")
+    init_fn, step_fn = make_train_step(tcfg, plan=NO_CP, device="cpu")
     state = init_fn(params_from_jax(init, device="cpu"))
     losses = []
     for _ in range(STEPS):
@@ -141,7 +141,7 @@ def test_remat_gives_the_same_gradients(jax_run):
 
 def test_cp_loss_falls_on_a_repeated_batch():
     _, tcfg = _cfgs()
-    init_fn, step_fn = make_train_step(tcfg, CP, device="cpu")
+    init_fn, step_fn = make_train_step(tcfg, plan=CP, device="cpu")
     state = init_fn(0)
     tokens = torch.from_numpy(_tokens(tcfg.vocab_size, seed=3))
     losses = []
@@ -153,22 +153,30 @@ def test_cp_loss_falls_on_a_repeated_batch():
 
 
 def test_plans_needing_more_than_one_rank_raise():
+    """The plans across ranks build since the CP slice (cp, dp x cp, dense
+    pp; the mesh in the reference's place or by keyword);
+    MoE training and the reference's guards still raise."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        make_train_step(tcfg, dataclasses.replace(NO_CP, pp="pp"),
-                        device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match='9 "training and CP across ranks"'):
-        make_train_step(tcfg, CP, device="cpu", mesh={"cp": 2, "dp": 1})
+    make_train_step(tcfg, {"cp": 2, "dp": 1}, CP, device="cpu")
+    make_train_step(tcfg, {"dp": 2, "cp": 2}, dataclasses.replace(CP, dp="dp"),
+                    device="cpu")
+    make_train_step(tcfg, plan=dataclasses.replace(NO_CP, pp="pp"),
+                    device="cpu", mesh={"pp": 2})
+    with pytest.raises(ValueError, match="pp"):
+        make_train_step(tcfg, {"cp": 2, "pp": 2},
+                        dataclasses.replace(CP, pp="pp"), device="cpu")
     with pytest.raises(NotImplementedError,
                        match='item 7 "MoE / EP across ranks"'):
-        make_train_step(MoEConfig.tiny(n_layers=2, num_experts=4), NO_CP,
-                        device="cpu")
+        make_train_step(MoEConfig.tiny(n_layers=2, num_experts=4),
+                        plan=NO_CP, device="cpu")
     with pytest.raises(ValueError, match="sp"):
-        make_train_step(tcfg, dataclasses.replace(CP, sp=True),
+        make_train_step(tcfg, plan=dataclasses.replace(CP, sp=True),
                         device="cpu")
-    # the single-device mesh is what the port runs
-    make_train_step(tcfg, CP, device="cpu", mesh={"cp": 1, "dp": 1})
+    with pytest.raises(ValueError, match="pipeline stages"):
+        make_train_step(tcfg, {"pp": 4}, dataclasses.replace(NO_CP, pp="pp"),
+                        device="cpu")
+    # the single-device mesh is what the one-rank trainer runs
+    make_train_step(tcfg, {"cp": 1, "dp": 1}, CP, device="cpu")
 
 
 def test_default_device_is_the_card():
@@ -176,4 +184,4 @@ def test_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        make_train_step(tcfg, CP)
+        make_train_step(tcfg, plan=CP)

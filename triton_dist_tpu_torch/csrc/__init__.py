@@ -6,7 +6,7 @@ Each ``<name>.cu`` beside this file is compiled by ``nvcc`` for Hopper
 launch of a kernel builds its library, under ``_build/`` (ignored by git),
 named by the hash of its source and of every header it includes from this
 directory (``shmem.cuh``, ``ag_relay_2d.cuh``, ``gemm_tile.cuh``,
-``group_gemm_tile.cuh``), so an edited source or header is rebuilt and a
+``group_gemm_tile.cuh``, ``ring_attention_tile.cuh``), so an edited source or header is rebuilt and a
 finished build is reused. ``build()`` compiles several sources in
 parallel, one ``nvcc`` process each.
 """

@@ -75,6 +75,8 @@ enum Kernel : int {
   kBcast = 18,
   kAgGemm2d = 19,
   kAgMoe2d = 20,
+  kRingAttnFwd = 21,
+  kRingAttnBwd = 22,
 };
 
 // The n base pointers of one symmetric buffer, rank r's at ptr[r].

@@ -52,7 +52,8 @@ KERNELS = {1: "barrier_all_op", 2: "ring_ping", 3: "all_gather push",
            12: "pool_ag_start_local", 13: "paged_transport",
            14: "ag_moe_group_gemm", 15: "moe_reduce_rs",
            16: "all_gather_ll", 17: "all_gather push_2d", 18: "broadcast",
-           19: "ag_gemm 2-tier", 20: "ag_moe_group_gemm 2-tier"}
+           19: "ag_gemm 2-tier", 20: "ag_moe_group_gemm 2-tier",
+           21: "ring_attention_fwd", 22: "ring_attention_bwd"}
 _REPORT_WORDS = 4
 
 _P = ctypes.c_void_p
