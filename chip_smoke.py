@@ -297,6 +297,24 @@ Phases, each printing its lines:
    and of 4 ranks: losses finite and falling, each ring kernel launched
    layers x steps times, step time, tokens/s, peak memory and one step
    under the profiler. Every time at n > 1 is every rank on the one card.
+23. sigcheck on the card (after phase 22): (a) phase 2 builds the traced
+   libraries (``-DTDT_SHMEM_TRACE``) beside the untraced ones, in one
+   ``build()``, and logs the seconds of each; (b) the broken-protocol
+   gallery (B26, ``csrc/sigcheck_gallery.cu``) traced at 2 ranks (and 3
+   for ``wait_cycle``): each specimen flagged with its expected kind, and
+   each rank's decoded protocol equal to the plain version's; (c) the
+   gallery untraced at 2 ranks: each starved specimen raising
+   ``ShmemError`` within 2 s naming the gallery kernel, a rank and the
+   starved word, ``over_signal`` leaving n - 1 on its word, every pad
+   zeroed after each and a B14 barrier clean; (d) ``check_registry()`` at
+   every entry's meshes: zero findings on every checked op, events logged
+   at every n; (e) B24 and B25 at head dim 256, Gemma-7B's attention widths
+   (Hq = Hkv = 16, D = 256, S = 4096, causal) in bf16 and f32, at one rank
+   and across 2 and 4 ranks, contiguous and zigzag, against their plain
+   versions, bitwise on a rerun, pads zero, timed (bf16) beside the bound
+   and ``scaled_dot_product_attention``; then the cp step in f32 at that
+   head dim (Llama-3-8B's width with 16 heads of 256, depth 2, 1024
+   tokens) at 2 ranks against one rank.
 
 It then prints one JSON line of kernel results and, last, the JSON result
 line. Without CUDA, or away from the rest of the repository, it exits
@@ -9474,6 +9492,257 @@ def cp_ranks_kernels(cp: dict) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: sigcheck on the card (B26's gallery, the traced build, the
+# registry) and ring attention at head dim 256
+# ---------------------------------------------------------------------------
+
+# Gemma-7B's attention: 16 query and 16 kv heads of 256
+RING_D256 = dict(B=1, Hq=16, Hkv=16, D=256)
+RING_D256_CASES = [("bfloat16", 4096, True), ("float32", 4096, True)]
+RING_D256_RANK_CASES = tuple(
+    (n, "cp", 1, dtype, layout, True) for dtype in ("bfloat16", "float32")
+    for n in RING_RANKS for layout in ("contiguous", "zigzag"))
+GALLERY_N = 2
+# the pallas_call each reference specimen runs under
+GALLERY_CALL = {"missing_wait": 222, "swapped_sem": 222}
+
+
+def gallery_bytes(name: str, n: int) -> int:
+    """The bytes specimen ``name`` must move at n ranks: every put read and
+    written once, every marked read and write, 4 bytes a signal or wait,
+    and the flag specimens' copy of each rank's shard."""
+    from triton_dist_tpu_torch.analysis import gallery
+
+    total = 0
+    for events in gallery.plain_streams(name, n).values():
+        for e in events:
+            if e.kind == "put":
+                total += 2 * e.value
+            elif e.kind in ("read", "write"):
+                region = e.src if e.kind == "read" else e.dst
+                total += region.intervals[0][1] - region.intervals[0][0]
+            else:
+                total += 4
+    if name not in GALLERY_CALL:
+        total += 2 * n * gallery.SHARD_BYTES
+    return total
+
+
+def check_gallery_traced(device) -> dict:
+    """23b: each specimen traced (``capture_op``) at its meshes, flagged
+    with its expected kind by the checker, and each rank's decoded protocol
+    equal to the plain version's; the host time of one traced call and of
+    the plain version. Raises on any miss."""
+    from triton_dist_tpu_torch.analysis import api, capture, gallery
+
+    out = {}
+    for name, (expected, rep) in api.check_gallery(device).items():
+        entry = gallery.GALLERY[name]
+        rec = {"expected": expected, "kinds": rep.finding_kinds,
+               "ns": rep.ns, "findings": [str(f) for f in rep.findings],
+               "protocol_equal": {}}
+        for mesh in entry.meshes:
+            n = mesh["x"]
+            t0 = time.perf_counter()
+            launches = capture.capture_op(
+                lambda ctx: gallery.run_specimen(ctx, name), mesh, device)
+            rec.setdefault("traced_call_ms", (time.perf_counter() - t0) * 1e3)
+            got = gallery.protocol_of(capture.merge_launches(launches))
+            t0 = time.perf_counter()
+            plain = gallery.plain_streams(name, n)
+            rec.setdefault("plain_ms", (time.perf_counter() - t0) * 1e3)
+            rec["protocol_equal"][str(n)] = got == gallery.protocol_of(plain)
+        # every event's (kind, word, peer, value) equal: nothing differs
+        rec["max_abs_err"] = 0.0 if all(rec["protocol_equal"].values()) \
+            else None
+        log(f"gallery traced {name}", json.dumps(rec))
+        out[name] = rec
+        if expected not in rep.finding_kinds or \
+                not all(rec["protocol_equal"].values()):
+            raise AssertionError(f"gallery specimen {name} traced: {rec}")
+    return out
+
+
+def check_gallery_untraced(device) -> dict:
+    """23c: each specimen run untraced at ``GALLERY_N`` ranks, the launch
+    counts from 0: a starved one raises ``ShmemError`` within
+    ``HANG_LIMIT_S`` naming the gallery kernel, a rank and its word;
+    ``over_signal`` leaves n - 1 on word 0 of every rank; after each, every
+    pad zeroed and a B14 barrier clean. Times each call that finishes
+    between CUDA events (a starved call: its wall time to the raise).
+    Raises on any failure."""
+    import torch
+
+    from triton_dist_tpu_torch.analysis import gallery
+    from triton_dist_tpu_torch.ops import barrier_all_op
+    from triton_dist_tpu_torch.shmem import (ShmemError, check_errors,
+                                             initialize_distributed)
+    from triton_dist_tpu_torch.utils.perf import perf_func
+
+    n = GALLERY_N
+    ctx = initialize_distributed(("x",), (n,), device)
+    barrier = barrier_all_op(ctx)
+    for name in gallery.SPECIMENS:
+        gallery.run_specimen.launches[name] = 0
+    out = {}
+    for name in gallery.SPECIMENS:
+        rec = {"n": n}
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            gallery.run_specimen(ctx, name)
+            torch.cuda.synchronize(device)
+            if name == "over_signal":
+                rec["residue"] = ctx._pads[gallery.family(name)][:, 0] \
+                    .tolist()
+            check_errors(ctx)
+        except ShmemError as e:
+            raised = str(e)
+        rec["untraced_call_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["raised"] = raised
+        rec["launches"] = gallery.run_specimen.launches[name]
+        ctx.clear_signal_pads()
+        rec["barrier_after"] = barrier().tolist() == [1] * n
+        check_errors(ctx)
+        rec["pads_zero_after"] = _pads_zero(ctx)
+        starved = name in gallery.STARVED
+        ok = rec["barrier_after"] and rec["pads_zero_after"]
+        if starved:
+            ok = ok and raised is not None \
+                and rec["untraced_call_ms"] < HANG_LIMIT_S * 1e3 \
+                and raised.startswith("sigcheck gallery: rank ") \
+                and "signal word" in raised
+        else:
+            ok = ok and raised is None
+            rec["ms"] = perf_func(lambda: gallery.run_specimen(ctx, name),
+                                  iters=10)[1]
+            ctx.clear_signal_pads()
+        if name == "over_signal":
+            ok = ok and rec["residue"] == [n - 1] * n
+        log(f"gallery untraced {name}", json.dumps(rec))
+        out[name] = rec
+        if not ok or rec["launches"] != 1:
+            raise AssertionError(f"gallery specimen {name} untraced: {rec}")
+    return out
+
+
+def check_registry_clean(device) -> dict:
+    """23d: ``check_registry()`` at every entry's meshes: zero findings on
+    every checked op and events logged at every n. Raises otherwise."""
+    from triton_dist_tpu_torch.analysis import api
+
+    t0 = time.perf_counter()
+    reports = api.check_registry()
+    checked = {k: r for k, r in reports.items() if r.skipped is None}
+    rec = {"ops": len(reports), "checked": len(checked),
+           "skipped": len(reports) - len(checked),
+           "n_findings": sum(len(r.findings) for r in checked.values()),
+           "events": {k: r.event_counts for k, r in checked.items()},
+           "findings": [str(f) for r in checked.values()
+                        for f in r.findings][:20],
+           "seconds": time.perf_counter() - t0}
+    log("sigcheck registry", json.dumps(rec))
+    silent = [k for k, r in checked.items()
+              if not r.event_counts or not all(r.event_counts.values())]
+    if rec["n_findings"] or silent:
+        raise AssertionError(f"sigcheck registry: {rec['n_findings']} "
+                             f"findings, no events for {silent}: {rec}")
+    return rec
+
+
+def check_ring_d256(device) -> dict:
+    """23e: B24 and B25 at head dim 256 (``RING_D256``) at one rank and
+    across ranks, then the f32 cp step at that head dim at 2 ranks."""
+    import torch
+
+    from triton_dist_tpu_torch.models.llama import LlamaConfig
+
+    one = check_ring_attention(device, cases=RING_D256_CASES, dims=RING_D256)
+    torch.cuda.empty_cache()
+    ranks = []
+    for dtype in ("bfloat16", "float32"):
+        ranks += check_ring_ranks(
+            device, timed=dtype == "bfloat16",
+            cases=[c for c in RING_D256_RANK_CASES if c[3] == dtype],
+            dims=RING_D256, fresh=1, hang=False)
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_heads=16,
+                              n_kv_heads=16, n_layers=TRAIN_F32["layers"],
+                              dtype=torch.float32)
+    f32 = check_train_ranks_f32(device, cfg, ranks=(2,))
+    torch.cuda.empty_cache()
+    return {"one_rank": one, "ranks": ranks, "f32": f32}
+
+
+def check_sigcheck(device) -> dict:
+    """Phase 23 (b-e), its cost logged."""
+    t0 = time.perf_counter()
+    traced = check_gallery_traced(device)
+    untraced = check_gallery_untraced(device)
+    registry = check_registry_clean(device)
+    t_sig = time.perf_counter() - t0
+    ring = check_ring_d256(device)
+    seconds = time.perf_counter() - t0
+    log(f"phase 23 took {seconds:.1f} s (23b-d {t_sig:.1f} s)")
+    return {"traced": traced, "untraced": untraced, "registry": registry,
+            "ring": ring, "seconds": seconds}
+
+
+def sigcheck_kernels(sig: dict) -> list[dict]:
+    """The kernels-line entries of phase 23: B26's eight specimens
+    (launches: 23c's untraced run, one each; ms: that call, a starved one's
+    to its raise; plain_ms: the plain streams on the host) and B24/B25 at
+    head dim 256 (the bf16 4-rank contiguous case; launches: 23e's f32 cp
+    step at 2 ranks)."""
+    from triton_dist_tpu_torch.analysis import gallery
+
+    out = []
+    for name in gallery.SPECIMENS:
+        tr, un = sig["traced"][name], sig["untraced"][name]
+        bound = gallery_bytes(name, GALLERY_N) / HBM_BYTES_PER_S * 1e3
+        out.append({
+            "name": f"sigcheck_gallery.{name}", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/sigcheck_gallery.cu",
+            "replaces": "triton_dist_tpu/analysis/gallery.py:"
+                        f"{GALLERY_CALL.get(name, 248)}",
+            "launches": un["launches"], "max_abs_err": tr["max_abs_err"],
+            "ms": un.get("ms", un["untraced_call_ms"]),
+            "plain_ms": tr["plain_ms"], "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None,
+            "traced_call_ms": tr["traced_call_ms"],
+            "untraced_call_ms": un["untraced_call_ms"],
+            "kinds": tr["kinds"], "raised": un["raised"],
+            "note": "max_abs_err: the traced protocol against the plain "
+                    "streams, (kind, word, peer, value) for each event"})
+    ring = sig["ring"]
+    main = next(r for r in ring["ranks"] if r["n"] == RING_RANKS[-1]
+                and r["dtype"] == "bfloat16" and r["layout"] == "contiguous")
+    launches = ring["f32"]["ranks"]["2"]["ring_launches"]
+    for i, (half, errs) in enumerate((("fwd", ("out",)),
+                                      ("bwd", ("dq", "dk", "dv")))):
+        out.append({
+            "name": f"ring_attention_{half}_ranks_d256", "route": "cuda",
+            "source": "triton_dist_tpu_torch/csrc/ring_attention.cu",
+            "replaces": "triton_dist_tpu/ops/ring_attention.py:"
+                        + ("407" if half == "fwd" else "900"),
+            "launches": launches[i],
+            "max_abs_err": max(r[f"{e}_max_abs_err"] for r in
+                               ring["ranks"] + ring["one_rank"]
+                               for e in errs),
+            "ms": main[f"{half}_ms"], "plain_ms": main[f"{half}_plain_ms"],
+            "bound_ms": main[f"{half}_bound_ms"],
+            "bound_by": main[f"{half}_bound_by"],
+            "library_ms": main[f"{half}_sdpa_ms"],
+            "one_rank_ms": main[f"one_rank_{half}_ms"],
+            "case": main["case"], "dims": RING_D256,
+            "cases": [{k: r[k] for k in (
+                "case", f"{half}_ms", f"one_rank_{half}_ms",
+                f"{half}_plain_ms", f"{half}_sdpa_ms", f"{half}_bound_ms")
+                if k in r} for r in ring["ranks"] + ring["one_rank"]]})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -9502,7 +9771,8 @@ def main() -> int:
     log(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
         f"cuda {torch.version.cuda}; tf32 {set_tf32(False)}")
 
-    report = csrc.build()
+    # phase 23a: the traced libraries are built beside the untraced ones
+    report = csrc.build(traced=True)
     for name, r in report.items():
         log(f"build {name}.cu: {r['seconds']:.2f} s")
         for line in r["log"].splitlines():
@@ -9564,6 +9834,8 @@ def main() -> int:
         LlamaConfig.llama3_8b(), n_layers=TRAIN["layers"]), card)
     torch.cuda.empty_cache()
     cp = check_cp_ranks(device, card)
+    torch.cuda.empty_cache()
+    sig = check_sigcheck(device)
     torch.cuda.empty_cache()           # the MoE model needs 47 GB of it
     moe = check_moe(device, card)
     sp17 = check_sp_kernels(device, card)
@@ -9696,7 +9968,8 @@ def main() -> int:
         + slice6 + slice7 + collectives_2d_kernels(coll2d)
         + tp_ranks_kernels(tp_ranks) + tp_2d_kernels(tp2d, moe)
         + ep_kernels(moe["ep"]) + sp_modes_kernels(sp17, moe, disagg)
-        + deployed_kernels(deployed) + cp_ranks_kernels(cp)}))
+        + deployed_kernels(deployed) + cp_ranks_kernels(cp)
+        + sigcheck_kernels(sig)}))
     log(f"{card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

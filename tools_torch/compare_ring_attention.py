@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Hold the one-rank ring attention kernels (B24, B25) built from this
-checkout against the same C entry points built from another
-``ring_attention.cu``, bit for bit: forward and backward at the training
+"""Hold the ring attention kernels (B24, B25) built from this checkout
+against the same C entry points built from another ``ring_attention.cu``,
+bit for bit: the one-rank kernels forward and backward at the training
 shape (B=1, Hq=32, Hkv=8, D=128, S=4096, causal) in bf16 and f32, at a
-ragged S=1000 and not causal. Each case also times both builds between
-CUDA events, in turns (other, this, this, other; the median of 10 calls
-each time).
+ragged S=1000 and not causal; then the kernels across ranks (one
+cooperative launch a call, every rank on the card) at 2 and 4 ranks on the
+same global shape, contiguous and causal, in bf16 and f32. Each case also
+times both builds between CUDA events, in turns (other, this, this, other;
+the median of 10 calls each time). An other build whose entries across
+ranks take no head dim (before head dim 256) is called without it.
 
     python3 tools_torch/compare_ring_attention.py OTHER_CSRC_DIR
 
@@ -33,6 +36,80 @@ REPO = Path(__file__).resolve().parent.parent
 CASES = (("bfloat16", 4096, True), ("float32", 4096, True),
          ("bfloat16", 1000, True), ("float32", 2048, False))
 DIMS = dict(B=1, Hq=32, Hkv=8, D=128)
+# (dtype, ranks), global S = 4096, contiguous, causal
+RANK_CASES = (("bfloat16", 2), ("float32", 2), ("bfloat16", 4),
+              ("float32", 4))
+
+
+class _WithoutHeadDim:
+    """Another build's library whose entries across ranks take no head
+    dim: the head dim the wrapper passes is dropped."""
+
+    def __init__(self, lib, names):
+        self._lib, self._names = lib, set(names)
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self._names:
+            return fn
+        return lambda tables, n, shape, strides, _d, *rest: fn(
+            tables, n, shape, strides, *rest)
+
+
+def compare_ranks(tra, mine, other, perf_func) -> bool:
+    """RANK_CASES through the wrappers, once with each build's library."""
+    import torch
+
+    from triton_dist_tpu_torch.shmem import (check_errors,
+                                             initialize_distributed)
+
+    B, Hq, Hkv, D, S = DIMS["B"], DIMS["Hq"], DIMS["Hkv"], DIMS["D"], 4096
+    loader = tra._lib
+    same = True
+    for name, n in RANK_CASES:
+        dtype = getattr(torch, name)
+        gen = torch.Generator(device="cuda").manual_seed(S + n)
+
+        def randn(*shape):
+            return (torch.randn(shape, generator=gen, device="cuda") * 0.5) \
+                .to(dtype)
+
+        q, do = randn(B, Hq, S, D), randn(B, Hq, S, D)
+        k, v = randn(B, Hkv, S, D), randn(B, Hkv, S, D)
+        ctx = initialize_distributed(("cp",), (n,), "cuda")
+        outs, calls = {}, {}
+        try:
+            for key, lib in (("this", mine), ("other", other)):
+                tra._lib = lambda lib=lib: lib
+                out, lse = tra.ring_attention_fwd(ctx, q, k, v, axis="cp")
+                grads = tra.ring_attention_bwd(ctx, q, k, v, out, lse, do,
+                                               axis="cp")
+                check_errors(ctx)
+                outs[key] = (out, lse, *grads)
+                calls[key] = (
+                    lambda: tra.ring_attention_fwd(ctx, q, k, v, axis="cp"),
+                    lambda: tra.ring_attention_bwd(ctx, q, k, v, out, lse, do,
+                                                   axis="cp"))
+            equal = all(torch.equal(a, b) for a, b in zip(outs["this"],
+                                                         outs["other"]))
+            same &= equal
+            times = {(key, h): [] for key in outs for h in (0, 1)}
+            for key in ("other", "this", "this", "other"):
+                lib = mine if key == "this" else other
+                tra._lib = lambda lib=lib: lib
+                for h in (0, 1):
+                    times[key, h].append(perf_func(calls[key][h],
+                                                   iters=10)[1])
+            check_errors(ctx)
+        finally:
+            tra._lib = loader
+        print(json.dumps({
+            "case": f"{name} n={n} S={S} contiguous causal",
+            "bitwise_equal": equal,
+            "fwd_ms_this": times["this", 0], "fwd_ms_other": times["other", 0],
+            "bwd_ms_this": times["this", 1],
+            "bwd_ms_other": times["other", 1]}), flush=True)
+    return same
 
 
 def main() -> int:
@@ -53,10 +130,20 @@ def main() -> int:
               file=sys.stderr)
         return 2
     mine = csrc.load("ring_attention", tra._SIGNATURES)
-    other = other_library(Path(sys.argv[1]).resolve(), "ring_attention")
-    for fn in (*tra._FWD.values(), *tra._BWD.values()):
-        getattr(other, fn).argtypes = tra._SIGNATURES[fn]
+    other_dir = Path(sys.argv[1]).resolve()
+    other = other_library(other_dir, "ring_attention")
+    ranks = (*tra._FWD_RANKS.values(), *tra._BWD_RANKS.values())
+    with_d = b"const long long* strides, int D" in \
+        (other_dir / "ring_attention.cu").read_bytes()
+    for fn in (*tra._FWD.values(), *tra._BWD.values(), *ranks):
+        sig = list(tra._SIGNATURES[fn])
+        if fn in ranks and not with_d:
+            del sig[4]                    # the head dim after the strides
+        getattr(other, fn).argtypes = sig
         getattr(other, fn).restype = ctypes.c_int
+    other.tdt_cuda_error_string.argtypes = [ctypes.c_int]
+    other.tdt_cuda_error_string.restype = ctypes.c_char_p
+    other_ranks = other if with_d else _WithoutHeadDim(other, ranks)
     stream = torch.cuda.current_stream().cuda_stream
     B, Hq, Hkv, D = DIMS["B"], DIMS["Hq"], DIMS["Hkv"], DIMS["D"]
     same = True
@@ -112,6 +199,7 @@ def main() -> int:
             "fwd_ms_this": times[mine, 0], "fwd_ms_other": times[other, 0],
             "bwd_ms_this": times[mine, 1], "bwd_ms_other": times[other, 1]}),
             flush=True)
+    same &= compare_ranks(tra, mine, other_ranks, perf_func)
     return 0 if same else 1
 
 

@@ -100,6 +100,9 @@ __global__ void __launch_bounds__(kThreads)
   lane_range(nbytes, per, &b0, &b1);
   const unsigned char* src = symm_at<const unsigned char>(in, my_pe());
   const size_t slot = (size_t)me * nbytes;
+  const long long len = b1 > b0 ? b1 - b0 : 0;
+  for (int p = 0; p < n; ++p)
+    TDT_TRACE_PUT(symm_at<unsigned char>(out, group_pe(G, p)) + slot + b0, src + b0, len);
   if (nbytes % 16 == 0) {
     // one 16-byte load, n stores: my slot of every replica
     for (long long i = b0 / 16 + threadIdx.x; i < b1 / 16; i += kThreads) {
@@ -125,6 +128,9 @@ __global__ void __launch_bounds__(kThreads)
                                flag_word(s, lane));
   }
   if (!__syncthreads_and(ok)) return;
+  // the replica goes to the caller: this lane's chunk of every slot
+  for (int s = 0; s < n; ++s)
+    TDT_TRACE_READ(symm_at<unsigned char>(out, my_pe()) + (size_t)s * nbytes + b0, len);
   quiet();
 }
 
@@ -160,6 +166,8 @@ __global__ void __launch_bounds__(kThreads)
                     flag_word(prev, lane)))
       return;
   }
+  // the replica goes to the caller: this lane's chunk of every slot
+  for (int s = 0; s < n; ++s) TDT_TRACE_READ(mine + (size_t)s * nbytes + b0, len);
   quiet();
 }
 

@@ -108,6 +108,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint4* slot_mine = symm_at<const uint4>(comm, pe);
   uint4* slot_right = symm_at<uint4>(comm, right);
   int* pad_me = symm_at<int>(pads, pe);
+  const long long bytes = v1 > v0 ? (v1 - v0) * 16 : 0;
 
   for (int s = 0; s < n - 1; ++s) {
     const int slot = s % 2;
@@ -117,11 +118,14 @@ __global__ void __launch_bounds__(kThreads)
     if (s == 0) {
       // my contribution to segment me - 1 starts its ring
       const uint4* loc = x + (size_t)wrap(me - 1) * seg_vecs;
+      TDT_TRACE_PUT(dst + v0, loc + v0, bytes);
       for (long long i = v0 + threadIdx.x; i < v1; i += kThreads) dst[i] = __ldcg(loc + i);
     } else {
       // what arrived last hop plus my contribution to its segment
       const uint4* got = slot_mine + (size_t)((s - 1) % 2) * seg_vecs;
       const uint4* loc = x + (size_t)wrap(me - s - 1) * seg_vecs;
+      TDT_TRACE_READ(got + v0, bytes);
+      TDT_TRACE_PUT(dst + v0, loc + v0, bytes);
       for (long long i = v0 + threadIdx.x; i < v1; i += kThreads)
         dst[i] = add_vec(__ldcg(got + i), __ldcg(loc + i), T());
     }
@@ -136,6 +140,7 @@ __global__ void __launch_bounds__(kThreads)
   // the last arrival plus my contribution to my own segment
   const uint4* got = slot_mine + (size_t)((n - 2) % 2) * seg_vecs;
   const uint4* loc = x + (size_t)me * seg_vecs;
+  TDT_TRACE_READ(got + v0, bytes);
   for (long long i = v0 + threadIdx.x; i < v1; i += kThreads)
     y[i] = add_vec(__ldcg(got + i), __ldcg(loc + i), T());
   signal_op_block(symm_at<int>(pads, left) + w.ack(), 1);

@@ -4,6 +4,13 @@
 // tile products, the online-softmax update of the forward, the recomputed
 // p and dS of the backward, and the causal keep() mask.
 //
+// Head dims: a head of D = kC * kD columns is walked in kC chunks of kD =
+// 128. Shared memory holds one chunk of a tile at a time (a 64-row f32 tile
+// of D = 256 would not fit beside the others in the 227 KB of an SM): the
+// score products sum the chunks' partial products in order, and each output
+// chunk has its own register tile. At kC = 1 the kernels do what they did
+// before, operation for operation.
+//
 // keep() takes a q offset and a kv offset: a tile's rows are local indices
 // into a rank's block, and the mask compares global positions, local index
 // plus the tile's offset (the reference's _tile_off). The shared functions
@@ -24,7 +31,7 @@
 
 namespace tdt_ring {
 
-constexpr int kD = 128;         // head dim
+constexpr int kD = 128;         // head dim of one chunk
 constexpr int kT = 64;          // rows of a query tile and of a key tile
 constexpr int kThreads = 256;   // a 16 x 16 grid of threads
 constexpr int kLdD = kD + 4;    // row stride of a [rows][D] tile in shared memory
@@ -76,9 +83,10 @@ __device__ __forceinline__ void load_vec(float* out, const __nv_bfloat16* p) {
   }
 }
 
-// Rows [r0, r0 + kT) of a [S, kD] matrix as f32, row-major into dst[kT][kLdD];
-// rows at or past S read as zeros.
-template <bool kCg = false, typename T>
+// Rows [r0, r0 + kT) of a [S, kD] matrix (rows kLd elements apart: a chunk
+// of a wider head) as f32, row-major into dst[kT][kLdD]; rows at or past S
+// read as zeros.
+template <bool kCg = false, int kLd = kD, typename T>
 __device__ void load_rows(float* dst, const T* src, int r0, int S) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kVecs = kD / V;
@@ -87,7 +95,7 @@ __device__ void load_rows(float* dst, const T* src, int r0, int S) {
     const int c = (idx % kVecs) * V;
     float vals[V];
     if (r0 + r < S) {
-      load_vec<kCg>(vals, src + (size_t)(r0 + r) * kD + c);
+      load_vec<kCg>(vals, src + (size_t)(r0 + r) * kLd + c);
     } else {
 #pragma unroll
       for (int e = 0; e < V; ++e) vals[e] = 0.f;
@@ -99,7 +107,7 @@ __device__ void load_rows(float* dst, const T* src, int r0, int S) {
 
 // The same rows transposed, into dst[kD][kLdT]: dst[c][r] = src[r0 + r][c].
 // Neighbouring threads take neighbouring rows, so the stores hit distinct banks.
-template <bool kCg = false, typename T>
+template <bool kCg = false, int kLd = kD, typename T>
 __device__ void load_cols(float* dst, const T* src, int r0, int S) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kVecs = kD / V;
@@ -108,7 +116,7 @@ __device__ void load_cols(float* dst, const T* src, int r0, int S) {
     const int c = (idx / kT) * V;
     float vals[V];
     if (r0 + r < S) {
-      load_vec<kCg>(vals, src + (size_t)(r0 + r) * kD + c);
+      load_vec<kCg>(vals, src + (size_t)(r0 + r) * kLd + c);
     } else {
 #pragma unroll
       for (int e = 0; e < V; ++e) vals[e] = 0.f;
@@ -185,11 +193,11 @@ __device__ __forceinline__ int kv_head(int bh, int Hq, int Hkv) {
 
 // The online-softmax update of one score tile s (query rows q0 + 4ty + i,
 // keys k0 + 4tx + j): masked scores to -inf, the running max m and sum l
-// rescaled, p = exp2(s - m) rounded to T into p_s[row][key], acc rescaled.
-// The caller then adds p_s . v to acc.
-template <typename T, bool kGlobal = false>
+// rescaled, p = exp2(s - m) rounded to T into p_s[row][key], every chunk of
+// acc rescaled. The caller then adds p_s . v to acc.
+template <typename T, bool kGlobal = false, int kC>
 __device__ __forceinline__ void softmax_update(float (&s)[4][4], float (&m)[4], float (&l)[4],
-                                               float (&acc)[4][8], float* p_s, int q0, int k0,
+                                               float (&acc)[kC][4][8], float* p_s, int q0, int k0,
                                                int S, int causal, int ty, int tx,
                                                int q_off = 0, int kv_off = 0) {
 #pragma unroll
@@ -216,7 +224,9 @@ __device__ __forceinline__ void softmax_update(float (&s)[4][4], float (&m)[4], 
     l[i] = l[i] * alpha + row_sum(sum);
     m[i] = m_new;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[c][i][j] *= alpha;
   }
 }
 

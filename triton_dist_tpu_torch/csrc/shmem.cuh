@@ -37,6 +37,20 @@
 // claims the launch's error report, writes which kernel, rank and signal
 // starved, and makes its block return; the host raises when it reads the
 // report. A protocol bug fails its call instead of hanging the card.
+//
+// The traced build (compiled with -DTDT_SHMEM_TRACE; analysis/capture.py
+// loads it) logs the protocol instead of running it: every signal (the
+// raw red_release_add included, so the kernels that call it directly are
+// covered), every wait, every putmem_block, the barriers' signals and
+// waits, and the puts, reads and writes a kernel marks with TDT_TRACE_PUT,
+// TDT_TRACE_READ and TDT_TRACE_WRITE append one fixed-size record (a global sequence number
+// from one atomicAdd, rank, lane, kind, word address, value, dst and src
+// address, bytes, and the launch it came from) to a log in device memory.
+// A traced wait records and
+// returns true at once: it neither spins nor consumes, so a broken protocol
+// runs to its end and the checker (analysis/checker.py) decides, over the
+// whole log, what would starve or deadlock. Without the switch the marks
+// compile to nothing and every kernel is what it was.
 
 #pragma once
 
@@ -77,6 +91,7 @@ enum Kernel : int {
   kAgMoe2d = 20,
   kRingAttnFwd = 21,
   kRingAttnBwd = 22,
+  kGallery = 23,
 };
 
 // The n base pointers of one symmetric buffer, rank r's at ptr[r].
@@ -108,6 +123,10 @@ inline PeerTable make_table(const void* const* ptrs, int n) {
   return t;
 }
 
+#ifdef TDT_SHMEM_TRACE
+__global__ void trace_next_launch();  // the traced build's log, below
+#endif
+
 // One launch covering every rank: cooperative, so a grid whose blocks
 // cannot all be resident at once is refused at launch (a spin would
 // otherwise wait on a block that never runs). Each argument is converted to the kernel's
@@ -122,6 +141,9 @@ inline int launch_cooperative(void (*kernel)(KArgs...), dim3 grid, dim3 block, s
     int i = 0;
     ((params[i++] = static_cast<void*>(&v)), ...);
   }, values);
+#ifdef TDT_SHMEM_TRACE
+  trace_next_launch<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+#endif
   const cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid,
                                                     block, params, smem,
                                                     static_cast<cudaStream_t>(stream));
@@ -184,6 +206,87 @@ __device__ __forceinline__ T* symm_at(const PeerTable& t, int pe) {
 }
 
 // ---------------------------------------------------------------------------
+// the traced build's log
+// ---------------------------------------------------------------------------
+
+// record kinds (analysis/capture.py TRACE_KINDS)
+enum TraceKind : int {
+  kTrSignal = 1,
+  kTrSignalSet = 2,
+  kTrWait = 3,
+  kTrWaitPeek = 4,
+  kTrPut = 5,
+  kTrRead = 6,
+  kTrWrite = 7,
+};
+constexpr int kTraceWords = 10;  // int64 words a record
+
+#ifdef TDT_SHMEM_TRACE
+// the log: records of kTraceWords int64 each, the count of records taken
+// (past `capacity` they are counted, not written: the host raises), and
+// the launch counter, which every cooperative launch of a traced library
+// raises by one before it starts (launch_cooperative)
+struct TraceLog {
+  long long* rec;
+  unsigned long long* count;
+  long long capacity;
+  unsigned long long* launch;
+};
+__device__ TraceLog g_trace_log;
+
+__global__ void trace_next_launch() {
+  if (g_trace_log.launch != nullptr) atomicAdd(g_trace_log.launch, 1ULL);
+}
+
+// one record from the calling thread: seq, rank, lane, kind, word, value,
+// dst, src, bytes
+__device__ __noinline__ void trace_record(int kind, const void* word, long long value,
+                                          const void* dst, const void* src, long long bytes) {
+  if (g_trace_log.count == nullptr || g_trace_log.launch == nullptr) return;
+  const unsigned long long i = atomicAdd(g_trace_log.count, 1ULL);
+  if ((long long)i >= g_trace_log.capacity) return;
+  long long* r = g_trace_log.rec + i * kTraceWords;
+  r[0] = (long long)i;
+  r[1] = blockIdx.y;
+  r[2] = blockIdx.x;
+  r[3] = kind;
+  r[4] = reinterpret_cast<long long>(word);
+  r[5] = value;
+  r[6] = reinterpret_cast<long long>(dst);
+  r[7] = reinterpret_cast<long long>(src);
+  r[8] = bytes;
+  r[9] = (long long)*reinterpret_cast<volatile unsigned long long*>(g_trace_log.launch);
+}
+#define TDT_TRACE(...) ::tdt_shmem::trace_record(__VA_ARGS__)
+// a read or write of [ptr, ptr + bytes) that the ordering rule checks, and
+// a put written as a kernel's own copy loop (putmem_block logs itself); all
+// threads of the block call them, thread 0 records
+#define TDT_TRACE_PUT(dst, src, bytes)                                            \
+  do {                                                                            \
+    if (threadIdx.x == 0)                                                         \
+      ::tdt_shmem::trace_record(::tdt_shmem::kTrPut, nullptr, 0, (dst), (src),     \
+                                (long long)(bytes));                              \
+  } while (0)
+#define TDT_TRACE_READ(ptr, bytes)                                                \
+  do {                                                                            \
+    if (threadIdx.x == 0)                                                         \
+      ::tdt_shmem::trace_record(::tdt_shmem::kTrRead, nullptr, 0, nullptr, (ptr),  \
+                                (long long)(bytes));                              \
+  } while (0)
+#define TDT_TRACE_WRITE(ptr, bytes)                                               \
+  do {                                                                            \
+    if (threadIdx.x == 0)                                                         \
+      ::tdt_shmem::trace_record(::tdt_shmem::kTrWrite, nullptr, 0, (ptr), nullptr, \
+                                (long long)(bytes));                              \
+  } while (0)
+#else
+#define TDT_TRACE(...) ((void)0)
+#define TDT_TRACE_PUT(dst, src, bytes) ((void)0)
+#define TDT_TRACE_READ(ptr, bytes) ((void)0)
+#define TDT_TRACE_WRITE(ptr, bytes) ((void)0)
+#endif
+
+// ---------------------------------------------------------------------------
 // ordered loads and stores of signal words
 // ---------------------------------------------------------------------------
 
@@ -195,11 +298,13 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
 }
 
 __device__ __forceinline__ void red_release_add(int* p, int v) {
+  TDT_TRACE(kTrSignal, p, v, nullptr, nullptr, 0);
   asm volatile("red.release." TDT_SHMEM_SCOPE ".global.add.s32 [%0], %1;"
                :: "l"(p), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ void st_release(int* p, int v) {
+  TDT_TRACE(kTrSignalSet, p, v, nullptr, nullptr, 0);
   asm volatile("st.release." TDT_SHMEM_SCOPE ".global.s32 [%0], %1;"
                :: "l"(p), "r"(v) : "memory");
 }
@@ -257,9 +362,14 @@ __device__ __noinline__ void report_starved(const Launch& L, int signal) {
 // one thread: spin until `*sig >= value` (acquire), then, with `consume`,
 // take `value` back off the word as the TPU's semaphore wait does. Returns
 // false, after reporting, when the budget runs out or another block of the
-// launch has already reported.
+// launch has already reported. The traced build records the wait and
+// returns true.
 __device__ __noinline__ bool signal_wait_until(int* sig, int value, bool consume,
                                                const Launch& L, int signal) {
+#ifdef TDT_SHMEM_TRACE
+  TDT_TRACE(consume ? kTrWait : kTrWaitPeek, sig, value, nullptr, nullptr, 0);
+  return true;
+#endif
   const unsigned long long t0 = global_ns();
   for (unsigned polls = 1; ld_acquire(sig) < value; ++polls) {
     if (polls % 64 == 0) {
@@ -302,6 +412,7 @@ __device__ __forceinline__ bool wait_block(int* sig, int value, bool consume, co
 // a time where both are 16-byte aligned; the source is read through L2, so a
 // segment that another block delivered is never read stale
 __device__ __forceinline__ void putmem_block(void* dst, const void* src, long long nbytes) {
+  if (threadIdx.x == 0) TDT_TRACE(kTrPut, nullptr, 0, dst, src, nbytes);
   const bool vec = ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) % 16) == 0;
   long long done = 0;
   if (vec) {
@@ -394,6 +505,18 @@ __device__ __forceinline__ bool barrier_pair_block(const PeerTable& pads, int wo
 __device__ __forceinline__ int count_word(int s) { return gridDim.x + s; }
 __device__ __forceinline__ int finish_word() { return gridDim.x + gridDim.y; }
 
+// One thread: this block's arrival on a finish word counted by `lanes`
+// blocks; true for the last to arrive. The traced build logs the arrival as
+// a signal of 1 and the last block's decision as a wait that takes all
+// `lanes` arrivals: what the last block does next happens after every
+// block's arrival.
+__device__ __forceinline__ bool arrive_last(int* finish, int lanes) {
+  TDT_TRACE(kTrSignal, finish, 1, nullptr, nullptr, 0);
+  const bool last = atomicAdd(finish, 1) == lanes - 1;
+  if (last) TDT_TRACE(kTrWait, finish, lanes, nullptr, nullptr, 0);
+  return last;
+}
+
 // The end of the call for one block, which reads no count of its rank's pad
 // any more: the last block of the rank to get here waits until the count of
 // every segment but `skip` holds `value`, consumes them all and zeroes the
@@ -405,7 +528,7 @@ __device__ __noinline__ bool finish_block(int* pad, int value, int skip, const L
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
-    last = atomicAdd(pad + finish_word(), 1) == (int)gridDim.x - 1;
+    last = arrive_last(pad + finish_word(), (int)gridDim.x);
   }
   __syncthreads();
   if (!last) return true;
@@ -418,6 +541,19 @@ __device__ __noinline__ bool finish_block(int* pad, int value, int skip, const L
 }
 
 }  // namespace tdt_shmem
+
+#ifdef TDT_SHMEM_TRACE
+// Point the traced library's kernels at a log: `records` holds `capacity`
+// records of kTraceWords int64, `count` the number taken, `launch` the
+// launch counter (zero both before a capture). Returns the cudaError_t of
+// the copy.
+extern "C" int tdt_trace_attach(void* records, void* count, long long capacity, void* launch) {
+  const tdt_shmem::TraceLog log{static_cast<long long*>(records),
+                                static_cast<unsigned long long*>(count), capacity,
+                                static_cast<unsigned long long*>(launch)};
+  return (int)cudaMemcpyToSymbol(tdt_shmem::g_trace_log, &log, sizeof(log));
+}
+#endif
 
 // The names of the reference's distributed language (language.py's dl.*).
 namespace dl {

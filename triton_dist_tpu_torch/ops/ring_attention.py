@@ -42,7 +42,8 @@ from triton_dist_tpu_torch.shmem import device as shd
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-HEAD_DIM = 128                     # the kernels' head dim
+HEAD_DIM = 128                     # a head dim is a multiple of it (a lane)
+KERNEL_HEAD_DIMS = (128, 256)      # the head dims the kernels are built for
 TILE = 64                          # the kernels' rows of a query or key tile
 LAYOUTS = ("contiguous", "zigzag")
 
@@ -62,11 +63,11 @@ _SIGNATURES = {
     **{n: [_P] * 5 + [_I] * 6 + [_P] for n in _FWD.values()},
     # q k v o lse do delta dq dk dv | B Hq Hkv S D causal | scale stream
     **{n: [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P] for n in _BWD.values()},
-    # ... lanes group silent | claim report budget stream
-    **{n: _RING_HEAD + [_I, _P, _I] + shd.LAUNCH_SIG
+    # ... D lanes group silent | claim report budget stream
+    **{n: _RING_HEAD + [_I, _I, _P, _I] + shd.LAUNCH_SIG
        for n in _FWD_RANKS.values()},
-    # ... scale o do delta rows lanes group silent | launch
-    **{n: _RING_HEAD + [ctypes.c_float, _P, _P, _P, _I, _I, _P, _I]
+    # ... D scale o do delta rows lanes group silent | launch
+    **{n: _RING_HEAD + [_I, ctypes.c_float, _P, _P, _P, _I, _I, _P, _I]
        + shd.LAUNCH_SIG for n in _BWD_RANKS.values()},
 }
 
@@ -120,6 +121,9 @@ def _ring_size(ctx, q, k, v, axis=None, batch_axis=None, head_axis=None,
             raise ValueError(f"ring attention: axis {axis!r}, batch_axis "
                              f"{batch_axis!r} and head_axis {head_axis!r} "
                              f"must differ")
+    if D % HEAD_DIM:
+        raise ValueError(f"ring attention: head dim {D} must be a multiple "
+                         f"of {HEAD_DIM}")
     if S % n:
         raise ValueError(f"ring attention needs S divisible by ranks: S={S}, "
                          f"ranks={n}")
@@ -228,7 +232,8 @@ def ring_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
 
 def _check_kernel_args(name: str, q, k, v, *rest) -> None:
     """What the kernels take: one CUDA device, bf16 or f32 throughout (lse
-    f32), contiguous, D = 128, Hq a multiple of Hkv, 16-byte aligned."""
+    f32), contiguous, D in KERNEL_HEAD_DIMS, Hq a multiple of Hkv, 16-byte
+    aligned."""
     tensors = (q, k, v, *rest)
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{name}: all inputs must be on one device")
@@ -237,11 +242,14 @@ def _check_kernel_args(name: str, q, k, v, *rest) -> None:
         raise TypeError(f"{name}: q/k/v must share a type in {list(_FWD)}, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if (k.dim() != 4 or k.shape[0] != B or k.shape[2:] != (S, D)
-            or v.shape != k.shape or Hq % k.shape[1] or D != HEAD_DIM
-            or S < 1):
+            or v.shape != k.shape or Hq % k.shape[1] or S < 1):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} (the "
-                         f"kernels take D = {HEAD_DIM} and Hq % Hkv == 0)")
+                         f"kernels take Hq % Hkv == 0)")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the kernels are built for head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {D} (the plain version "
+                         f"takes any multiple of {HEAD_DIM})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
@@ -311,9 +319,10 @@ def _fwd_ranks(ctx, ring, qp, k, v, causal, silent_rank):
     N = ctx.num_ranks
     out = torch.empty_like(qp)
     lse = torch.empty(qp.shape[:3], dtype=torch.float32, device=qp.device)
-    slots = torch.empty(N, 2 * 2 * BHkv * Sl * HEAD_DIM, dtype=qp.dtype,
+    D = qp.shape[3]
+    slots = torch.empty(N, 2 * 2 * BHkv * Sl * D, dtype=qp.dtype,
                         device=qp.device)
-    state = torch.empty(N, BH * Sl * (HEAD_DIM + 2), dtype=torch.float32,
+    state = torch.empty(N, BH * Sl * (D + 2), dtype=torch.float32,
                         device=qp.device)
     lanes = BH * -(-Sl // TILE)
     pad = family_pad(ctx, "ring_attn_fwd", ring.axis, lanes + 3 * ring.n + 1)
@@ -326,7 +335,7 @@ def _fwd_ranks(ctx, ring, qp, k, v, causal, silent_rank):
     args = shd.launch_args(ctx)
     with csrc.current_on(qp.device):
         rc = getattr(lib, _FWD_RANKS[qp.dtype])(
-            tables, N, ring.shape(causal), ring.strides, lanes,
+            tables, N, ring.shape(causal), ring.strides, D, lanes,
             ctypes.byref(ring.group),
             -1 if silent_rank is None else int(silent_rank), *args)
     csrc.check(lib, rc, "ring_attention_fwd")
@@ -343,8 +352,8 @@ def ring_attention_fwd(ctx, q, k, v, axis=None, causal: bool = True,
     ``(out [B, Hq, S, D] in q's type, lse [B, Hq, S] f32)`` in the same
     layout.
 
-    A CPU tensor runs the plain version. A CUDA tensor (bf16 or f32, D =
-    128) launches a kernel or raises: the one-rank kernel on the whole
+    A CPU tensor runs the plain version. A CUDA tensor (bf16 or f32, D in
+    ``KERNEL_HEAD_DIMS``) launches a kernel or raises: the one-rank kernel on the whole
     sequence when the ring has one rank, else the ring across every rank
     of the mesh. Each launch adds one to ``ring_attention_fwd.launches``,
     each ring launch also to ``ring_attention_fwd.launches_ring``.
@@ -389,10 +398,11 @@ def _bwd_ranks(ctx, ring, qp, k, v, o, lse, do, causal, scale, silent_rank):
     dev = qp.device
     delta = torch.empty(lse.shape, dtype=torch.float32, device=dev)
     dq, dk, dv = torch.empty_like(qp), torch.empty_like(k), torch.empty_like(v)
-    slot = 2 * 2 * BHkv * Sl * HEAD_DIM
+    D = qp.shape[3]
+    slot = 2 * 2 * BHkv * Sl * D
     slots = torch.empty(N, slot, dtype=qp.dtype, device=dev)
     gslots = torch.empty(N, slot, dtype=torch.float32, device=dev)
-    dq_acc = torch.empty(N, BH * Sl * HEAD_DIM, dtype=torch.float32,
+    dq_acc = torch.empty(N, BH * Sl * D, dtype=torch.float32,
                          device=dev)
     nt = -(-Sl // TILE)
     lanes = max(BH, BHkv) * nt
@@ -408,7 +418,7 @@ def _bwd_ranks(ctx, ring, qp, k, v, o, lse, do, causal, scale, silent_rank):
     args = shd.launch_args(ctx)
     with csrc.current_on(dev):
         rc = getattr(lib, _BWD_RANKS[qp.dtype])(
-            tables, N, ring.shape(causal), ring.strides, scale, o.data_ptr(),
+            tables, N, ring.shape(causal), ring.strides, D, scale, o.data_ptr(),
             do.data_ptr(), delta.data_ptr(), delta.numel(), lanes,
             ctypes.byref(ring.group),
             -1 if silent_rank is None else int(silent_rank), *args)
@@ -515,7 +525,7 @@ def zigzag_indices(S: int, n: int):
     return idx, inv
 
 
-__all__ = ["HEAD_DIM", "LAYOUTS", "LN2", "LOG2E", "NEG_INF", "TILE",
+__all__ = ["HEAD_DIM", "KERNEL_HEAD_DIMS", "LAYOUTS", "LN2", "LOG2E", "NEG_INF", "TILE",
            "ring_attention", "ring_attention_bwd", "ring_attention_bwd_plain",
            "ring_attention_fwd", "ring_attention_fwd_plain",
            "zigzag_indices"]

@@ -116,9 +116,9 @@ def _check_plan(cfg, plan: ParallelPlan, ctx) -> None:
                          "disable pp")
     if plan.cp is not None and plan.sp:
         raise ValueError("cp shards the sequence dim; disable sp")
-    if plan.cp is not None and cfg.head_dim != HEAD_DIM:
-        raise ValueError(f"ring attention needs head_dim {HEAD_DIM}, got "
-                         f"{cfg.head_dim}")
+    if plan.cp is not None and cfg.head_dim % HEAD_DIM:
+        raise ValueError(f"ring attention needs a head_dim that is a "
+                         f"multiple of {HEAD_DIM}, got {cfg.head_dim}")
     if plan.pp is not None and cfg.n_layers % _size(ctx, plan.pp):
         raise ValueError(f"{cfg.n_layers} layers do not split into "
                          f"{_size(ctx, plan.pp)} pipeline stages")

@@ -35,6 +35,16 @@ SPIN_BUDGET_S = 1.0
 # whichever context launched it, and the report does not say which
 _LIVE: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
 
+# callables shown every tensor a kernel's peer table is made of and every
+# signal pad made, as ``watcher(tensor, family)`` (family None for a
+# buffer): analysis/capture.py names the addresses of a traced log by them
+WATCHERS: list = []
+
+
+def watch(tensor: torch.Tensor, family: str | None = None) -> None:
+    for watcher in WATCHERS:
+        watcher(tensor, family)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShmemContext:
@@ -152,6 +162,7 @@ class ShmemContext:
             raise ValueError(f"a symmetric tensor is contiguous [n = "
                              f"{self.num_ranks}, ...], got "
                              f"{tuple(symm.shape)}")
+        watch(symm)
         step = symm.numel() // self.num_ranks * symm.element_size()
         return tuple(symm.data_ptr() + r * step
                      for r in range(self.num_ranks))
@@ -165,6 +176,7 @@ class ShmemContext:
             pad = torch.zeros(self.num_ranks, max(words, 64),
                               dtype=torch.int32, device=self.device)
             self._pads[family] = pad
+            watch(pad, family)
         return pad
 
     def clear_signal_pads(self) -> None:

@@ -42,7 +42,7 @@ import torch
 
 from triton_dist_tpu_torch import csrc
 from triton_dist_tpu_torch.shmem.context import (MAX_RANKS, SPIN_BUDGET_S,
-                                                 clear_live_signal_pads)
+                                                 clear_live_signal_pads, watch)
 
 # csrc/shmem.cuh's Kernel ids
 KERNELS = {1: "barrier_all_op", 2: "ring_ping", 3: "all_gather push",
@@ -53,7 +53,8 @@ KERNELS = {1: "barrier_all_op", 2: "ring_ping", 3: "all_gather push",
            14: "ag_moe_group_gemm", 15: "moe_reduce_rs",
            16: "all_gather_ll", 17: "all_gather push_2d", 18: "broadcast",
            19: "ag_gemm 2-tier", 20: "ag_moe_group_gemm 2-tier",
-           21: "ring_attention_fwd", 22: "ring_attention_bwd"}
+           21: "ring_attention_fwd", 22: "ring_attention_bwd",
+           23: "sigcheck gallery"}
 _REPORT_WORDS = 4
 
 _P = ctypes.c_void_p
@@ -155,6 +156,7 @@ def group_rows(ctx, x, axis, offsets=None):
     if x.shape[0] != max(ids) + 1 or not x.is_contiguous():
         raise ValueError(f"one result a group is contiguous [{max(ids) + 1},"
                          f" ...] over {axis!r}, got {tuple(x.shape)}")
+    watch(x)
     step = x.numel() // x.shape[0] * x.element_size()
     return (ctypes.c_void_p * ctx.num_ranks)(*(
         x.data_ptr() + g * step + (offsets[r] if offsets else 0)
@@ -285,6 +287,7 @@ def group_table(ctx, x, axis):
     if x.shape[0] != n or not x.is_contiguous():
         raise ValueError(f"a sharded input is contiguous [{n}, ...] over "
                          f"{axis!r}, got {tuple(x.shape)}")
+    watch(x)
     step = x.numel() // n * x.element_size()
     base = x.data_ptr()
     return (ctypes.c_void_p * ctx.num_ranks)(*(base + i * step
